@@ -10,9 +10,10 @@ Phases (any failure exits non-zero and prints no success line):
      nvcc for sm_90a (one nvcc per source, started together);
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card at the serve path's shapes (plus an f32, a ragged and a long
-     case), with its device time (torch.profiler) and wall time (CUDA
-     events), the same for the plain version and for one PyTorch library
-     call as a yardstick, and the least time the card could take;
+     case), with its device time (CUDA events around calls queued behind
+     a busy card) and wall time (CUDA events, host gaps included), the
+     same for the plain version and for one PyTorch library call as a
+     yardstick, and the least time the card could take;
   4. small input: the serve path at smoke size on the card (kernels)
      against the same weights on the CPU (plain versions);
   5. full serve: ``repro_torch.launch.serve`` for llama-moe-3.5b at its
@@ -20,7 +21,22 @@ Phases (any failure exits non-zero and prints no success line):
      with every kernel's launch count over that run checked;
   6. profile: where a full-width decode step's time goes (torch.profiler:
      device busy share, kernel time by name);
-  7. the ``kernels`` JSON line, the card line, then the result line.
+  7. fleet: the request-level fleet simulator (``repro_torch.traffic
+     .FleetSim``) on the paper's world (33 x 32 satellites, 200 slots,
+     llama-moe-3.5b's 32 MoE layers, 8 experts top-2, 3 plans, ~132
+     requests, analytic service, ``QueueConfig()``): built on the card,
+     ``run()`` with the launch counts of ``deposit`` and ``backlog_scan``
+     checked, the device busy share of one ``run()``, ``run_many`` over
+     11 thinning fractions, and the CPU (plain versions) held to the card
+     on ``run()`` and on the two smallest fractions, which must serve
+     requests;
+  8. fleet kernels: ``deposit`` and ``backlog_scan`` on the inputs that
+     ``run()`` gave them, each against its plain version (bitwise), with
+     device times, the plain version's and the library call's time, and
+     the least time the card could take;
+  9. the ``kernels`` JSON line (all four kernels; launches counted over
+     the serve run for gmm/decode_attention and over the fleet ``run()``
+     for deposit/backlog_scan), the card line, then the result line.
 
 Imports nothing of JAX and nothing of the ``repro`` package.
 """
@@ -39,7 +55,12 @@ ARCH = "llama-moe-3.5b"
 BATCH, PROMPT, DECODE = 4, 32, 16
 # H100 SXM data sheet: HBM rate and dense peak rates by type.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float64": 34e12}
+# Load-to-use latency of device memory assumed for the serial bound of a
+# recursion that waited on each load (order of magnitude, not measured).
+DRAM_LATENCY_S = 600e-9
+# Thinning fractions of the fleet sweep (benchmarks/bench_fleet.py).
+FLEET_FRACTIONS = (0.1, 0.15, 0.2, 0.25, 0.3, 0.35, 0.4, 0.5, 0.6, 0.8, 1.0)
 
 
 class SmokeFailure(RuntimeError):
@@ -68,34 +89,79 @@ def device_times(prof, n_calls: int) -> list[tuple[float, float, str]]:
             for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA]
 
 
-def time_ms(torch, fn, iters: int, warmup: int = 3) -> tuple[float, float]:
-    """(device ms, wall ms) per call of ``fn()``.
+def _events(torch, n: int):
+    return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
 
-    Device ms: the summed time of the kernels ``fn`` launched, from
-    torch.profiler (for small kernels the host's launch gaps would
-    otherwise count).  Wall ms: CUDA events around ``iters`` back-to-back
-    calls, host gaps included.
+
+_SPIN_CYCLES_PER_MS: list[float] = []
+
+
+def spin_cycles_per_ms(torch) -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per millisecond on the card."""
+    if not _SPIN_CYCLES_PER_MS:
+        start, end = _events(torch, 2)
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        end.synchronize()
+        _SPIN_CYCLES_PER_MS.append(20_000_000 / start.elapsed_time(end))
+    return _SPIN_CYCLES_PER_MS[0]
+
+
+def time_ms(torch, fn, iters: int, warmup: int = 3) -> tuple[float, float, bool]:
+    """(device ms, wall ms, hidden) per call of ``fn()``.
+
+    Wall ms: CUDA events around ``iters`` back-to-back calls, host gaps
+    included.  Device ms: the same calls queued behind a spin kernel
+    that keeps the card busy for twice their wall time, so that the
+    events bracket the card's own work.  ``hidden`` says the host had
+    queued every call before the spin ended, which makes device ms the
+    card's time alone; a function that waits on the card inside (or
+    whose calls take over a second) is not hidden, and its device ms
+    includes host gaps.  (Per-window ``torch.profiler`` sums are not used
+    here: late in this script short windows have come back with part or
+    none of their kernels.)
     """
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+    start, end, spin = _events(torch, 3)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
     wall = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    dev = sum(t[0] for t in device_times(prof, iters))
-    if dev <= 0:
-        raise SmokeFailure("torch.profiler recorded no device time")
-    return dev, wall
+    if wall * iters > 1000.0:
+        return wall, wall, False
+    spin.record()
+    torch.cuda._sleep(int(2.0 * wall * iters * spin_cycles_per_ms(torch)))
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t_host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    end.synchronize()
+    hidden = t_host_ms < 0.9 * spin.elapsed_time(start)
+    return start.elapsed_time(end) / iters, wall, hidden
+
+
+def event_ms(torch, fn, iters: int = 1, warm: bool = True) -> float:
+    """Wall ms per call of ``fn()`` from CUDA events around ``iters``
+    back-to-back calls (after one warm call if ``warm``), host gaps
+    included."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    start, end = _events(torch, 2)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -138,7 +204,8 @@ def timed_record(torch, rec, kernel, plain, library, iters) -> dict:
     """``rec`` with device and wall times of the kernel, its plain version
     and the library call."""
     for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
-        rec[key + "ms"], rec[key + "wall_ms"] = time_ms(torch, fn, iters)
+        rec[key + "ms"], rec[key + "wall_ms"], rec[key + "hidden"] = \
+            time_ms(torch, fn, iters)
     return rec
 
 
@@ -304,7 +371,7 @@ def phase_serve(torch, card: str) -> dict[str, int]:
     want = {"gmm": 3 * cfg.n_layers * (2 + DECODE),
             "decode_attention": cfg.n_layers * DECODE}
     log(f"launch counts {json.dumps(counts)} (expected {json.dumps(want)})")
-    if counts != want:
+    if {k: counts[k] for k in want} != want:
         raise SmokeFailure(f"launch counts {counts} != expected {want}")
     return counts
 
@@ -351,6 +418,297 @@ def phase_profile(torch, n_steps: int = 4) -> None:
         log(f"profile:   {ms:8.3f} ms/step {calls:6.0f} calls/step  {name[:90]}")
 
 
+# --------------------------------------------------------------------- #
+# Phase 7: the fleet simulator on the paper's world
+# --------------------------------------------------------------------- #
+
+
+def fleet_world():
+    """The paper's constellation, llama-moe-3.5b's MoE shape, 3 plans and
+    a 60 s trace at 2 requests/s (seeded)."""
+    import numpy as np
+
+    from repro_torch import core
+    from repro_torch.traffic import sample_requests
+    t0 = time.perf_counter()
+    con = core.Constellation(core.ConstellationConfig())
+    topo = core.sample_topology(con, core.LinkConfig(),
+                                np.random.default_rng(0))
+    t_topo = time.perf_counter() - t0
+    act = core.ActivationModel.zipf(32, 8, 2, seed=0)
+    rng = np.random.default_rng(3)
+    plans = [core.spacemoe_plan(con, topo, act),
+             core.rand_intra_cg_plan(con.cfg, 32, 8, rng),
+             core.rand_place_plan(con.cfg, 32, 8, rng)]
+    req = sample_requests(np.random.default_rng(8), rate_rps=2.0,
+                          horizon_s=60.0, n_stations=1)
+    log(f"fleet world: {con.cfg.n_sats} satellites, {topo.n_slots} slots, "
+        f"topology {t_topo:.1f}s, plans {time.perf_counter() - t0 - t_topo:.1f}s; "
+        f"R={req.n_requests} requests, N={req.total_decode_tokens} decode "
+        f"tokens")
+    return topo, act, plans, req
+
+
+def build_fleet(world, device, seed=5):
+    """``FleetSim`` over ``world``; ``seed`` seeds the engine's expert
+    draws, which set the unloaded horizon and so T."""
+    import numpy as np
+
+    from repro_torch import core
+    from repro_torch.traffic import FleetSim, QueueConfig
+    topo, act, plans, req = world
+    t0 = time.perf_counter()
+    sim = FleetSim(plans, topo, act, core.MoEWorkload.llama_moe_3p5b(),
+                   core.ComputeConfig(), req, np.random.default_rng(seed),
+                   qcfg=QueueConfig(), device=device)
+    if device == "cuda":
+        torch_sync()
+    return sim, time.perf_counter() - t0
+
+
+def torch_sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+def assert_parity(res_a, res_b, what, rtol=1e-5) -> int:
+    """The reference's fused-vs-legacy criterion: identical served sets,
+    goodput to 1e-9, TTFT/E2E per request and as quantiles to rtol; and
+    each token's latency (queueing included, finite whether or not its
+    request was served) to rtol.  Returns the requests served, summed
+    over the plans."""
+    import numpy as np
+    for pa, pb in zip(res_a.plans, res_b.plans, strict=True):
+        ok = np.array_equal(pa.served, pb.served) and np.isclose(
+            pa.goodput_tok_s, pb.goodput_tok_s, rtol=1e-9, atol=0.0)
+        for arr in ("ttft_s", "e2e_s", "token_total_s"):
+            ok = ok and np.allclose(getattr(pa, arr), getattr(pb, arr),
+                                    rtol=rtol, atol=0.0, equal_nan=True)
+        for which in ("ttft", "e2e", "tpot"):
+            for q in (0.5, 0.99):
+                a, b = pa.quantile(which, q), pb.quantile(which, q)
+                ok = ok and ((np.isnan(a) and np.isnan(b))
+                             or bool(np.isclose(a, b, rtol=rtol)))
+        if not ok:
+            raise SmokeFailure(f"{what}: plan {pa.plan_name} differs")
+    return sum(int(p.served.sum()) for p in res_a.plans)
+
+
+def phase_fleet(torch) -> tuple[dict, dict, dict]:
+    """Returns (launch counts of run(), the kernels' captured inputs, their
+    device ms per launch in the profiled run())."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.traffic import queueing
+    world = fleet_world()
+    sim, t_build = build_fleet(world, "cuda")
+    n_real = sim._f_req.size
+    log(f"fleet FleetSim on the card: T={sim.n_bins} bins, "
+        f"{sim.n_rows} compact rows, {n_real} chunks, built in "
+        f"{t_build:.1f}s")
+    for seed in (0, 13):               # T moves with the draws' seed
+        other, _ = build_fleet(world, "cuda", seed=seed)
+        log(f"fleet FleetSim with draw seed {seed}: T={other.n_bins} bins, "
+            f"{other.n_rows} compact rows, {other._f_req.size} chunks")
+        del other
+
+    # Capture the inputs run() gives each kernel (the wrappers still count).
+    captured: dict = {}
+    real_deposit, real_scan = queueing.deposit, queueing.backlog_scan
+
+    def deposit_rec(rows, cols, vals, n_rows, n_cols, row_ptr):
+        captured.setdefault("deposit", (
+            rows.clone(), cols.clone(), vals.clone(), n_rows, n_cols,
+            row_ptr.clone()))
+        return real_deposit(rows, cols, vals, n_rows, n_cols,
+                            row_ptr=row_ptr)
+
+    def scan_rec(work, cap, dt):
+        captured.setdefault("backlog_scan", (work.clone(), cap, dt))
+        return real_scan(work, cap, dt)
+
+    queueing.deposit, queueing.backlog_scan = deposit_rec, scan_rec
+    try:
+        ops.reset_launch_counts()
+        res = sim.run()
+        torch_sync()
+        counts = ops.launch_counts()
+    finally:
+        queueing.deposit, queueing.backlog_scan = real_deposit, real_scan
+    want = {"deposit": 2, "backlog_scan": 3}       # iterations=3: 2 + 3
+    log(f"fleet run() launch counts {json.dumps(counts)} (expected "
+        f"{json.dumps(want)} for iterations={sim.qcfg.iterations})")
+    if {k: counts[k] for k in want} != want:
+        raise SmokeFailure(f"fleet launch counts {counts} != {want}")
+
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        again = sim.run()
+        torch_sync()
+        walls.append(time.perf_counter() - t0)
+    assert_parity(res, again, "card run() vs card run()", rtol=0.0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run()
+        torch_sync()
+        prof_wall = time.perf_counter() - t0
+    kernels = device_times(prof, 1)
+    in_run = {name: ms / calls for ms, calls, key in kernels
+              for name in ("deposit", "backlog_scan")
+              if f"{name}_kernel" in key}
+    seen = {name: calls for _, calls, key in kernels
+            for name in want if f"{name}_kernel" in key}
+    if seen != want:
+        raise SmokeFailure(f"the profiled fleet run() recorded launches "
+                           f"{seen}, not {want}: its busy share would be "
+                           "short")
+    busy = sum(k[0] for k in kernels) / 1e3
+    log(f"fleet run(): {min(walls) * 1e3:.1f} ms wall (best of 2, "
+        f"synchronized); under the profiler {prof_wall * 1e3:.1f} ms wall, "
+        f"device kernels {busy * 1e3:.1f} ms -> device busy "
+        f"{busy / prof_wall:.1%}, idle {1 - busy / prof_wall:.1%} "
+        f"({sum(k[1] for k in kernels):.0f} kernel launches)")
+    for ms, calls, name in sorted(kernels, reverse=True)[:10]:
+        log(f"fleet profile: {ms:9.3f} ms {calls:6.0f} calls  {name[:80]}")
+    for p in res.plans:
+        log(f"fleet plan {p.plan_name}: served {int(p.served.sum())}/"
+            f"{int(p.active.sum())}, goodput {p.goodput_tok_s:.3f} tok/s, "
+            f"TTFT p50 {p.quantile('ttft', 0.5):.3f} s p99 "
+            f"{p.quantile('ttft', 0.99):.3f} s, E2E p99 "
+            f"{p.quantile('e2e', 0.99):.3f} s")
+        r = sim.n_requests
+        ok = (p.served.shape == p.ttft_s.shape == p.e2e_s.shape == (r,)
+              and np.isfinite(p.ttft_s[p.served]).all()
+              and np.isnan(p.ttft_s[~p.served]).all()
+              and (p.e2e_s[p.served] >= p.ttft_s[p.served]).all()
+              and np.isfinite(p.token_total_s).all())
+        if not ok:
+            raise SmokeFailure(f"fleet plan {p.plan_name}: outputs of the "
+                               "wrong shape or non-finite where served")
+
+    # run_many over the bench_fleet thinning fractions.
+    u = np.random.default_rng(1).random(sim.n_requests)
+    masks = u[None, :] < np.asarray(FLEET_FRACTIONS)[:, None]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    many = sim.run_many(masks)
+    torch_sync()
+    t_many = time.perf_counter() - t0
+    many_counts = ops.launch_counts()
+    log(f"fleet run_many over {len(FLEET_FRACTIONS)} fractions: "
+        f"{t_many * 1e3:.1f} ms wall (synchronized), launch counts "
+        f"{json.dumps(many_counts)}")
+    if {k: many_counts[k] for k in want} != want:
+        raise SmokeFailure(f"run_many launch counts {many_counts} != {want}")
+    for frac, r in zip(FLEET_FRACTIONS, many):
+        p = r.plans[0]
+        log(f"fleet sweep {frac:.2f}: offered {p.offered_rps:.3f} rps, "
+            f"served {sum(int(q.served.sum()) for q in r.plans)} over the "
+            f"plans, {p.plan_name} goodput {p.goodput_tok_s:.3f} tok/s, "
+            f"TTFT p99 {p.quantile('ttft', 0.99):.3f} s")
+    assert_parity(many[-1], res, "run_many(fraction 1.0) vs run()",
+                  rtol=1e-12)
+
+    # The card against the CPU's plain versions: the full run() (in this
+    # world every request overflows at the full rate, so there only the
+    # per-token latencies carry numbers) and the two smallest fractions,
+    # which must serve some.
+    cpu_sim, t_cpu_build = build_fleet(world, "cpu")
+    t0 = time.perf_counter()
+    res_cpu = cpu_sim.run()
+    t_cpu = time.perf_counter() - t0
+    for what, got, want_res in [("run()", res, res_cpu)] + [
+            (f"run_many row {FLEET_FRACTIONS[i]:.2f}", many[i],
+             cpu_sim.run(active=masks[i])) for i in (0, 1)]:
+        served = assert_parity(want_res, got, f"card {what} vs CPU")
+        exact = all(
+            np.array_equal(getattr(a, k), getattr(b, k), equal_nan=True)
+            for a, b in zip(want_res.plans, got.plans)
+            for k in ("ttft_s", "e2e_s", "token_total_s"))
+        log(f"fleet card vs CPU {what}: parity holds, {served} requests "
+            f"served over the plans on both, bitwise equal: {exact}")
+        if what != "run()" and served == 0:
+            raise SmokeFailure(f"fleet card vs CPU {what}: no request "
+                               "served, the comparison would be empty")
+    log(f"fleet CPU construction {t_cpu_build:.1f}s, CPU run() {t_cpu:.1f}s")
+    return counts, captured, in_run
+
+
+# --------------------------------------------------------------------- #
+# Phase 8: the fleet kernels on the inputs run() gave them
+# --------------------------------------------------------------------- #
+
+
+def phase_fleet_kernels(torch, captured, in_run) -> dict[str, dict]:
+    """Each fleet kernel against its plain version on the inputs run()
+    gave it.  ``in_run``: device ms per launch inside the profiled run()
+    (printed beside the kernel's own time)."""
+    from repro_torch.kernels import backlog_scan, deposit
+    rows, cols, vals, n_rows, n_cols, row_ptr = captured["deposit"]
+    got = deposit.deposit(rows, cols, vals, n_rows, n_cols, row_ptr=row_ptr)
+    torch.cuda.synchronize()
+    want = deposit.deposit_plain(rows, cols, vals, n_rows, n_cols)
+    same = bool(torch.equal(got, want))
+    n_real = int(row_ptr[-1])
+    # What the function must move: each real triple's bin and value
+    # (int64 + f64; rows are implied by row_ptr, the padding is not read),
+    # row_ptr, and the f64 plane written once.
+    nbytes = 16 * n_real + 8 * (n_rows + 1) + 8 * n_rows * n_cols
+    b_ms, b_by = bound(nbytes, n_real, "float64")
+    flat = rows * n_cols + cols
+
+    def library():
+        return torch.zeros(n_rows * n_cols, dtype=torch.float64,
+                           device="cuda").index_put_((flat,), vals,
+                                                     accumulate=True)
+    dep = timed_record(
+        torch, {"name": "deposit",
+                "shape": f"{n_real} triples (+{rows.numel() - n_real} "
+                         f"padding) into {n_rows} x {n_cols} f64",
+                "max_abs_err": float((got - want).abs().max()),
+                "tol": 0.0, "ok": same, "bound_ms": b_ms, "bound_by": b_by},
+        kernel=lambda: deposit.deposit(rows, cols, vals, n_rows, n_cols,
+                                       row_ptr=row_ptr),
+        plain=lambda: deposit.deposit_plain(rows, cols, vals, n_rows, n_cols),
+        library=library, iters=5)
+    dep["in_run_ms"] = in_run["deposit"]
+    log("kernel " + json.dumps(dep))
+
+    work, cap, dt = captured["backlog_scan"]
+    ms, wall_ms, hidden = time_ms(torch, lambda: backlog_scan.backlog_scan(
+        work, cap, dt), iters=5)
+    got = backlog_scan.backlog_scan(work, cap, dt)
+    torch.cuda.synchronize()
+    want = None
+
+    def plain():
+        nonlocal want
+        want = backlog_scan.backlog_scan_plain(work, cap, dt)
+    plain_ms = event_ms(torch, plain, iters=1, warm=False)
+    same_scan = bool(torch.equal(got, want))
+    t_bins, n_cols_scan = work.shape
+    b_ms, b_by = bound(8 * work.numel(), 4 * work.numel(), "float32")
+    scan = {"name": "backlog_scan",
+            "shape": f"({t_bins}, {n_cols_scan}) f32 time-major",
+            "max_abs_err": float((got - want).abs().max()), "tol": 0.0,
+            "ok": same_scan, "bound_ms": b_ms, "bound_by": b_by,
+            "serial_dram_ms": t_bins * DRAM_LATENCY_S * 1e3,
+            "ms": ms, "wall_ms": wall_ms, "hidden": hidden,
+            "plain_ms": plain_ms, "plain_wall_ms": plain_ms,
+            "plain_hidden": False, "library_ms": None,
+            "library_wall_ms": None, "in_run_ms": in_run["backlog_scan"]}
+    log("kernel " + json.dumps(scan))
+    if not (same and same_scan):
+        raise SmokeFailure(f"fleet kernels disagree with their plain "
+                           f"versions: deposit equal={same}, backlog_scan "
+                           f"equal={same_scan}")
+    return {"deposit": dep, "backlog_scan": scan}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -381,6 +739,14 @@ def main() -> int:
     phase_small(torch)
     counts = phase_serve(torch, card)
     phase_profile(torch)
+    fleet_counts, captured, in_run = phase_fleet(torch)
+    main_cases.update(phase_fleet_kernels(torch, captured, in_run))
+    mixed = [name for name, rec in main_cases.items() if not rec["hidden"]]
+    if mixed:
+        raise SmokeFailure(f"kernel device time not separable from the "
+                           f"host's: {mixed}")
+    counts = dict(counts, deposit=fleet_counts["deposit"],
+                  backlog_scan=fleet_counts["backlog_scan"])
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
@@ -389,6 +755,10 @@ def main() -> int:
                 "src/repro/kernels/moe_gmm.py:54"),
         "decode_attention": ("src/repro_torch/kernels/csrc/decode_attn.cu",
                              "src/repro/kernels/decode_attn.py:83"),
+        "deposit": ("src/repro_torch/kernels/csrc/deposit.cu",
+                    "src/repro/kernels/deposit.py:147"),
+        "backlog_scan": ("src/repro_torch/kernels/csrc/backlog_scan.cu",
+                         "src/repro/traffic/queueing.py:553"),
     }
     kernels = []
     for name, rec in main_cases.items():

@@ -1,13 +1,55 @@
-"""Host-side placement math (numpy) for the serve path's Theorem-1 step."""
-from .activation import activation_probs, esp, esp_prefix_table
+"""SpaceMoE core (counterpart of ``repro.core``): the constellation and
+its time-varying topology, the conditional-Poisson activation model, the
+two-level placement with the Theorem-1 rule, plan schedules, the
+service-time model and the batched plan-evaluation engine (PyTorch, on
+an explicit device), plus the serve path's expert->device placement.
+"""
+from .activation import (ActivationModel, activation_probs, esp,
+                         esp_prefix_table, sample_topk, subset_pmf)
+from .calibration import (ServiceModel, ServiceTable, list_tables,
+                          load_table, resolve_service_model, save_table)
+from .constellation import (EARTH_RADIUS_M, SPEED_OF_LIGHT, Constellation,
+                            ConstellationConfig)
 from .device_placement import (DevicePlacementPlan, TorusSpec,
                                expected_dispatch_cost, identity_plan,
                                plan_expert_devices)
-from .objective import layer_latency_closed_form
-from .placement import theorem1_assignment
+from .engine import (PlanBatch, ScheduleBatch, SimResult, contention_counts,
+                     evaluate_plans, evaluate_schedules, hop_latency,
+                     schedule_ingress_offsets)
+from .latency import (ComputeConfig, LinkConfig, TopologySample,
+                      expected_path_latency, gateway_distance_table,
+                      sample_topology, source_distance_table)
+from .objective import (brute_force_optimal, layer_latency_closed_form,
+                        layer_latency_monte_carlo)
+from .placement import (MultiExpertPlan, PlacementPlan, baseline_plans,
+                        central_gateway, multi_expert_plan,
+                        rand_intra_cg_plan, rand_intra_plan, rand_place_plan,
+                        rank_plans, ring_subnets, spacemoe_plan,
+                        subnet_routing_sets, theorem1_assignment)
+from .schedule import (PlanSchedule, ScheduleMigration, as_schedule,
+                       migration_between, migration_matrix, slot_of_time)
+from .workload import MoEWorkload
 
 __all__ = [
-    "activation_probs", "esp", "esp_prefix_table", "DevicePlacementPlan",
-    "TorusSpec", "expected_dispatch_cost", "identity_plan",
-    "plan_expert_devices", "layer_latency_closed_form", "theorem1_assignment",
+    "ActivationModel", "activation_probs", "esp", "esp_prefix_table",
+    "sample_topk", "subset_pmf",
+    "ServiceModel", "ServiceTable", "list_tables", "load_table",
+    "resolve_service_model", "save_table",
+    "EARTH_RADIUS_M", "SPEED_OF_LIGHT", "Constellation", "ConstellationConfig",
+    "DevicePlacementPlan", "TorusSpec", "expected_dispatch_cost",
+    "identity_plan", "plan_expert_devices",
+    "PlanBatch", "ScheduleBatch", "SimResult", "contention_counts",
+    "evaluate_plans", "evaluate_schedules", "hop_latency",
+    "schedule_ingress_offsets",
+    "ComputeConfig", "LinkConfig", "TopologySample", "expected_path_latency",
+    "gateway_distance_table", "sample_topology", "source_distance_table",
+    "brute_force_optimal", "layer_latency_closed_form",
+    "layer_latency_monte_carlo",
+    "MultiExpertPlan", "PlacementPlan", "baseline_plans", "central_gateway",
+    "multi_expert_plan", "rand_intra_cg_plan", "rand_intra_plan",
+    "rand_place_plan", "rank_plans", "ring_subnets", "spacemoe_plan",
+    "subnet_routing_sets", "theorem1_assignment",
+    "PlanSchedule", "ScheduleMigration", "as_schedule", "migration_between",
+    "migration_matrix", "slot_of_time",
+    "MoEWorkload",
 ]

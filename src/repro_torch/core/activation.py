@@ -10,10 +10,14 @@ activation probability
 
     P_i = 1 - e_K(w \\ i) / e_K(w)                            (Eq. 14).
 
-Counterpart of ``repro.core.activation`` for the serve path's placement:
-the same float64 dynamic programs, held bitwise to the reference.
+Counterpart of ``repro.core.activation``'s numpy half (the serve path's
+placement, the planners and the fleet simulator's expert draws): the same
+float64 dynamic programs and the same random stream, held bitwise to the
+reference.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -66,3 +70,112 @@ def activation_probs(weights: np.ndarray, k: int) -> np.ndarray:
         loo = esp(np.delete(ws, i), k)[k]
         probs[i] = 1.0 - loo / e_full
     return probs
+
+
+def sample_topk(
+    weights: np.ndarray, k: int, rng: np.random.Generator, n_draws: int = 1
+) -> np.ndarray:
+    """Exact conditional-Poisson samples of Eq. 12, shape (n_draws, K).
+
+    Sequential ESP-ratio method: scanning items i = I..1 with ``r`` slots
+    remaining, include item i with probability
+
+        w_i * e_{r-1}(w_1..w_{i-1}) / e_r(w_1..w_i),
+
+    which marginalizes exactly to Eq. 12.  Vectorized over draws.
+    """
+    w = np.asarray(weights, dtype=np.float64)
+    n = len(w)
+    if not (0 < k <= n):
+        raise ValueError(f"need 0 < K <= I, got K={k}, I={n}")
+    table = esp_prefix_table(w / w.mean(), k)      # scale cancels in ratios
+    ws = w / w.mean()
+
+    remaining = np.full(n_draws, k, dtype=np.int64)
+    out = np.zeros((n_draws, k), dtype=np.int64)
+    for i in range(n, 0, -1):
+        r = remaining
+        num = ws[i - 1] * table[i - 1, np.maximum(r - 1, 0)]
+        den = table[i, r]
+        with np.errstate(invalid="ignore", divide="ignore"):
+            p = np.where(r > 0, num / den, 0.0)
+        take = rng.random(n_draws) < p
+        idx = np.where(take)[0]
+        out[idx, remaining[idx] - 1] = i - 1
+        remaining = remaining - take.astype(np.int64)
+    assert (remaining == 0).all()
+    return out
+
+
+def subset_pmf(weights: np.ndarray, k: int) -> dict[tuple[int, ...], float]:
+    """Exact PMF over all size-K subsets (enumeration; small I only)."""
+    import itertools
+
+    w = np.asarray(weights, dtype=np.float64)
+    denom = esp(w, k)[k]
+    return {
+        u: float(np.prod(w[list(u)]) / denom)
+        for u in itertools.combinations(range(len(w)), k)
+    }
+
+
+@dataclasses.dataclass(frozen=True)
+class ActivationModel:
+    """Importance weights per MoE layer, shape (L, I); top-K per Eq. 12."""
+
+    weights: np.ndarray      # (L, I) positive
+    top_k: int
+
+    def __post_init__(self):
+        if (np.asarray(self.weights) <= 0).any():
+            raise ValueError("importance weights must be positive")
+
+    @property
+    def n_layers(self) -> int:
+        return self.weights.shape[0]
+
+    @property
+    def n_experts(self) -> int:
+        return self.weights.shape[1]
+
+    def probs(self, layer: int) -> np.ndarray:
+        return activation_probs(self.weights[layer], self.top_k)
+
+    def all_probs(self) -> np.ndarray:
+        return np.stack([self.probs(l) for l in range(self.n_layers)])
+
+    def sample(self, layer: int, rng: np.random.Generator, n_draws: int = 1) -> np.ndarray:
+        return sample_topk(self.weights[layer], self.top_k, rng, n_draws)
+
+    # -- constructors ---------------------------------------------------
+    @staticmethod
+    def zipf(n_layers: int, n_experts: int, top_k: int, s: float = 1.2,
+             seed: int = 0) -> "ActivationModel":
+        """Zipf-skewed weights with a per-layer random expert order.
+
+        Real MoE gating statistics are heavy-tailed (a few hot experts per
+        layer); the paper estimates them from LLaMA-MoE traces, which we do
+        not have offline — Zipf(s) is the standard surrogate.
+        """
+        rng = np.random.default_rng(seed)
+        base = (1.0 + np.arange(n_experts)) ** (-s)
+        w = np.stack([rng.permutation(base) for _ in range(n_layers)])
+        return ActivationModel(weights=w, top_k=top_k)
+
+    @staticmethod
+    def uniform(n_layers: int, n_experts: int, top_k: int) -> "ActivationModel":
+        return ActivationModel(
+            weights=np.ones((n_layers, n_experts)), top_k=top_k
+        )
+
+    @staticmethod
+    def from_router_counts(counts: np.ndarray, top_k: int,
+                           smoothing: float = 1.0) -> "ActivationModel":
+        """Estimate weights from observed expert-selection counts (L, I).
+
+        Activation probabilities are monotone in the weights (Eq. 14), so
+        smoothed empirical frequencies are a consistent plug-in.
+        """
+        counts = np.asarray(counts, dtype=np.float64) + smoothing
+        return ActivationModel(weights=counts / counts.sum(axis=1, keepdims=True),
+                               top_k=top_k)

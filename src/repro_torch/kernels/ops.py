@@ -12,11 +12,15 @@ import time
 import torch
 import torch.nn.functional as F
 
-from . import decode_attn, moe_gmm
+from . import backlog_scan as _scan
+from . import decode_attn, deposit as _deposit, moe_gmm
+from .backlog_scan import backlog_scan
 from .decode_attn import decode_attention
+from .deposit import deposit
 from .moe_gmm import gmm
 
-_COUNTED = {"gmm": moe_gmm, "decode_attention": decode_attn}
+_COUNTED = {"gmm": moe_gmm, "decode_attention": decode_attn,
+            "deposit": _deposit, "backlog_scan": _scan}
 
 
 def launch_counts() -> dict[str, int]:
@@ -69,5 +73,6 @@ def expert_ffn(params: dict, xs: torch.Tensor, compute_dtype) -> torch.Tensor:
     return gmm(gate * up, wd)
 
 
-__all__ = ["gmm", "decode_attention", "expert_ffn", "timed_call",
+__all__ = ["gmm", "decode_attention", "deposit", "backlog_scan",
+           "expert_ffn", "timed_call",
            "launch_counts", "reset_launch_counts"]

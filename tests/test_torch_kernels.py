@@ -17,7 +17,8 @@ from repro.kernels.ops import expert_ffn_pallas
 from repro.kernels.ops import gmm as jax_gmm
 from repro.kernels.ref import decode_attention_ref, gmm_ref
 from repro.models.moe import expert_ffn as jax_expert_ffn
-from repro_torch.kernels import build, decode_attn, moe_gmm, ops
+from repro_torch.kernels import (backlog_scan, build, decode_attn, deposit,
+                                  moe_gmm, ops)
 
 # f32: summation order only; bf16: one rounding of the output (8 bits).
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
@@ -151,10 +152,15 @@ def test_cpu_calls_do_not_count_as_launches():
     decode_attn.decode_attention(torch.ones(1, 1, 1, 8), torch.ones(1, 1, 4, 8),
                                  torch.ones(1, 1, 4, 8),
                                  torch.zeros(1, dtype=torch.int32))
-    assert ops.launch_counts() == {"gmm": 0, "decode_attention": 0}
+    deposit.deposit(torch.zeros(3, dtype=torch.int64), torch.arange(3),
+                    torch.ones(3, dtype=torch.float64), 2, 4)
+    backlog_scan.backlog_scan(torch.ones(5, 3), 10.0, 0.05)
+    assert ops.launch_counts() == {"gmm": 0, "decode_attention": 0,
+                                   "deposit": 0, "backlog_scan": 0}
 
 
-@pytest.mark.parametrize("op", ["gmm", "decode_attention"])
+@pytest.mark.parametrize("op", ["gmm", "decode_attention", "deposit",
+                                "backlog_scan"])
 def test_non_cpu_tensor_never_falls_back(op):
     """A tensor off the CPU goes to the kernel's checks, which refuse a
     non-CUDA device instead of running the plain version."""
@@ -163,12 +169,20 @@ def test_non_cpu_tensor_never_falls_back(op):
         if op == "gmm":
             moe_gmm.gmm(torch.empty(2, 3, 4, device=meta),
                         torch.empty(2, 4, 5, device=meta))
-        else:
+        elif op == "decode_attention":
             decode_attn.decode_attention(
                 torch.empty(1, 1, 1, 8, device=meta),
                 torch.empty(1, 1, 4, 8, device=meta),
                 torch.empty(1, 1, 4, 8, device=meta),
                 torch.empty(1, dtype=torch.int32, device=meta))
+        elif op == "deposit":
+            deposit.deposit(torch.empty(3, dtype=torch.int64, device=meta),
+                            torch.empty(3, dtype=torch.int64, device=meta),
+                            torch.empty(3, dtype=torch.float64, device=meta),
+                            2, 4)
+        else:
+            backlog_scan.backlog_scan(torch.empty(5, 3, device=meta),
+                                      10.0, 0.05)
     assert ops.launch_counts()[op] == 0
 
 

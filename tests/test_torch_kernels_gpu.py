@@ -96,3 +96,72 @@ def test_wrappers_refuse_mixed_devices(cuda_device):
     with pytest.raises(TypeError):
         moe_gmm.gmm(torch.ones(2, 3, 4, device=cuda_device, dtype=torch.float16),
                     torch.ones(2, 4, 5, device=cuda_device, dtype=torch.float16))
+
+
+# --------------------------------------------------------------------- #
+# The fleet simulator's kernels: deposit and backlog_scan
+# --------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("n_rows,n_cols,n,case", [
+    (17, 300, 1000, "shuffled"),
+    (144, 5000, 40000, "shuffled"),       # several tiles per row
+    (40, 2600, 30000, "grouped"),         # row-grouped with a padded tail
+    (8, 128, 0, "shuffled"),              # empty table
+    (3, 64, 5000, "duplicates"),          # many triples on few cells
+    (70000, 3, 100000, "shuffled"),       # more rows than grid.y takes
+])
+def test_deposit_kernel_is_bitwise_the_plain_version(cuda_device, n_rows,
+                                                     n_cols, n, case):
+    from repro_torch.kernels import deposit
+    rng = np.random.default_rng(n + n_cols)
+    rows = rng.integers(0, n_rows, n)
+    cols = rng.integers(0, n_cols if case != "duplicates" else 4, n)
+    vals = rng.random(n) * 0.05
+    # The plain version takes the table as it came; the kernel takes it
+    # stably grouped by row (as the fleet's chunk table comes).
+    want = deposit.deposit_plain(*(torch.from_numpy(a).to(cuda_device)
+                                   for a in (rows, cols, vals)),
+                                 n_rows, n_cols)
+    order = np.argsort(rows, kind="stable")
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    row_ptr = torch.from_numpy(np.searchsorted(
+        rows, np.arange(n_rows + 1))).to(cuda_device)
+    if case == "grouped":                 # zero-valued tail, not read
+        pad = 8192 - n % 8192
+        rows = np.concatenate([rows, np.zeros(pad, np.int64)])
+        cols = np.concatenate([cols, np.zeros(pad, np.int64)])
+        vals = np.concatenate([vals, np.zeros(pad)])
+    r, c, v = (torch.from_numpy(a).to(cuda_device) for a in (rows, cols, vals))
+    before = deposit.launches
+    got = deposit.deposit(r, c, v, n_rows, n_cols, row_ptr=row_ptr)
+    torch.cuda.synchronize()
+    assert deposit.launches == before + 1
+    assert got.shape == (n_rows, n_cols) and torch.equal(got, want)
+
+
+def test_deposit_kernel_needs_row_ptr(cuda_device):
+    from repro_torch.kernels import deposit
+    before = deposit.launches
+    with pytest.raises(ValueError, match="row_ptr"):
+        deposit.deposit(torch.zeros(3, dtype=torch.int64, device=cuda_device),
+                        torch.arange(3, device=cuda_device),
+                        torch.ones(3, dtype=torch.float64, device=cuda_device),
+                        2, 4)
+    assert deposit.launches == before
+
+
+@pytest.mark.parametrize("t,c,cap", [(1, 5, 10.0), (3000, 700, 10.0),
+                                     (257, 33, 0.3)])
+def test_backlog_scan_kernel_is_bitwise_the_plain_loop(cuda_device, t, c,
+                                                       cap):
+    from repro_torch.kernels import backlog_scan
+    rng = np.random.default_rng(t)
+    work = torch.from_numpy(
+        (rng.random((t, c)) * (rng.random((t, c)) < 0.3) * 0.2)
+        .astype(np.float32)).to(cuda_device)
+    before = backlog_scan.launches
+    got = backlog_scan.backlog_scan(work, cap, 0.05)
+    torch.cuda.synchronize()
+    assert backlog_scan.launches == before + 1
+    assert torch.equal(got, backlog_scan.backlog_scan_plain(work, cap, 0.05))

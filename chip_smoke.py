@@ -10,15 +10,20 @@ Phases (any failure exits non-zero and prints no success line):
      nvcc for sm_90a (one nvcc per source, started together);
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card at the serve path's shapes (plus an f32, a ragged and a long
-     case), with its device time (CUDA events around calls queued behind
-     a busy card) and wall time (CUDA events, host gaps included), the
-     same for the plain version and for one PyTorch library call as a
-     yardstick, and the least time the card could take;
+     case, and gmm at a real prefill's C = 2560), with its device time
+     (CUDA events around calls queued behind a busy card) and wall time
+     (CUDA events, host gaps included), the same for the plain version
+     and for one PyTorch library call as a yardstick (gmm and
+     ``torch.bmm`` timed in turns), and the least time the card could
+     take; gmm's lines also give the kernel path taken, the rate
+     reached against the bound (TB/s or TFLOP/s) and the host's time to
+     enqueue one call (``host_us``, and ``torch.bmm``'s);
   4. small input: the serve path at smoke size on the card (kernels)
      against the same weights on the CPU (plain versions);
   5. full serve: ``repro_torch.launch.serve`` for llama-moe-3.5b at its
      published width and depth (batch 4, prompt 32, 16 decode tokens),
-     with every kernel's launch count over that run checked;
+     with every kernel's launch count over that run checked, and every
+     gmm launch on the tensor-core (wgmma) path;
   6. profile: where a full-width decode step's time goes (torch.profiler:
      device busy share, kernel time by name);
   7. fleet: the request-level fleet simulator (``repro_torch.traffic
@@ -148,6 +153,21 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> tuple[float, float, bool]
     return start.elapsed_time(end) / iters, wall, hidden
 
 
+def host_us(torch, fn, n: int = 200) -> float:
+    """Host time to enqueue one call of ``fn()``, microseconds: ``n``
+    calls queued behind a spin long enough (0.5 ms a call) that the card's
+    queue never makes the host wait."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(n * 0.5 * spin_cycles_per_ms(torch)))
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
 def event_ms(torch, fn, iters: int = 1, warm: bool = True) -> float:
     """Wall ms per call of ``fn()`` from CUDA events around ``iters``
     back-to-back calls (after one warm call if ``warm``), host gaps
@@ -181,31 +201,53 @@ def check_gmm(torch, e, c, k, n, dtype_name, iters):
     gen = torch.Generator(device="cuda").manual_seed(c * 7 + n)
     x = torch.randn(e, c, k, generator=gen, device="cuda").to(dtype)
     w = (torch.randn(e, k, n, generator=gen, device="cuda") / k ** 0.5).to(dtype)
+    before = dict(moe_gmm.path_launches)
     got = moe_gmm.gmm(x, w)
     torch.cuda.synchronize()
+    path = [p for p in before if moe_gmm.path_launches[p] != before[p]]
     want = moe_gmm.gmm_plain(x, w)
     tol = 2e-2 if dtype_name == "bfloat16" else 2e-5
     err = float((got.float() - want.float()).abs().max())
     ok = bool(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol))
     esize = x.element_size()
-    b_ms, b_by = bound((x.numel() + w.numel() + e * c * n) * esize,
-                       2.0 * e * c * k * n, dtype_name)
-    return timed_record(
+    nbytes = (x.numel() + w.numel() + e * c * n) * esize
+    flops = 2.0 * e * c * k * n
+    b_ms, b_by = bound(nbytes, flops, dtype_name)
+    rec = timed_record(
         torch, {"name": "gmm",
                 "shape": f"x({e},{c},{k}) w({e},{k},{n}) {dtype_name}",
-                "max_abs_err": err, "tol": tol, "ok": ok,
+                "path": path[0] if len(path) == 1 else path,
+                "max_abs_err": err, "tol": tol, "ok": ok and len(path) == 1,
                 "bound_ms": b_ms, "bound_by": b_by},
         kernel=lambda: moe_gmm.gmm(x, w),
         plain=lambda: moe_gmm.gmm_plain(x, w),
-        library=lambda: torch.bmm(x, w), iters=iters)
+        library=lambda: torch.bmm(x, w), iters=iters, turns=2)
+    if b_by == "bytes":
+        rec["rate"] = f"{nbytes / rec['ms'] / 1e9:.3f} TB/s"
+    else:
+        rec["rate"] = f"{flops / rec['ms'] / 1e9:.1f} TFLOP/s"
+    rec["host_us"] = host_us(torch, lambda: moe_gmm.gmm(x, w))
+    rec["library_host_us"] = host_us(torch, lambda: torch.bmm(x, w))
+    return rec
 
 
-def timed_record(torch, rec, kernel, plain, library, iters) -> dict:
+def timed_record(torch, rec, kernel, plain, library, iters, turns=1) -> dict:
     """``rec`` with device and wall times of the kernel, its plain version
-    and the library call."""
-    for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
-        rec[key + "ms"], rec[key + "wall_ms"], rec[key + "hidden"] = \
-            time_ms(torch, fn, iters)
+    and the library call.  With ``turns`` > 1 the kernel and the library
+    call are timed in turns (kernel, library, kernel, ...) and each time
+    is the mean of its turns, also listed under ``turns``."""
+    runs: dict[str, list] = {"": [], "library_": []}
+    for _ in range(turns):
+        for key, fn in (("", kernel), ("library_", library)):
+            runs[key].append(time_ms(torch, fn, iters))
+    runs["plain_"] = [time_ms(torch, plain, iters)]
+    for key, got in runs.items():
+        rec[key + "ms"] = sum(r[0] for r in got) / len(got)
+        rec[key + "wall_ms"] = sum(r[1] for r in got) / len(got)
+        rec[key + "hidden"] = all(r[2] for r in got)
+    if turns > 1:
+        rec["turns"] = {"ms": [r[0] for r in runs[""]],
+                        "library_ms": [r[0] for r in runs["library_"]]}
     return rec
 
 
@@ -249,7 +291,9 @@ def phase_kernels(torch) -> dict[str, dict]:
     """Every case printed; returns each kernel's serve-path decode case."""
     d, f, e = 4096, 1376, 8
     cap_decode, cap_prefill = 2, 40      # capacity() at T = 4 and T = 128
-    gmm_cases = [(e, c, kk, nn, "bfloat16") for c in (cap_decode, cap_prefill)
+    # C = 2560: capacity() at a real prefill, batch 4 x 2048 tokens.
+    gmm_cases = [(e, c, kk, nn, "bfloat16")
+                 for c in (cap_decode, cap_prefill, 2560)
                  for kk, nn in ((d, f), (f, d))]
     gmm_cases += [(e, cap_decode, d, f, "float32"), (e, cap_prefill, d, f, "float32"),
                   (3, 130, 100, 36, "bfloat16"), (3, 3, 100, 36, "float32")]
@@ -331,7 +375,7 @@ def phase_small(torch) -> None:
 
 def phase_serve(torch, card: str) -> dict[str, int]:
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import moe_gmm, ops
     from repro_torch.launch import serve
     cfg = get_config(ARCH)
     argv = ["--arch", ARCH, "--batch", str(BATCH), "--prompt-len",
@@ -373,6 +417,12 @@ def phase_serve(torch, card: str) -> dict[str, int]:
     log(f"launch counts {json.dumps(counts)} (expected {json.dumps(want)})")
     if {k: counts[k] for k in want} != want:
         raise SmokeFailure(f"launch counts {counts} != expected {want}")
+    paths = dict(moe_gmm.path_launches)
+    log(f"gmm launches by path {json.dumps(paths)} (expected all "
+        f"{want['gmm']} on wgmma)")
+    if paths != {"wgmma": want["gmm"], "fma": 0}:
+        raise SmokeFailure(f"gmm paths {paths}: not every serve launch ran "
+                           "on the tensor cores")
     return counts
 
 

@@ -4,43 +4,63 @@
 // MoE FFN hot loop: x (E, C, K) capacity-padded expert buckets, w (E, K, N)
 // expert weights, out (E, C, N) in x's type (f32 or bf16).
 //
-// What bounds it on an H100: on the serve path's decode step C = 2, so each
-// weight element is used by two rows only; the kernel must stream E*K*N
-// weights (90.2 MB in bf16 per projection at K=4096, N=1376) and is bound
-// by device-memory bandwidth (~27 us at 3.35 TB/s).  At prefill C = 40,
-// still far below the ~295 FLOP/B where bf16 tensor cores would become the
-// limit, so the plan is the same: read every weight once, keep many bytes
-// in flight.  Plain FMA on CUDA cores, f32 accumulators, no TF32.
+// What bounds it on an H100 (llama-moe-3.5b: E = 8, K/N = 4096/1376 and
+// 1376/4096; 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32 FMA, 3.35 TB/s):
 //
-// Two paths, chosen by shape (ragged C/K/N edges are masked in the kernel;
-// no padded copies):
+//   * decode, C = 2: 90.2 MB of bf16 weights per projection for 0.18
+//     GFLOP, bytes-bound at 27 us.  The kernel must keep enough weight
+//     bytes in flight on every SM.
+//   * calibration and prefill at batch 4 x 32 tokens, C = 40: 3.61 GFLOP
+//     and 93 MB.  On CUDA cores that is 54 us even at the full f32 FMA
+//     rate, twice the 28 us byte bound; only the tensor cores keep up
+//     with the memory (3.6 us of bf16 tensor time).
+//   * a real prefill, batch 4 x 2048 tokens, C = 2560: 231 GFLOP, bound by
+//     operations at 0.233 ms in bf16.
 //
-//   * skinny (C <= 4, N a multiple of the 16-byte vector, w 16-byte
-//     aligned): the decode step.  Each lane streams one 16-byte vector of a
-//     weight row per step (8 bf16 or 4 f32 columns), so a warp reads 512
-//     contiguous bytes per load; the block's 8 warps split its K range, and
-//     K is also split over blocks (grid.y) so that ~4 blocks per SM keep
-//     loads in flight.  x's rows for the K range sit in shared memory.  The
-//     warps are summed in shared memory, the K splits by a second small
-//     kernel in a fixed order, so the result does not depend on timing.
-//   * tiled (everything else, e.g. prefill's C = 40): grid
-//     (ceil(N/64), ceil(C/64), E), each block a 64 x 64 output tile walking
-//     K in steps of 32; x and w tiles staged through registers into shared
-//     memory as f32, the next step's loads issued before the current FMAs.
+// So bf16 runs on wgmma, fed by TMA, one kernel for every C ("wgmma"
+// path).  The product is swapped so that C is wgmma's narrow dimension:
+// out[e]^T (N x C) = w[e]^T (N x K) . x[e]^T (K x C).  A block owns 128
+// columns n of out (two consumer warpgroups, 64 rows of w^T each) and a
+// tile of BN rows c (BN = C rounded up to 8 when C <= 64, else 128, 192 or
+// 256, several tiles when C > 256).  A is the w tile, M-major as w lies
+// (K, N) row-major; B is the x tile, K-major as x lies.  One producer
+// thread streams both through a ring of shared-memory stages with TMA
+// (128-byte swizzle: a 64-column w row and a 64-deep x row are 128 bytes
+// each; out-of-bounds rows and columns arrive as zeros, so ragged C, K
+// and N need no masked loads) and mbarriers; the consumers run wgmma on
+// each stage as it lands and hand it back.  The epilogue goes through
+// shared memory so that stores of out rows coalesce.
 //
-// wgmma/TMA tensor-core tiles for the prefill shapes are later work.
+// The caller (moe_gmm.gmm_depth) sets, per call, how many stages of the
+// ring are in flight.  Narrow buckets are bytes-bound and stream best with
+// about 6 MB requested across the card: deeper rings measured slower.  Two
+// warpgroups a block (each block reads 256 contiguous bytes of every w row
+// it streams) measured faster than one or four at the narrow serve shapes.
+// Each block sums all of K itself, in order, so the result is the same
+// from run to run and there is no second launch.  The kernel is launched
+// as a programmatic dependent, so its prologue (barrier set-up,
+// descriptor prefetch) overlaps the previous kernel's tail.
+//
+// f32 (TF32 is off by the port's rule) and bf16 shapes that TMA cannot
+// take (K or N not a multiple of 8, i.e. rows not a multiple of 16 bytes,
+// or a base address not 16-byte aligned) run the "fma" path: CUDA-core
+// FMA tiles of 64 x 64 outputs walking K in steps of 32.  The caller
+// (moe_gmm.gmm_path) picks the path from shapes and alignment before the
+// launch.
+#include <cuda.h>   // CUtensorMap and cuTensorMapEncodeTiled's types only
+#include <dlfcn.h>
 #include <stdint.h>
 
 #include <algorithm>
 
 #include "common.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+// -------------------------------------------------------------------- fma
 
-// ------------------------------------------------------------------ tiled
+constexpr int kThreads = 256;
 
 template <typename T, int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -136,189 +156,332 @@ gmm_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// ----------------------------------------------------------------- skinny
-
-constexpr int kSkinnyMaxRows = 4;
-constexpr int kMaxKSlice = 512;        // K rows one block covers, at most
-constexpr int kTargetBlocks = 4 * 132; // ~4 blocks on each of 132 SMs
-
-template <typename T> struct Vec16;    // 16 bytes of T, unpacked to f32
-template <> struct Vec16<float> {
-  using type = float4;
-  static constexpr int n = 4;
-  static __device__ __forceinline__ void unpack(const float4& v, float* f) {
-    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-  }
-};
-template <> struct Vec16<__nv_bfloat16> {
-  using type = uint4;
-  static constexpr int n = 8;
-  static __device__ __forceinline__ void unpack(const uint4& v, float* f) {
-    // bf16 -> f32 is exact: the bf16 bits are the f32's upper half; the
-    // lower-addressed element sits in the low 16 bits.
-    const uint32_t u[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(u[i] << 16);
-      f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-    }
-  }
-};
-
-// Partial sums of out[e, :C, n0:n0+BN] over one K slice, into
-// ws[split][e][r][n] (f32).
-template <typename T, int CM>
-__global__ void __launch_bounds__(kThreads)
-gmm_skinny_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                  float* __restrict__ ws, int C, int K, int N, int k_slice) {
-  using V = Vec16<T>;
-  constexpr int BN = 32 * V::n;
-  __shared__ float xs[CM][kMaxKSlice];
-  __shared__ float red[kWarps][CM][BN];  // [warp][row][col_in_lane*32 + lane]
-
-  const int e = blockIdx.z;
-  const int split = blockIdx.y;
-  const int n0 = blockIdx.x * BN;
-  const int kb = split * k_slice;
-  const int len = min(k_slice, K - kb);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  for (int r = 0; r < CM; ++r)
-    for (int c = tid; c < len; c += kThreads)
-      xs[r][c] = r < C ? to_f32(x[((int64_t)e * C + r) * K + kb + c]) : 0.f;
-  __syncthreads();
-
-  float acc[CM][V::n];
-#pragma unroll
-  for (int r = 0; r < CM; ++r)
-#pragma unroll
-    for (int j = 0; j < V::n; ++j) acc[r][j] = 0.f;
-
-  const int col = n0 + lane * V::n;
-  if (col < N) {                          // N is a multiple of V::n
-    const int64_t row_vecs = N / V::n;
-    const typename V::type* wp = reinterpret_cast<const typename V::type*>(
-        w + ((int64_t)e * K + kb) * N + col);
-#pragma unroll 4
-    for (int k = warp; k < len; k += kWarps) {
-      float f[V::n];
-      V::unpack(wp[k * row_vecs], f);
-#pragma unroll
-      for (int r = 0; r < CM; ++r) {
-        const float a = xs[r][k];
-#pragma unroll
-        for (int j = 0; j < V::n; ++j) acc[r][j] = fmaf(a, f[j], acc[r][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < CM; ++r)
-#pragma unroll
-    for (int j = 0; j < V::n; ++j) red[warp][r][j * 32 + lane] = acc[r][j];
-  __syncthreads();
-
-  for (int idx = tid; idx < CM * BN; idx += kThreads) {
-    const int r = idx / BN, c = idx % BN;           // c = lane_c * V::n + j
-    const int slot = (c % V::n) * 32 + c / V::n;
-    float s = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) s += red[wi][r][slot];
-    if (r < C && n0 + c < N)
-      ws[(((int64_t)split * gridDim.z + e) * C + r) * N + n0 + c] = s;
-  }
-}
-
-// out[i] = sum over splits of ws[split][i], in split order.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gmm_splitk_reduce_kernel(const float* __restrict__ ws, T* __restrict__ out,
-                         int n_split, int64_t total) {
-  for (int64_t i = blockIdx.x * (int64_t)kThreads + threadIdx.x; i < total;
-       i += (int64_t)gridDim.x * kThreads) {
-    float s = 0.f;
-    for (int sp = 0; sp < n_split; ++sp) s += ws[sp * total + i];
-    out[i] = from_f32<T>(s);
-  }
-}
-
-struct SkinnyPlan {
-  int n_split = 0;   // 0: use the tiled path
-  int k_slice = 0;
-};
-
-SkinnyPlan skinny_plan(int E, int C, int K, int N, int vec, const void* w) {
-  SkinnyPlan p;
-  if (C < 1 || C > kSkinnyMaxRows || K < 1 || N % vec != 0 ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0)
-    return p;
-  const int tiles = (N + 32 * vec - 1) / (32 * vec);
-  int splits = (kTargetBlocks + tiles * E - 1) / (tiles * E);
-  splits = std::min(splits, std::max(1, K / kWarps));   // >= a row per warp
-  splits = std::max(splits, (K + kMaxKSlice - 1) / kMaxKSlice);
-  p.k_slice = (K + splits - 1) / splits;
-  p.n_split = (K + p.k_slice - 1) / p.k_slice;
-  return p;
-}
-
-int vec_of(int dtype) { return dtype == kReproBF16 ? 8 : 4; }
-
-template <typename T, int CM>
-void launch_skinny(const void* x, const void* w, void* out, float* ws, int E,
-                   int C, int K, int N, const SkinnyPlan& p, cudaStream_t s) {
-  constexpr int BN = 32 * Vec16<T>::n;
-  dim3 grid((N + BN - 1) / BN, p.n_split, E);
-  gmm_skinny_kernel<T, CM><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), ws, C, K, N, p.k_slice);
-  const int64_t total = (int64_t)E * C * N;
-  const int blocks = (int)std::min<int64_t>((total + kThreads - 1) / kThreads, 4096);
-  gmm_splitk_reduce_kernel<T><<<blocks, kThreads, 0, s>>>(
-      ws, static_cast<T*>(out), p.n_split, total);
-}
-
-template <typename T>
-void dispatch(const void* x, const void* w, void* out, float* ws, int E, int C,
-              int K, int N, const SkinnyPlan& p, cudaStream_t s) {
-  if (p.n_split > 0) {
-    if (C == 1)
-      launch_skinny<T, 1>(x, w, out, ws, E, C, K, N, p, s);
-    else if (C == 2)
-      launch_skinny<T, 2>(x, w, out, ws, E, C, K, N, p, s);
-    else
-      launch_skinny<T, 4>(x, w, out, ws, E, C, K, N, p, s);
-    return;
-  }
+cudaError_t launch_fma(const void* x, const void* w, void* out, int E, int C,
+                       int K, int N, cudaStream_t s) {
   dim3 grid((N + 63) / 64, (C + 63) / 64, E);
   gmm_tiled_kernel<T, 64, 64, 32, 4, 4><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out),
       C, K, N);
+  return cudaGetLastError();
 }
+
+// ------------------------------------------------------------------ wgmma
+
+constexpr int kBK = 64;          // K per stage: one 128-byte swizzle row
+constexpr int kWBox = 64 * kBK * 2;  // one 64 (n) x 64 (k) bf16 w box, bytes
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 state;\n"
+               "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+               :: "r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One box of a 3-d tensor map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle (byte offsets).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
+         | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// Keep the compiler from moving accumulator reads across a wgmma wait.
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+constexpr int kWG = 2;   // consumer warpgroups a block, 64 columns n each
+
+// Tile of 64 * kWG columns n by BN rows c.  Narrow tiles run two blocks an
+// SM (bytes-bound: many blocks in flight); wide ones one, with all the
+// shared memory a block may have for stages.
+template <int BN>
+struct WgmmaCfg {
+  static constexpr int kM = 64 * kWG;                  // columns n per block
+  static constexpr int kStage = kWG * kWBox + BN * kBK * 2;  // bytes
+  static constexpr int kBlocks = BN <= 64 ? 2 : 1;     // blocks an SM
+  // A block may have 227 KB, or half the SM's 228 KB less 1 KB reserved
+  // when two share it; less 1 KB of alignment slack and the barriers.
+  static constexpr int kStages =
+      ((kBlocks == 2 ? 115712 : 232448) - 1024 - 160) / kStage;
+  static constexpr int kMS = kM + 4;                   // staging row, floats
+  static constexpr int kThreads = 128 * kWG + 32;      // + one producer warp
+  static constexpr int kSmem = 1024 + kStages * kStage + 2 * kStages * 8;
+  static_assert(kStages >= 2, "the ring needs two stages");
+  static_assert(kStage % 1024 == 0, "stages must keep 1024-byte alignment");
+  static_assert(BN * kMS * 4 <= kStages * kStage, "staging must fit the ring");
+  static_assert(kSmem <= 232448, "more shared memory than a block may have");
+};
+
+// grid (ceil(N / kM), E * c_tiles).  Block (y, z) computes the tile
+// n in [y * kM, +kM), c in [(z % c_tiles) * BN, +BN) of expert z / c_tiles.
+template <int BN>
+__global__ void __launch_bounds__(WgmmaCfg<BN>::kThreads, WgmmaCfg<BN>::kBlocks)
+gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
+                 const __grid_constant__ CUtensorMap map_x,
+                 __nv_bfloat16* __restrict__ out, int C, int K, int N,
+                 int c_tiles, int depth) {
+  using Cfg = WgmmaCfg<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t ring = smem_u32(smem);
+  const uint32_t full0 = ring + Cfg::kStages * Cfg::kStage;  // full[s], empty[s]
+  const uint32_t empty0 = full0 + 8 * Cfg::kStages;
+
+  const int n0 = blockIdx.x * Cfg::kM;
+  const int e = blockIdx.y / c_tiles;
+  const int c0 = (blockIdx.y % c_tiles) * BN;
+  const int steps = (K + kBK - 1) / kBK;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+
+  // Launched as a programmatic dependent: the next kernel in the stream may
+  // start its prologue now; it waits for this grid before reading memory.
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  if (tid == 0) {
+    for (int s = 0; s < depth; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("prefetch.tensormap [%0];\n"
+                 :: "l"(reinterpret_cast<uint64_t>(&map_w)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n"
+                 :: "l"(reinterpret_cast<uint64_t>(&map_x)) : "memory");
+  }
+  __syncthreads();
+  // The prologue above overlapped the previous kernel; every access to
+  // device memory comes after this wait.
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+
+  if (wg == kWG) {
+    // Producer: one thread keeps the ring full.
+    if (tid == 128 * kWG) {
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % depth;
+        if (i >= depth) mbar_wait(empty0 + 8 * s, ((i / depth) - 1) & 1);
+        const uint32_t bar = full0 + 8 * s, base = ring + s * Cfg::kStage;
+        mbar_expect_tx(bar, Cfg::kStage);
+        const int k = i * kBK;
+#pragma unroll
+        for (int g = 0; g < kWG; ++g)
+          tma_load_3d(base + g * kWBox, &map_w, bar, n0 + 64 * g, k, e);
+        tma_load_3d(base + kWG * kWBox, &map_x, bar, k, c0, e);
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: 64 columns n of the tile, all BN rows c.
+    float d[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % depth;
+      mbar_wait(full0 + 8 * s, (i / depth) & 1);
+      const uint32_t a = ring + s * Cfg::kStage + wg * kWBox;
+      const uint32_t b = ring + s * Cfg::kStage + kWG * kWBox;
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        // A: 16 k-rows of 128 bytes per step, 8-row groups 1024 B apart.
+        // B: 32 bytes (16 k) per step inside each 128-byte c-row.
+        Wgmma<BN>::mma(d, smem_desc(a + kk * 2048, kWBox, 1024),
+                       smem_desc(b + kk * 32, 16, 1024));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      if (BN <= 64) {
+        // Narrow: the products are short, so the stage goes back to the
+        // producer at once and every stage can be in flight.
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_operands(d);
+        if (tid % 128 == 0) mbar_arrive(empty0 + 8 * s);
+      } else {
+        // Wide: keep one group of products running behind the next wait.
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        fence_operands(d);
+        if (i > 0 && tid % 128 == 0) mbar_arrive(empty0 + 8 * ((i - 1) % depth));
+      }
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_operands(d);
+    // Every consumer's wgmma has read its last stage: the ring is free
+    // for the f32 tile st[c][m] (n = n0 + m).
+    asm volatile("bar.sync 1, %0;\n" :: "n"(128 * kWG) : "memory");
+    float* st = reinterpret_cast<float*>(smem);
+    const int lane = tid % 32;
+    const int m = 64 * wg + 16 * ((tid % 128) / 32) + lane / 4;
+#pragma unroll
+    for (int q = 0; q < BN / 8; ++q)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          st[(8 * q + 2 * (lane % 4) + h) * Cfg::kMS + m + 8 * j] =
+              d[4 * q + 2 * j + h];
+  }
+  __syncthreads();
+
+  // Write the staged tile as bf16, 4 columns a thread, so that the stores
+  // of each out row coalesce.
+  const float* st = reinterpret_cast<const float*>(smem);
+  for (int idx = tid; idx < BN * (Cfg::kM / 4); idx += Cfg::kThreads) {
+    const int c = idx / (Cfg::kM / 4);
+    const int m = (idx % (Cfg::kM / 4)) * 4;
+    if (c0 + c >= C || n0 + m >= N) continue;
+    const float4 acc = *reinterpret_cast<const float4*>(st + c * Cfg::kMS + m);
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(acc.x, acc.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(acc.z, acc.w);
+    uint2 pack;
+    pack.x = *reinterpret_cast<const uint32_t*>(&lo);
+    pack.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(out + ((int64_t)e * C + c0 + c) * N + n0 + m) = pack;
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda, which the process has loaded
+// already; looked up once, no link flag needed.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Tensor map of a contiguous bf16 (d2, d1, d0) array, boxes of b1 x b0
+// (b0 * 2 = 128 bytes: the swizzle's row), zero fill out of bounds.
+bool make_map(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1,
+              uint64_t d2, uint32_t b0, uint32_t b1) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
+  const cuuint32_t box[3] = {b0, b1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN>
+cudaError_t launch_wgmma(const void* x, const void* w, void* out, int E, int C,
+                         int K, int N, int depth, cudaStream_t s) {
+  using Cfg = WgmmaCfg<BN>;
+  depth = depth == 0 ? Cfg::kStages : std::min(depth, Cfg::kStages);
+  if (depth < 2) return cudaErrorInvalidValue;
+  CUtensorMap map_w, map_x;
+  if (!make_map(&map_w, w, N, K, E, 64, kBK) ||
+      !make_map(&map_x, x, K, C, E, kBK, BN))
+    return cudaErrorInvalidValue;
+  auto kernel = gmm_wgmma_kernel<BN>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const int c_tiles = (C + BN - 1) / BN;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + Cfg::kM - 1) / Cfg::kM, E * c_tiles);
+  cfg.blockDim = dim3(Cfg::kThreads);
+  cfg.dynamicSmemBytes = Cfg::kSmem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, map_w, map_x, static_cast<__nv_bfloat16*>(out), C, K, N,
+      c_tiles, depth);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Tile by C: the C width rounded up to 8 when C <= 64, else C tiles of
+// up to 256.
+cudaError_t dispatch_wgmma(const void* x, const void* w, void* out, int E,
+                           int C, int K, int N, int depth, cudaStream_t s) {
+  switch ((C + 7) / 8) {
+#define REPRO_GMM_CASE(BN) \
+  case BN / 8: return launch_wgmma<BN>(x, w, out, E, C, K, N, depth, s)
+    REPRO_GMM_CASE(8); REPRO_GMM_CASE(16); REPRO_GMM_CASE(24);
+    REPRO_GMM_CASE(32); REPRO_GMM_CASE(40); REPRO_GMM_CASE(48);
+    REPRO_GMM_CASE(56); REPRO_GMM_CASE(64);
+#undef REPRO_GMM_CASE
+    default: break;
+  }
+  if (C <= 128) return launch_wgmma<128>(x, w, out, E, C, K, N, depth, s);
+  if (C <= 192) return launch_wgmma<192>(x, w, out, E, C, K, N, depth, s);
+  return launch_wgmma<256>(x, w, out, E, C, K, N, depth, s);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
 // Plain C interface (loaded with ctypes).
 //
-// repro_gmm_workspace: f32 elements of scratch repro_gmm needs for these
-// arguments (0 for the tiled path); the caller allocates it.
-extern "C" long long repro_gmm_workspace(int E, int C, int K, int N, int dtype,
-                                         const void* w) {
-  const SkinnyPlan p = skinny_plan(E, C, K, N, vec_of(dtype), w);
-  return (long long)p.n_split * E * C * N;
-}
-
-// Returns cudaGetLastError() after the launches: 0 when they were launched.
-extern "C" int repro_gmm(const void* x, const void* w, void* out, void* ws,
-                         long long ws_elems, int E, int C, int K, int N,
-                         int dtype, void* stream) {
-  if (dtype != kReproF32 && dtype != kReproBF16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const SkinnyPlan p = skinny_plan(E, C, K, N, vec_of(dtype), w);
-  if ((long long)p.n_split * E * C * N > ws_elems)
-    return static_cast<int>(cudaErrorInvalidValue);
+// path 0: the FMA tiles (f32 or bf16, any shape); path 1: wgmma (bf16, K
+// and N multiples of 8, x, w and out 16-byte aligned) with `depth` stages
+// of the ring in flight (at least 2, at most the tile's ring; 0: all of
+// it).
+// Returns the launch's error: 0 when the kernel was launched.
+extern "C" int repro_gmm(const void* x, const void* w, void* out, int E, int C,
+                         int K, int N, int dtype, int path, int depth,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* wsf = static_cast<float*>(ws);
-  if (dtype == kReproF32)
-    dispatch<float>(x, w, out, wsf, E, C, K, N, p, s);
-  else
-    dispatch<__nv_bfloat16>(x, w, out, wsf, E, C, K, N, p, s);
-  return static_cast<int>(cudaGetLastError());
+  if (path == 0) {
+    if (dtype == kReproF32) return launch_fma<float>(x, w, out, E, C, K, N, s);
+    if (dtype == kReproBF16)
+      return launch_fma<__nv_bfloat16>(x, w, out, E, C, K, N, s);
+  } else if (path == 1 && dtype == kReproBF16 && K % 8 == 0 && N % 8 == 0 &&
+             aligned16(x) && aligned16(w) && aligned16(out)) {
+    return dispatch_wgmma(x, w, out, E, C, K, N, depth, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,25 +7,70 @@ is ``csrc/moe_gmm.cu`` (its header says what bounds it and why it is
 built as it is).
 
 ``gmm`` runs the plain version for CPU tensors and the kernel for CUDA
-tensors; on a CUDA tensor it launches the kernel or raises.
+tensors; on a CUDA tensor it launches the kernel or raises.  The kernel
+has two paths, picked by ``gmm_path`` from shapes and alignment alone
+before the launch: ``"wgmma"`` (bf16 tensor-core tiles fed by TMA) and
+``"fma"`` (CUDA-core tiles, for f32 and for bf16 shapes TMA cannot take).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+PATH_CODES = {"fma": 0, "wgmma": 1}
+BLOCK_N = 128         # columns n a block of the wgmma path covers
+K_STEP = 64           # K per pipeline stage of the wgmma path
+IN_FLIGHT = 6_000_000  # bytes the narrow tiles keep requested (gmm_depth)
 
 launches = 0          # kernel launches since the last reset (ops.py)
+path_launches = {"wgmma": 0, "fma": 0}   # the same launches, by path
 
 
 def gmm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: f32 accumulation, result in x.dtype."""
     out = torch.einsum("eck,ekn->ecn", x.float(), w.float())
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _tma_rows(k: int, n: int, dtype: torch.dtype) -> bool:
+    """bf16 rows TMA can read: K and N multiples of 8 (16-byte strides)."""
+    return dtype == torch.bfloat16 and k > 0 and k % 8 == 0 and n % 8 == 0
+
+
+def gmm_path(k: int, n: int, dtype: torch.dtype, ptrs) -> str:
+    """The kernel path for these arguments: ``"wgmma"`` or ``"fma"``.
+
+    TMA reads bf16 rows whose stride is a multiple of 16 bytes (K and N
+    multiples of 8) from 16-byte aligned base addresses (``ptrs``: the
+    data pointers of x, w and out); everything else, and f32, takes the
+    CUDA-core tiles.  The shape test is cached; only the alignment test runs
+    on every call.
+    """
+    if _tma_rows(k, n, dtype) and not any(p % 16 for p in ptrs):
+        return "wgmma"
+    return "fma"
+
+
+@functools.lru_cache(maxsize=None)
+def gmm_depth(e: int, c: int, n: int) -> int:
+    """Stages of the wgmma path's ring kept in flight for these shapes.
+
+    Wide buckets (C > 64) are operations-bound and keep the whole ring
+    (0).  Narrow ones are bytes-bound: a depth that keeps about IN_FLIGHT
+    bytes of w and x requested across the card, at least 2; deeper rings
+    measured slower on the H100 (PERF.md, PR 14).
+    """
+    if c > 64:
+        return 0
+    blocks = e * -(-n // BLOCK_N)
+    stage = (BLOCK_N + -(-c // 8) * 8) * K_STEP * 2      # w and x bytes
+    return max(2, -(-IN_FLIGHT // (blocks * stage)))
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -46,10 +91,8 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
 def _library():
     lib = build.load("moe_gmm")
     if lib.repro_gmm.argtypes is None:
-        lib.repro_gmm_workspace.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        lib.repro_gmm_workspace.restype = ctypes.c_longlong
-        lib.repro_gmm.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
-                                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.repro_gmm.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                                  + [ctypes.c_void_p])
         lib.repro_gmm.restype = ctypes.c_int
     return lib
 
@@ -65,15 +108,15 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    ptrs = (x.data_ptr(), w.data_ptr(), out.data_ptr())
+    path = gmm_path(k, n, x.dtype, ptrs)
+    depth = gmm_depth(e, c, n) if path == "wgmma" else 0
     lib = _library()
-    code = DTYPE_CODES[x.dtype]
-    # f32 scratch for the decode-shaped path's K-split partial sums.
-    n_ws = lib.repro_gmm_workspace(e, c, k, n, code, w.data_ptr())
-    ws = torch.empty((max(n_ws, 1),), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.repro_gmm(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                            ws.data_ptr(), n_ws, e, c, k, n, code, stream)
-    build.check(err, "gmm")
+        err = lib.repro_gmm(*ptrs, e, c, k, n, DTYPE_CODES[x.dtype],
+                            PATH_CODES[path], depth, stream)
+    build.check(err, f"gmm ({path})")
     launches += 1
+    path_launches[path] += 1
     return out

@@ -31,6 +31,7 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in _COUNTED.values():
         mod.launches = 0
+    moe_gmm.path_launches = dict.fromkeys(moe_gmm.path_launches, 0)
 
 
 def _synchronize() -> None:

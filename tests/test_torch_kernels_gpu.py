@@ -31,19 +31,29 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.float().cpu().numpy()
 
 
+def _gmm_inputs(device, e, c, k, n, dtype, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(e, c, k, generator=gen, device=device).to(dtype)
+    w = torch.randn(e, k, n, generator=gen, device=device).to(dtype)
+    return x, w
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("e,c,k,n", [
-    (8, 2, 4096, 1376),    # decode step: the skinny path (K split)
+    (8, 2, 4096, 1376),    # decode step (bf16: wgmma at width 8)
     (8, 2, 1376, 4096),
-    (8, 40, 1376, 4096),   # prefill: the tiled path
-    (3, 130, 100, 36),     # ragged: tiled
-    (3, 3, 100, 36),       # ragged skinny (f32) / tiled (bf16: N % 8 != 0)
-    (5, 1, 7, 8),          # fewer K rows than warps
+    (8, 40, 1376, 4096),   # calibration and prefill at batch 4 x 32
+    (3, 130, 100, 36),     # ragged (N % 8 != 0: fma)
+    (3, 3, 100, 36),
+    (5, 1, 7, 8),          # K % 8 != 0: fma
+    # every C tile of the wgmma path at the serve K/N, up to a real
+    # prefill's C = 2560 (ten tiles of 256)
+    *[(8, c, 4096, 1376) for c in (1, 8, 9, 40, 64, 65, 256, 257, 2560)],
+    (8, 40, 1000, 1376),   # K not a multiple of the 64-deep K step
+    (1, 2, 4096, 1376),    # few blocks
 ])
 def test_gmm_kernel_matches_plain(cuda_device, e, c, k, n, dtype):
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn(e, c, k, generator=gen, device=cuda_device).to(dtype)
-    w = torch.randn(e, k, n, generator=gen, device=cuda_device).to(dtype)
+    x, w = _gmm_inputs(cuda_device, e, c, k, n, dtype)
     before = moe_gmm.launches
     got = moe_gmm.gmm(x, w)
     torch.cuda.synchronize()
@@ -52,6 +62,31 @@ def test_gmm_kernel_matches_plain(cuda_device, e, c, k, n, dtype):
     # Sums over K ~ sqrt(K) in size: compare relative to the largest entry.
     scale = float(want.float().abs().max())
     np.testing.assert_allclose(_np(got) / scale, _np(want) / scale, **TOL[dtype])
+
+
+@pytest.mark.parametrize("e,c,k,n", [(8, 2, 4096, 1376), (8, 40, 1376, 4096),
+                                     (8, 257, 4096, 1376), (1, 2, 4096, 1376)])
+def test_gmm_kernel_is_bitwise_repeatable(cuda_device, e, c, k, n):
+    """No float atomics: each block sums all of K itself, in order."""
+    x, w = _gmm_inputs(cuda_device, e, c, k, n, torch.bfloat16, seed=3)
+    first = moe_gmm.gmm(x, w)
+    assert torch.equal(moe_gmm.gmm(x, w), first)
+
+
+@pytest.mark.parametrize("e,c,k,n,dtype,path", [
+    (8, 2, 4096, 1376, torch.bfloat16, "wgmma"),
+    (8, 40, 1376, 4096, torch.bfloat16, "wgmma"),
+    (8, 2560, 4096, 1376, torch.bfloat16, "wgmma"),
+    (8, 2, 4096, 1376, torch.float32, "fma"),
+    (3, 130, 100, 36, torch.bfloat16, "fma"),
+])
+def test_gmm_kernel_counts_its_path(cuda_device, e, c, k, n, dtype, path):
+    x, w = _gmm_inputs(cuda_device, e, c, k, n, dtype)
+    before = dict(moe_gmm.path_launches)
+    moe_gmm.gmm(x, w)
+    torch.cuda.synchronize()
+    moved = {p: moe_gmm.path_launches[p] - before[p] for p in before}
+    assert moved == {p: int(p == path) for p in before}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -10,7 +10,9 @@ Phases (any failure exits non-zero and prints no success line):
      nvcc for sm_90a (one nvcc per source, started together);
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card at the serve path's shapes (plus an f32, a ragged and a long
-     case, and gmm at a real prefill's C = 2560), with its device time
+     case, decode_attention's S = 2048 both in its own layout and as a
+     view of the model's cache, and gmm at a real prefill's C = 2560),
+     with its device time
      (CUDA events around calls queued behind a busy card) and wall time
      (CUDA events, host gaps included), the same for the plain version
      and for one PyTorch library call as a yardstick (gmm and
@@ -25,7 +27,7 @@ Phases (any failure exits non-zero and prints no success line):
      with every kernel's launch count over that run checked, and every
      gmm launch on the tensor-core (wgmma) path;
   6. profile: where a full-width decode step's time goes (torch.profiler:
-     device busy share, kernel time by name);
+     device busy share, kernel time by name, ``decode_attention``'s);
   7. fleet: the request-level fleet simulator (``repro_torch.traffic
      .FleetSim``) on the paper's world (33 x 32 satellites, 200 slots,
      llama-moe-3.5b's 32 MoE layers, 8 experts top-2, 3 plans, ~132
@@ -38,7 +40,9 @@ Phases (any failure exits non-zero and prints no success line):
   8. fleet kernels: ``deposit`` and ``backlog_scan`` on the inputs that
      ``run()`` gave them, each against its plain version (bitwise), with
      device times, the plain version's and the library call's time, and
-     the least time the card could take;
+     the least time the card could take; ``backlog_scan`` also on
+     ``run_many``'s plane and on a plane built never to coalesce, each
+     with its chunks' coalescence statistics;
   9. the ``kernels`` JSON line (all four kernels; launches counted over
      the serve run for gmm/decode_attention and over the fleet ``run()``
      for deposit/backlog_scan), the card line, then the result line.
@@ -61,9 +65,6 @@ BATCH, PROMPT, DECODE = 4, 32, 16
 # H100 SXM data sheet: HBM rate and dense peak rates by type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float64": 34e12}
-# Load-to-use latency of device memory assumed for the serial bound of a
-# recursion that waited on each load (order of magnitude, not measured).
-DRAM_LATENCY_S = 600e-9
 # Thinning fractions of the fleet sweep (benchmarks/bench_fleet.py).
 FLEET_FRACTIONS = (0.1, 0.15, 0.2, 0.25, 0.3, 0.35, 0.4, 0.5, 0.6, 0.8, 1.0)
 
@@ -251,14 +252,20 @@ def timed_record(torch, rec, kernel, plain, library, iters, turns=1) -> dict:
     return rec
 
 
-def check_decode(torch, b, hkv, g, s, hd, dtype_name, pos_list, iters):
+def check_decode(torch, b, hkv, g, s, hd, dtype_name, pos_list, iters,
+                 layout="bhsd"):
+    """``layout`` "bshd": k and v are transposed views of the model's
+    (B, S, Hkv, hd) cache, as ``models/attention.py`` passes them."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attn
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(s + g)
+    kv_shape = (b, hkv, s, hd) if layout == "bhsd" else (b, s, hkv, hd)
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
-               for shape in ((b, hkv, g, hd), (b, hkv, s, hd), (b, hkv, s, hd)))
+               for shape in ((b, hkv, g, hd), kv_shape, kv_shape))
+    if layout == "bshd":
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
     pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
     got = decode_attn.decode_attention(q, k, v, pos)
     torch.cuda.synchronize()
@@ -278,8 +285,9 @@ def check_decode(torch, b, hkv, g, s, hd, dtype_name, pos_list, iters):
                                               enable_gqa=g > 1)
     return timed_record(
         torch, {"name": "decode_attention",
-                "shape": f"q({b},{hkv},{g},{hd}) kv S={s} pos={pos_list} "
-                         f"{dtype_name}",
+                "shape": f"q({b},{hkv},{g},{hd}) kv S={s} {layout} "
+                         f"pos={pos_list} {dtype_name}",
+                "splits": list(decode_attn.decode_splits(b, hkv, s)),
                 "max_abs_err": err, "tol": tol, "ok": ok,
                 "bound_ms": b_ms, "bound_by": b_by},
         kernel=lambda: decode_attn.decode_attention(q, k, v, pos),
@@ -299,10 +307,13 @@ def phase_kernels(torch) -> dict[str, dict]:
                   (3, 130, 100, 36, "bfloat16"), (3, 3, 100, 36, "float32")]
     last_pos = PROMPT + DECODE - 1       # the last decode step's positions
     s_serve = PROMPT + DECODE + 1
+    long_pos = [2047, 1500, 1024, 17]
     attn_cases = [
-        (BATCH, 32, 1, 128, s_serve, "bfloat16", [last_pos] * BATCH),
-        (BATCH, 32, 1, 128, 2048, "bfloat16", [2047, 1500, 1024, 17]),
-        (2, 4, 3, 64, 333, "float32", [332, 100]),
+        (BATCH, 32, 1, 128, s_serve, "bfloat16", [last_pos] * BATCH, "bhsd"),
+        (BATCH, 32, 1, 128, 2048, "bfloat16", long_pos, "bhsd"),
+        (BATCH, 32, 1, 128, 2048, "bfloat16", long_pos, "bshd"),
+        (BATCH, 32, 1, 128, 2048, "bfloat16", [2047] * BATCH, "bhsd"),
+        (2, 4, 3, 64, 333, "float32", [332, 100], "bhsd"),
     ]
     main = {}
     failed = []
@@ -312,8 +323,9 @@ def phase_kernels(torch) -> dict[str, dict]:
         failed += [] if rec["ok"] else [rec["shape"]]
         if case == (e, cap_decode, d, f, "bfloat16"):
             main["gmm"] = rec
-    for b, hkv, g, hd, s, dt, pos in attn_cases:
-        rec = check_decode(torch, b, hkv, g, s, hd, dt, pos, iters=50)
+    for b, hkv, g, hd, s, dt, pos, layout in attn_cases:
+        rec = check_decode(torch, b, hkv, g, s, hd, dt, pos, iters=50,
+                           layout=layout)
         log("kernel " + json.dumps(rec))
         failed += [] if rec["ok"] else [rec["shape"]]
         if s == s_serve:
@@ -466,6 +478,10 @@ def phase_profile(torch, n_steps: int = 4) -> None:
         f"({sum(k[1] for k in kernels):.0f} kernel launches per step)")
     for ms, calls, name in sorted(kernels, reverse=True)[:12]:
         log(f"profile:   {ms:8.3f} ms/step {calls:6.0f} calls/step  {name[:90]}")
+    attn = [(ms, calls) for ms, calls, name in kernels
+            if "decode_attn_kernel" in name]
+    log(f"profile: decode_attention {sum(a[0] for a in attn):.4f} ms/step in "
+        f"{sum(a[1] for a in attn):.0f} calls/step")
 
 
 # --------------------------------------------------------------------- #
@@ -575,8 +591,8 @@ def phase_fleet(torch) -> tuple[dict, dict, dict]:
         return real_deposit(rows, cols, vals, n_rows, n_cols,
                             row_ptr=row_ptr)
 
-    def scan_rec(work, cap, dt):
-        captured.setdefault("backlog_scan", (work.clone(), cap, dt))
+    def scan_rec(work, cap, dt, key="backlog_scan"):
+        captured.setdefault(key, (work.clone(), cap, dt))
         return real_scan(work, cap, dt)
 
     queueing.deposit, queueing.backlog_scan = deposit_rec, scan_rec
@@ -643,11 +659,17 @@ def phase_fleet(torch) -> tuple[dict, dict, dict]:
     # run_many over the bench_fleet thinning fractions.
     u = np.random.default_rng(1).random(sim.n_requests)
     masks = u[None, :] < np.asarray(FLEET_FRACTIONS)[:, None]
+    # The first scan input of run_many is kept for phase 8 (one clone of
+    # its plane inside the timed call).
     ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    many = sim.run_many(masks)
-    torch_sync()
-    t_many = time.perf_counter() - t0
+    queueing.backlog_scan = lambda *a: scan_rec(*a, key="backlog_scan_many")
+    try:
+        t0 = time.perf_counter()
+        many = sim.run_many(masks)
+        torch_sync()
+        t_many = time.perf_counter() - t0
+    finally:
+        queueing.backlog_scan = real_scan
     many_counts = ops.launch_counts()
     log(f"fleet run_many over {len(FLEET_FRACTIONS)} fractions: "
         f"{t_many * 1e3:.1f} ms wall (synchronized), launch counts "
@@ -697,7 +719,7 @@ def phase_fleet_kernels(torch, captured, in_run) -> dict[str, dict]:
     """Each fleet kernel against its plain version on the inputs run()
     gave it.  ``in_run``: device ms per launch inside the profiled run()
     (printed beside the kernel's own time)."""
-    from repro_torch.kernels import backlog_scan, deposit
+    from repro_torch.kernels import deposit
     rows, cols, vals, n_rows, n_cols, row_ptr = captured["deposit"]
     got = deposit.deposit(rows, cols, vals, n_rows, n_cols, row_ptr=row_ptr)
     torch.cuda.synchronize()
@@ -729,34 +751,103 @@ def phase_fleet_kernels(torch, captured, in_run) -> dict[str, dict]:
     log("kernel " + json.dumps(dep))
 
     work, cap, dt = captured["backlog_scan"]
+    scans = [check_scan(torch, work, cap, dt, "run()")]
+    scans[0]["in_run_ms"] = in_run["backlog_scan"]
+    scans.append(check_scan(torch, *captured.pop("backlog_scan_many"),
+                            f"run_many over {len(FLEET_FRACTIONS)} fractions"))
+    scans.append(check_scan(torch, never_coalescing_plane(torch, work.shape,
+                                                          cap, dt),
+                            cap, dt, "built never to coalesce"))
+    for rec in scans:
+        log("kernel " + json.dumps(rec))
+    bad = [rec["shape"] for rec in scans if not rec["ok"]]
+    if not same or bad:
+        raise SmokeFailure(f"fleet kernels disagree with their plain "
+                           f"versions: deposit equal={same}, backlog_scan "
+                           f"not equal on {bad}")
+    return {"deposit": dep, "backlog_scan": scans[0]}
+
+
+def never_coalescing_plane(torch, shape, cap, dt):
+    """A (T, C) work plane on which no chunk's two bracketing runs ever
+    meet: half the cap in bin 0, then dt a bin, so every backlog sits at
+    cap / 2 - dt, strictly inside (0, cap - dt); the run from 0 stays at
+    0 and the run from cap - dt stays near it."""
+    work = torch.full(shape, float(dt), dtype=torch.float32, device="cuda")
+    work[0] = float(cap) / 2
+    return work
+
+
+def coalescence_stats(torch, coal, chunk: int, n_bins: int) -> dict:
+    """From backlog_scan's coalescence report (chunks x columns): over the
+    (column, chunk) pairs after the first chunk (which starts exactly),
+    the share whose runs met, the mean bins to meeting over those, and
+    the share of the plane's cells the fix-up re-reads (a warp re-runs
+    the most bins any of its 32 columns needs), and the longest stretch
+    of consecutive chunks in which one column never met (the fix-up runs
+    those chunks one after another)."""
+    from repro_torch.kernels.backlog_scan import TILE_COLS
+    later = coal[1:].long()
+    n_cols = coal.shape[1]
+    if later.numel() == 0:
+        return {"coalesced_share": None, "longest_serial_chunks": 0,
+                "mean_bins_to_coalesce": None, "rerun_share": 0.0}
+    met = later >= 0
+    lengths = torch.full((later.shape[0], 1), chunk, device=coal.device)
+    lengths[-1] = n_bins - chunk * later.shape[0]
+    todo = torch.where(met, later, lengths)
+    pad = -n_cols % TILE_COLS
+    todo = torch.nn.functional.pad(todo, (0, pad)).reshape(
+        later.shape[0], -1, TILE_COLS).amax(dim=2)
+    live = torch.full((todo.shape[1],), TILE_COLS, device=coal.device)
+    live[-1] -= pad                                    # columns a tile holds
+    run = longest = torch.zeros(n_cols, dtype=torch.long, device=coal.device)
+    for row in ~met:                  # consecutive chunks a column never met
+        run = torch.where(row, run + 1, 0)
+        longest = torch.maximum(longest, run)
+    return {"coalesced_share": float(met.float().mean()),
+            "longest_serial_chunks": int(longest.max()),
+            "mean_bins_to_coalesce": (float(later[met].float().mean())
+                                      if bool(met.any()) else None),
+            "rerun_share": float((todo * live).sum()) / (n_bins * n_cols)}
+
+
+def check_scan(torch, work, cap, dt, what: str) -> dict:
+    """backlog_scan on ``work`` against its plain loop (bitwise), with its
+    device time on a contiguous copy of ``work``, the plain loop's wall
+    time, its coalescence statistics and the least time the card could
+    take.  The fleet passes a transposed view of its (F, rows, T) plane,
+    which the wrapper copies to (T, F * rows) first: ``view_ms`` is the
+    device time of such a call, the copy included."""
+    from repro_torch.kernels import backlog_scan
+    view, work = work, work.contiguous()
+    t_bins, n_cols = work.shape
+    chunk = backlog_scan.scan_chunk(t_bins, n_cols)
+    coal = torch.empty((-(-t_bins // chunk), n_cols), dtype=torch.int32,
+                       device="cuda")
+    got = backlog_scan.backlog_scan(work, cap, dt, coalescence=coal)
+    torch.cuda.synchronize()
     ms, wall_ms, hidden = time_ms(torch, lambda: backlog_scan.backlog_scan(
         work, cap, dt), iters=5)
-    got = backlog_scan.backlog_scan(work, cap, dt)
-    torch.cuda.synchronize()
     want = None
 
     def plain():
         nonlocal want
         want = backlog_scan.backlog_scan_plain(work, cap, dt)
     plain_ms = event_ms(torch, plain, iters=1, warm=False)
-    same_scan = bool(torch.equal(got, want))
-    t_bins, n_cols_scan = work.shape
+    view_ms = None if view.is_contiguous() else time_ms(
+        torch, lambda: backlog_scan.backlog_scan(view, cap, dt), iters=5)[0]
     b_ms, b_by = bound(8 * work.numel(), 4 * work.numel(), "float32")
-    scan = {"name": "backlog_scan",
-            "shape": f"({t_bins}, {n_cols_scan}) f32 time-major",
+    return {"name": "backlog_scan",
+            "shape": f"({t_bins}, {n_cols}) f32 time-major, {what}",
+            "view_ms": view_ms,
+            "chunk": chunk, **coalescence_stats(torch, coal, chunk, t_bins),
             "max_abs_err": float((got - want).abs().max()), "tol": 0.0,
-            "ok": same_scan, "bound_ms": b_ms, "bound_by": b_by,
-            "serial_dram_ms": t_bins * DRAM_LATENCY_S * 1e3,
-            "ms": ms, "wall_ms": wall_ms, "hidden": hidden,
+            "ok": bool(torch.equal(got, want)), "bound_ms": b_ms,
+            "bound_by": b_by, "ms": ms, "wall_ms": wall_ms, "hidden": hidden,
             "plain_ms": plain_ms, "plain_wall_ms": plain_ms,
             "plain_hidden": False, "library_ms": None,
-            "library_wall_ms": None, "in_run_ms": in_run["backlog_scan"]}
-    log("kernel " + json.dumps(scan))
-    if not (same and same_scan):
-        raise SmokeFailure(f"fleet kernels disagree with their plain "
-                           f"versions: deposit equal={same}, backlog_scan "
-                           f"equal={same_scan}")
-    return {"deposit": dep, "backlog_scan": scan}
+            "library_wall_ms": None}
 
 
 def main() -> int:

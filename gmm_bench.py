@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Host cost of the port's ``gmm`` wrapper, and its ring depth, on one card.
+"""Host cost of the port's ``gmm`` wrapper, and its ring depth, on one card;
+with ``--scan``, ``backlog_scan`` on a plane that never coalesces.
 
     python3 gmm_bench.py                   # the port in this checkout
     python3 gmm_bench.py --src TREE/src    # the port in another tree
+    python3 gmm_bench.py --scan [--src TREE/src]
 
 At llama-moe-3.5b's bf16 serve shapes (E = 8, K/N = 4096/1376 and
 1376/4096, C = 2 and 40) it prints one JSON object a line:
@@ -17,6 +19,13 @@ At llama-moe-3.5b's bf16 serve shapes (E = 8, K/N = 4096/1376 and
     ``chip_smoke.py``), and whether each depth's result is bitwise that
     of the chosen depth.
 
+With ``--scan`` it prints one object instead: ``backlog_scan``'s device ms
+(three readings of ``time_ms``) on the fleet ``run()`` plane's shape
+(40,966 bins x 864 columns) filled by ``chip_smoke.never_coalescing_plane``
+at ``QueueConfig()``'s cap and bin width, where a chunked scan has to
+re-run every chunk in turn, and whether it is bitwise the plain loop.
+Run it on two trees in one call to compare their kernels there.
+
 Needs a CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -30,6 +39,8 @@ import chip_smoke
 
 D, F, E = 4096, 1376, 8
 DEPTHS = (2, 3, 4, 0)
+SCAN_SHAPE = (40_966, 864)      # FleetSim.run()'s plane on the paper's world
+SCAN_CAP, SCAN_DT = 10.0, 0.05  # QueueConfig(): buffer_s, dt_s
 
 
 def _inputs(torch, c, k, n):
@@ -60,10 +71,27 @@ def _depths(torch, moe_gmm, x, w, rec) -> None:
         moe_gmm.gmm_depth = chosen
 
 
+def _scan(torch) -> None:
+    from repro_torch.kernels import backlog_scan
+    work = chip_smoke.never_coalescing_plane(torch, SCAN_SHAPE, SCAN_CAP,
+                                             SCAN_DT)
+    got = backlog_scan.backlog_scan(work, SCAN_CAP, SCAN_DT)
+    want = backlog_scan.backlog_scan_plain(work, SCAN_CAP, SCAN_DT)
+    print(json.dumps({
+        "scan": "never coalescing", "shape": list(SCAN_SHAPE),
+        "equal": bool(torch.equal(got, want)),
+        "bound_ms": chip_smoke.bound(8 * work.numel(), 4 * work.numel(),
+                                     "float32")[0],
+        "ms": [chip_smoke.time_ms(torch, lambda: backlog_scan.backlog_scan(
+            work, SCAN_CAP, SCAN_DT), 5)[0] for _ in range(3)]}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(chip_smoke.ROOT / "src"),
                     help="the src directory of the port to measure")
+    ap.add_argument("--scan", action="store_true",
+                    help="time backlog_scan on a never-coalescing plane")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -74,6 +102,9 @@ def main() -> int:
     print(json.dumps({"card": chip_smoke.card_line(),
                       "port": str(Path(moe_gmm.__file__).resolve())}),
           flush=True)
+    if args.scan:
+        _scan(torch)
+        return 0
     build.load("moe_gmm")
     for c in (2, 40):
         for k, n in ((D, F), (F, D)):

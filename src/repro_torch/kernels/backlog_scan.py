@@ -13,7 +13,12 @@ eager loop would cost ~4 launches a bin, so it is ``csrc/backlog_scan.cu``.
 ``backlog_scan`` runs the plain loop for CPU tensors and the kernel for
 CUDA tensors; on a CUDA tensor it launches the kernel or raises.  Work is
 finite and non-negative (seconds of service), so the kernel's fminf/fmaxf
-and the loop's minimum/maximum agree bit for bit.
+and the loop's minimum/maximum agree bit for bit.  The kernel cuts T into
+chunks of ``scan_chunk`` bins that run in parallel and stay exact: each
+chunk is run from 0 and from the largest backlog a step can leave, and
+from the bin where the two runs meet it is the true trajectory; the bins
+before it are filled in from the previous chunk's exact end (the note at
+the head of ``csrc/backlog_scan.cu`` gives the argument).
 """
 from __future__ import annotations
 
@@ -23,7 +28,14 @@ import torch
 
 from . import build
 
+TILE_COLS = 32        # columns a block of the kernel owns
+MAX_CHUNK = 4096      # bins of a chunk: at most,
+MIN_CHUNK = 1024      # at least (ceil((cap - dt) / dt) = 199 bins drain a
+                      # full buffer at QueueConfig()'s cap 10 s, dt 0.05 s)
+WARPS_PER_SM = 8      # blocks (one warp each) scan_chunk aims at per SM
+
 launches = 0          # kernel launches since the last reset (ops.py)
+_STATE: dict[int, list] = {}   # per device: [end words, ticket, epoch]
 
 
 def backlog_scan_plain(work: torch.Tensor, cap: float,
@@ -40,38 +52,92 @@ def backlog_scan_plain(work: torch.Tensor, cap: float,
     return wait
 
 
+def scan_chunk(n_bins: int, n_cols: int, sms: int = build.H100_SMS) -> int:
+    """Bins of one chunk: the longest power of two from MAX_CHUNK down to
+    MIN_CHUNK that still gives WARPS_PER_SM blocks on each of ``sms`` SMs
+    (longer chunks re-run fewer bins before the runs meet)."""
+    tiles = -(-n_cols // TILE_COLS)
+    chunk = MAX_CHUNK
+    while chunk > MIN_CHUNK and tiles * -(-n_bins // chunk) < WARPS_PER_SM * sms:
+        chunk //= 2
+    return chunk
+
+
+def _state(device: torch.device, n_ends: int):
+    """(end words, ticket, epoch) for one launch on ``device``: the 64-bit
+    words in which the kernel publishes each chunk's exact end per column
+    (zeroed once, grown as needed), its block ticket, and a fresh epoch
+    (the tag that marks a word as written by this launch)."""
+    st = _STATE.get(device.index)
+    if st is None or st[0].numel() < n_ends or st[2] >= 2 ** 31:
+        st = [torch.zeros(max(n_ends, 1 << 16), dtype=torch.int64,
+                          device=device),
+              torch.zeros(1, dtype=torch.int32, device=device), 0]
+        _STATE[device.index] = st
+    st[2] += 1
+    return st[0], st[1], st[2]
+
+
 def _library():
     lib = build.load("backlog_scan")
     if lib.repro_backlog_scan.argtypes is None:
         lib.repro_backlog_scan.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
+            ctypes.c_void_p] * 5 + [ctypes.c_int64] * 4 + [
+            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_uint,
             ctypes.c_void_p]
         lib.repro_backlog_scan.restype = ctypes.c_int
     return lib
 
 
-def backlog_scan(work: torch.Tensor, cap: float, dt: float) -> torch.Tensor:
-    """Wait trace (T, C) float32 of the time-major (T, C) float32 ``work``."""
+def backlog_scan(work: torch.Tensor, cap: float, dt: float, *,
+                 coalescence: torch.Tensor | None = None) -> torch.Tensor:
+    """Wait trace (T, C) float32 of the (T, C) float32 ``work``.
+
+    ``work`` may be any strided view (the fleet passes a transposed view of
+    its (F, rows, T) plane); the kernel reads it in place and writes
+    ``wait`` contiguous.
+
+    ``coalescence`` (CUDA only): an int32 (ceil(T / chunk), C) tensor,
+    chunk = ``scan_chunk(T, C)``, that receives for each chunk and column
+    the bins its two bracketing runs took to meet (-1: they never did).
+
+    Each launch tags its chunk ends with a fresh epoch, so calls on one
+    device must not overlap (one stream at a time) and a CUDA graph
+    capturing a call would replay a stale epoch.
+    """
     global launches
     if work.dtype != torch.float32 or work.dim() != 2:
         raise TypeError(f"backlog_scan: work is {work.dtype} "
                         f"{tuple(work.shape)}; it takes float32 (T, C)")
-    if work.device.type == "cpu":
+    if work.device.type == "cpu" and coalescence is None:
         return backlog_scan_plain(work, cap, dt)
     if work.device.type != "cuda":
         raise ValueError(f"backlog_scan: work on {work.device}; the kernel "
-                         "needs a CUDA device")
-    work = work.contiguous()
-    wait = torch.empty_like(work)
+                         "(and its coalescence report) needs a CUDA device")
+    n_bins, n_cols = work.shape
+    wait = torch.empty((n_bins, n_cols), dtype=torch.float32, device=work.device)
     if work.numel() == 0:
         return wait
     lib = _library()
     with torch.cuda.device(work.device):
+        chunk = scan_chunk(n_bins, n_cols, build.sm_count(work.device.index))
+        n_chunks = -(-n_bins // chunk)
+        if coalescence is not None and (
+                coalescence.shape != (n_chunks, n_cols)
+                or coalescence.dtype != torch.int32
+                or coalescence.device != work.device
+                or not coalescence.is_contiguous()):
+            raise ValueError(f"backlog_scan: coalescence must be a contiguous "
+                             f"int32 ({n_chunks}, {n_cols}) tensor on "
+                             f"{work.device}")
+        ends, ticket, epoch = _state(work.device, n_chunks * n_cols)
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.repro_backlog_scan(work.data_ptr(), wait.data_ptr(),
-                                     work.shape[0], work.shape[1],
-                                     float(cap), float(dt), stream)
+        err = lib.repro_backlog_scan(
+            work.data_ptr(), wait.data_ptr(), ends.data_ptr(),
+            ticket.data_ptr(),
+            coalescence.data_ptr() if coalescence is not None else None,
+            n_bins, n_cols, work.stride(0), work.stride(1), chunk,
+            float(cap), float(dt), epoch, stream)
     build.check(err, "backlog_scan")
     launches += 1
     return wait

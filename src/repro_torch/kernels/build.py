@@ -10,6 +10,7 @@ together (``build_all``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -21,6 +22,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("moe_gmm", "decode_attn", "deposit", "backlog_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+H100_SMS = 132        # streaming multiprocessors of an H100 SXM
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -93,3 +96,11 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaGetLastError() returned by a launcher."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``; the wrappers
+    size their grids by it."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count

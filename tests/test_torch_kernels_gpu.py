@@ -200,3 +200,143 @@ def test_backlog_scan_kernel_is_bitwise_the_plain_loop(cuda_device, t, c,
     torch.cuda.synchronize()
     assert backlog_scan.launches == before + 1
     assert torch.equal(got, backlog_scan.backlog_scan_plain(work, cap, 0.05))
+
+
+# --------------------------------------------------------------------- #
+# decode_attention split over S (decode_splits) with its in-launch merge
+# --------------------------------------------------------------------- #
+
+
+def _long_cache(device, g, dtype, layout, b=5, hkv=8, s=2048, hd=128, seed=4):
+    """q and a k/v cache of S = 2048 in the kernel's (B, Hkv, S, hd) layout
+    or as a transposed view of the model's (B, S, Hkv, hd) cache, with pos
+    at 0, S - 1 and around the first split boundary."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(b, hkv, g, hd, generator=gen, device=device).to(dtype)
+    if layout == "bhsd":
+        k, v = (torch.randn(b, hkv, s, hd, generator=gen, device=device)
+                .to(dtype) for _ in range(2))
+    else:
+        k, v = (torch.randn(b, s, hkv, hd, generator=gen, device=device)
+                .to(dtype).transpose(1, 2) for _ in range(2))
+    _, chunk = decode_attn.decode_splits(b, hkv, s)
+    pos = torch.tensor([0, s - 1, chunk - 1, chunk, chunk + 1],
+                       dtype=torch.int32, device=device)
+    return q, k, v, pos
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 3, 6])
+def test_decode_attention_split_matches_plain(cuda_device, g, dtype, layout):
+    q, k, v, pos = _long_cache(cuda_device, g, dtype, layout)
+    assert decode_attn.decode_splits(5, 8, 2048)[0] > 1
+    before = decode_attn.launches
+    got = decode_attn.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert decode_attn.launches == before + 1
+    want = decode_attn.decode_attention_plain(q, k.contiguous(),
+                                              v.contiguous(), pos)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_decode_attention_split_is_bitwise_repeatable(cuda_device, layout):
+    """The splits are merged in split order, whichever block ends last."""
+    q, k, v, pos = _long_cache(cuda_device, 1, torch.bfloat16, layout, seed=5)
+    first = decode_attn.decode_attention(q, k, v, pos)
+    for _ in range(3):
+        assert torch.equal(decode_attn.decode_attention(q, k, v, pos), first)
+
+
+def test_decode_attention_ignores_rows_past_pos_on_the_card(cuda_device):
+    q, k, v, pos = _long_cache(cuda_device, 3, torch.float32, "bhsd", seed=6)
+    got = decode_attn.decode_attention(q, k, v, pos)
+    k2, v2 = k.clone(), v.clone()
+    for i, p in enumerate(pos.tolist()):
+        k2[i, :, p + 1:] = float("nan")
+        v2[i, :, p + 1:] = float("nan")
+    assert torch.equal(decode_attn.decode_attention(q, k2, v2, pos), got)
+
+
+# --------------------------------------------------------------------- #
+# backlog_scan chunked over T (scan_chunk), bitwise the plain loop
+# --------------------------------------------------------------------- #
+
+
+def _scan_work(kind, t, c, dt, seed=0):
+    rng = np.random.default_rng(seed)
+    if kind == "sparse":
+        w = rng.random((t, c)) * (rng.random((t, c)) < 0.05) * 2.0
+    elif kind == "heavy":
+        w = rng.random((t, c)) * 0.5
+    elif kind == "zero":
+        w = np.zeros((t, c))
+    else:                       # never: b sits strictly inside (0, U)
+        w = np.full((t, c), dt)
+        w[0] = 5.0
+    return torch.from_numpy(w.astype(np.float32))
+
+
+@pytest.mark.parametrize("kind,t,c,cap", [
+    ("sparse", 5000, 9504, 10.0),    # run_many's width (11 x 864 columns)
+    ("never", 5000, 64, 10.0),       # every chunk after the first re-runs
+    ("heavy", 3000, 100, 0.03),      # cap < dt
+    ("heavy", 3000, 100, 0.05),      # cap == dt
+    ("zero", 3000, 100, 10.0),       # all-zero work
+    ("sparse", 1, 40, 10.0),         # T = 1
+    ("sparse", 2500, 33, 10.0),      # T not a multiple of the chunk, C of 32
+    ("heavy", 4500, 70, 10.0),       # overflows: coalesces at the cap
+])
+def test_backlog_scan_chunks_are_bitwise_the_plain_loop(cuda_device, kind, t,
+                                                        c, cap):
+    from repro_torch.kernels import backlog_scan
+    dt = 0.05
+    work = _scan_work(kind, t, c, dt).to(cuda_device)
+    chunk = backlog_scan.scan_chunk(t, c)
+    coal = torch.full((-(-t // chunk), c), -2, dtype=torch.int32,
+                      device=cuda_device)
+    before = backlog_scan.launches
+    got = backlog_scan.backlog_scan(work, cap, dt, coalescence=coal)
+    torch.cuda.synchronize()
+    assert backlog_scan.launches == before + 1
+    assert torch.equal(got, backlog_scan.backlog_scan_plain(work, cap, dt))
+    assert bool((coal[0] == 0).all())                  # chunk 0 is exact
+    assert bool(((coal >= -1) & (coal <= chunk)).all())
+    if kind == "never":
+        assert bool((coal[1:] == -1).all())
+    if cap <= dt:
+        assert bool((coal == 0).all())
+    # A second launch reuses the ticket and status words (a new epoch).
+    assert torch.equal(backlog_scan.backlog_scan(work, cap, dt), got)
+
+
+@pytest.mark.parametrize("t,c", [(5000, 864), (2500, 33)])
+def test_backlog_scan_reads_a_transposed_view(cuda_device, t, c):
+    """The fleet's (F, rows, T) plane as a (T, F * rows) view, read in
+    place through its strides."""
+    from repro_torch.kernels import backlog_scan
+    plane = _scan_work("sparse", t, c, 0.05, seed=7).T.contiguous()
+    view = plane.to(cuda_device).T                      # strides (1, T)
+    assert not view.is_contiguous()
+    got = backlog_scan.backlog_scan(view, 10.0, 0.05)
+    torch.cuda.synchronize()
+    assert got.is_contiguous()
+    assert torch.equal(got, backlog_scan.backlog_scan_plain(view.contiguous(),
+                                                            10.0, 0.05))
+
+
+@pytest.mark.parametrize("hd,dtype,offset", [(36, torch.bfloat16, 0),
+                                             (64, torch.float32, 1)])
+def test_decode_attention_refuses_unaligned_rows(cuda_device, hd, dtype,
+                                                 offset):
+    """Rows are copied 16 bytes at a time: a head_dim or a view whose rows
+    do not start on 16 bytes is refused, not launched."""
+    q = torch.zeros(1, 2, 1, hd, dtype=dtype, device=cuda_device)
+    kv = torch.zeros(1, 2, 64 * hd + offset, dtype=dtype, device=cuda_device)
+    k = kv[..., offset:].reshape(1, 2, 64, hd)
+    pos = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    before = decode_attn.launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        decode_attn.decode_attention(q, k, k, pos)
+    assert decode_attn.launches == before

@@ -258,7 +258,7 @@ def check_decode(torch, b, hkv, g, s, hd, dtype_name, pos_list, iters,
     (B, S, Hkv, hd) cache, as ``models/attention.py`` passes them."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import decode_attn
+    from repro_torch.kernels import build, decode_attn
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(s + g)
     kv_shape = (b, hkv, s, hd) if layout == "bhsd" else (b, s, hkv, hd)
@@ -287,7 +287,8 @@ def check_decode(torch, b, hkv, g, s, hd, dtype_name, pos_list, iters,
         torch, {"name": "decode_attention",
                 "shape": f"q({b},{hkv},{g},{hd}) kv S={s} {layout} "
                          f"pos={pos_list} {dtype_name}",
-                "splits": list(decode_attn.decode_splits(b, hkv, s)),
+                "splits": list(decode_attn.decode_splits(b, hkv, s,
+                                                         build.sm_count(0))),
                 "max_abs_err": err, "tol": tol, "ok": ok,
                 "bound_ms": b_ms, "bound_by": b_by},
         kernel=lambda: decode_attn.decode_attention(q, k, v, pos),
@@ -659,18 +660,18 @@ def phase_fleet(torch) -> tuple[dict, dict, dict]:
     # run_many over the bench_fleet thinning fractions.
     u = np.random.default_rng(1).random(sim.n_requests)
     masks = u[None, :] < np.asarray(FLEET_FRACTIONS)[:, None]
-    # The first scan input of run_many is kept for phase 8 (one clone of
-    # its plane inside the timed call).
     ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    many = sim.run_many(masks)
+    torch_sync()
+    t_many = time.perf_counter() - t0
+    many_counts = ops.launch_counts()
+    # One more, untimed call keeps run_many's first scan input for phase 8.
     queueing.backlog_scan = lambda *a: scan_rec(*a, key="backlog_scan_many")
     try:
-        t0 = time.perf_counter()
-        many = sim.run_many(masks)
-        torch_sync()
-        t_many = time.perf_counter() - t0
+        sim.run_many(masks)
     finally:
         queueing.backlog_scan = real_scan
-    many_counts = ops.launch_counts()
     log(f"fleet run_many over {len(FLEET_FRACTIONS)} fractions: "
         f"{t_many * 1e3:.1f} ms wall (synchronized), launch counts "
         f"{json.dumps(many_counts)}")
@@ -768,12 +769,17 @@ def phase_fleet_kernels(torch, captured, in_run) -> dict[str, dict]:
     return {"deposit": dep, "backlog_scan": scans[0]}
 
 
-def never_coalescing_plane(torch, shape, cap, dt):
+def never_coalescing_plane(torch, shape, cap, dt, time_major=False):
     """A (T, C) work plane on which no chunk's two bracketing runs ever
     meet: half the cap in bin 0, then dt a bin, so every backlog sits at
     cap / 2 - dt, strictly inside (0, cap - dt); the run from 0 stays at
-    0 and the run from cap - dt stays near it."""
-    work = torch.full(shape, float(dt), dtype=torch.float32, device="cuda")
+    0 and the run from cap - dt stays near it.  Laid out as the fleet
+    passes its planes (a transposed view, bins contiguous), or
+    ``time_major``."""
+    t, c = shape
+    work = torch.full((t, c) if time_major else (c, t), float(dt),
+                      dtype=torch.float32, device="cuda")
+    work = work if time_major else work.T
     work[0] = float(cap) / 2
     return work
 
@@ -813,16 +819,14 @@ def coalescence_stats(torch, coal, chunk: int, n_bins: int) -> dict:
 
 
 def check_scan(torch, work, cap, dt, what: str) -> dict:
-    """backlog_scan on ``work`` against its plain loop (bitwise), with its
-    device time on a contiguous copy of ``work``, the plain loop's wall
-    time, its coalescence statistics and the least time the card could
-    take.  The fleet passes a transposed view of its (F, rows, T) plane,
-    which the wrapper copies to (T, F * rows) first: ``view_ms`` is the
-    device time of such a call, the copy included."""
-    from repro_torch.kernels import backlog_scan
-    view, work = work, work.contiguous()
+    """backlog_scan on ``work``, laid out as the fleet passed it (a
+    transposed view of its (F, rows, T) plane), against its plain loop
+    (bitwise), with its device time on that same tensor, the plain loop's
+    wall time, its coalescence statistics and the least time the card
+    could take."""
+    from repro_torch.kernels import backlog_scan, build
     t_bins, n_cols = work.shape
-    chunk = backlog_scan.scan_chunk(t_bins, n_cols)
+    chunk = backlog_scan.scan_chunk(t_bins, n_cols, build.sm_count(0))
     coal = torch.empty((-(-t_bins // chunk), n_cols), dtype=torch.int32,
                        device="cuda")
     got = backlog_scan.backlog_scan(work, cap, dt, coalescence=coal)
@@ -833,14 +837,12 @@ def check_scan(torch, work, cap, dt, what: str) -> dict:
 
     def plain():
         nonlocal want
-        want = backlog_scan.backlog_scan_plain(work, cap, dt)
+        want = backlog_scan.backlog_scan_plain(work.contiguous(), cap, dt)
     plain_ms = event_ms(torch, plain, iters=1, warm=False)
-    view_ms = None if view.is_contiguous() else time_ms(
-        torch, lambda: backlog_scan.backlog_scan(view, cap, dt), iters=5)[0]
     b_ms, b_by = bound(8 * work.numel(), 4 * work.numel(), "float32")
     return {"name": "backlog_scan",
-            "shape": f"({t_bins}, {n_cols}) f32 time-major, {what}",
-            "view_ms": view_ms,
+            "shape": f"({t_bins}, {n_cols}) f32, strides "
+                     f"{tuple(work.stride())}, {what}",
             "chunk": chunk, **coalescence_stats(torch, coal, chunk, t_bins),
             "max_abs_err": float((got - want).abs().max()), "tol": 0.0,
             "ok": bool(torch.equal(got, want)), "bound_ms": b_ms,

@@ -19,12 +19,15 @@ At llama-moe-3.5b's bf16 serve shapes (E = 8, K/N = 4096/1376 and
     ``chip_smoke.py``), and whether each depth's result is bitwise that
     of the chosen depth.
 
-With ``--scan`` it prints one object instead: ``backlog_scan``'s device ms
-(three readings of ``time_ms``) on the fleet ``run()`` plane's shape
-(40,966 bins x 864 columns) filled by ``chip_smoke.never_coalescing_plane``
-at ``QueueConfig()``'s cap and bin width, where a chunked scan has to
-re-run every chunk in turn, and whether it is bitwise the plain loop.
-Run it on two trees in one call to compare their kernels there.
+With ``--scan`` it prints one object a layout instead: ``backlog_scan``'s
+device ms (three readings of ``time_ms``) on the fleet ``run()`` plane's
+shape (40,966 bins x 864 columns) filled by
+``chip_smoke.never_coalescing_plane`` at ``QueueConfig()``'s cap and bin
+width, where a chunked scan has to re-run every chunk in turn, and whether
+it is bitwise the plain loop; once laid out as the fleet passes it (a
+transposed view, bins contiguous) and once time-major.  A wrapper that
+copies a layout to the one its kernel reads is timed with the copy.  Run
+it on two trees in one call to compare their kernels there.
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -73,17 +76,21 @@ def _depths(torch, moe_gmm, x, w, rec) -> None:
 
 def _scan(torch) -> None:
     from repro_torch.kernels import backlog_scan
-    work = chip_smoke.never_coalescing_plane(torch, SCAN_SHAPE, SCAN_CAP,
-                                             SCAN_DT)
-    got = backlog_scan.backlog_scan(work, SCAN_CAP, SCAN_DT)
-    want = backlog_scan.backlog_scan_plain(work, SCAN_CAP, SCAN_DT)
-    print(json.dumps({
-        "scan": "never coalescing", "shape": list(SCAN_SHAPE),
-        "equal": bool(torch.equal(got, want)),
-        "bound_ms": chip_smoke.bound(8 * work.numel(), 4 * work.numel(),
-                                     "float32")[0],
-        "ms": [chip_smoke.time_ms(torch, lambda: backlog_scan.backlog_scan(
-            work, SCAN_CAP, SCAN_DT), 5)[0] for _ in range(3)]}), flush=True)
+    for time_major in (False, True):
+        work = chip_smoke.never_coalescing_plane(
+            torch, SCAN_SHAPE, SCAN_CAP, SCAN_DT, time_major=time_major)
+        got = backlog_scan.backlog_scan(work, SCAN_CAP, SCAN_DT)
+        want = backlog_scan.backlog_scan_plain(work.contiguous(), SCAN_CAP,
+                                               SCAN_DT)
+        print(json.dumps({
+            "scan": "never coalescing", "shape": list(SCAN_SHAPE),
+            "layout": "time-major" if time_major else "fleet view",
+            "equal": bool(torch.equal(got, want)),
+            "bound_ms": chip_smoke.bound(8 * work.numel(), 4 * work.numel(),
+                                         "float32")[0],
+            "ms": [chip_smoke.time_ms(torch, lambda: backlog_scan.backlog_scan(
+                work, SCAN_CAP, SCAN_DT), 5)[0] for _ in range(3)]}),
+            flush=True)
 
 
 def main() -> int:

@@ -1,6 +1,6 @@
 """Backlog recursion of the fleet queue over time bins: CUDA + plain.
 
-For every column c of a time-major (T, C) float32 work plane, from b = 0:
+For every column c of a (T, C) float32 work plane, from b = 0:
 
     wait[t, c] = b;   b = max(min(b + work[t, c], cap) - dt, 0)
 
@@ -52,7 +52,7 @@ def backlog_scan_plain(work: torch.Tensor, cap: float,
     return wait
 
 
-def scan_chunk(n_bins: int, n_cols: int, sms: int = build.H100_SMS) -> int:
+def scan_chunk(n_bins: int, n_cols: int, sms: int) -> int:
     """Bins of one chunk: the longest power of two from MAX_CHUNK down to
     MIN_CHUNK that still gives WARPS_PER_SM blocks on each of ``sms`` SMs
     (longer chunks re-run fewer bins before the runs meet)."""
@@ -93,13 +93,14 @@ def backlog_scan(work: torch.Tensor, cap: float, dt: float, *,
                  coalescence: torch.Tensor | None = None) -> torch.Tensor:
     """Wait trace (T, C) float32 of the (T, C) float32 ``work``.
 
-    ``work`` may be any strided view (the fleet passes a transposed view of
-    its (F, rows, T) plane); the kernel reads it in place and writes
-    ``wait`` contiguous.
+    The kernel reads ``work`` column-major, bins contiguous: the fleet
+    passes a transposed view of its (F, rows, T) plane, read in place.
+    Other layouts are copied to it first.  ``wait`` is contiguous.
 
     ``coalescence`` (CUDA only): an int32 (ceil(T / chunk), C) tensor,
-    chunk = ``scan_chunk(T, C)``, that receives for each chunk and column
-    the bins its two bracketing runs took to meet (-1: they never did).
+    chunk = ``scan_chunk(T, C, build.sm_count(device))``, that receives
+    for each chunk and column the bins its two bracketing runs took to
+    meet (-1: they never did).
 
     Each launch tags its chunk ends with a fresh epoch, so calls on one
     device must not overlap (one stream at a time) and a CUDA graph
@@ -118,6 +119,8 @@ def backlog_scan(work: torch.Tensor, cap: float, dt: float, *,
     wait = torch.empty((n_bins, n_cols), dtype=torch.float32, device=work.device)
     if work.numel() == 0:
         return wait
+    if work.stride(0) != 1 and n_bins > 1:
+        work = work.T.contiguous().T
     lib = _library()
     with torch.cuda.device(work.device):
         chunk = scan_chunk(n_bins, n_cols, build.sm_count(work.device.index))

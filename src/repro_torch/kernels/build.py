@@ -23,8 +23,6 @@ KERNELS = ("moe_gmm", "decode_attn", "deposit", "backlog_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-H100_SMS = 132        # streaming multiprocessors of an H100 SXM
-
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 

@@ -1,4 +1,4 @@
-// Backlog recursion of the fleet queue, time-major, wait trace only.
+// Backlog recursion of the fleet queue over time bins, wait trace only.
 //
 // Replaces the lax.scan of repro/traffic/queueing.py (fleet_scan inside
 // _fleet_fixed_point, and _fleet_queue_scan): not a Pallas kernel, but on
@@ -28,14 +28,14 @@
 //
 // Design:
 //   * one warp a block, owning a tile of 32 columns and a chunk of
-//     `chunk` bins.  Bins are staged through a ring of kRing bins in shared
-//     memory with cp.async, each copy instruction reading 128 contiguous
-//     bytes: a bin row of the tile from a time-major plane, or 32 bins of
-//     one column from a column-major one (the fleet's transposed view of
-//     its (F, rows, T) plane, read in place without a copy).  Each lane
-//     reads its column into registers a group at a time, so a warp keeps
-//     about 100 bins x 128 B requested and the chain of 4 dependent
-//     operations a bin is all that is serial;
+//     `chunk` bins.  The plane is read column-major, as the fleet passes it
+//     (a transposed view of its (F, rows, T) plane, read in place; the
+//     wrapper copies other layouts to it).  Bins are staged through a ring
+//     of kRing bins in shared memory with cp.async, each copy instruction
+//     reading 32 bins of one column, 128 contiguous bytes.  Each lane reads
+//     its column into registers 32 bins at a time, so a warp keeps about
+//     100 bins x 128 B requested and the chain of 4 dependent operations a
+//     bin is all that is serial;
 //   * a block takes its (tile, chunk) from an atomic ticket, chunks in
 //     order, so it only ever waits on chunks that are already running;
 //   * pass 1 runs lo and hi together and writes wait from the coalescence
@@ -59,16 +59,16 @@
 namespace {
 
 constexpr int kCols = 32;       // columns of a tile: one warp, one lane each
-constexpr int kGroup = 8;       // bins a cp.async group of a time-major plane
+constexpr int kGroup = 32;      // bins a cp.async group: one per lane
 constexpr int kRing = 128;      // bins in the ring
 
 struct Args {
-  const float* work;         // element strides st over t, sc over c
+  const float* work;         // element strides 1 over t, sc over c
   float* wait;               // (n_bins, n_cols) contiguous
   unsigned long long* ends;  // (n_chunks, n_cols): epoch << 32 | f32 bits of the end
   unsigned* ticket;          // zero between launches
   int* coal;                 // (n_chunks, n_cols) bins to coalescence, -1: never; or null
-  int64_t n_bins, n_cols, st, sc;
+  int64_t n_bins, n_cols, sc;
   int chunk, n_tiles;
   float cap, dt;
   unsigned epoch;
@@ -99,52 +99,38 @@ __device__ __forceinline__ float await_end(const unsigned long long* p,
   }
 }
 
-// Where bin u of tile column j lies in the ring.  A column-major copy has
-// the 32 lanes write one bin of 32 columns each: the bins are rotated
-// across the banks ((j + u) % 32) so that neither those writes nor each
-// lane's reads of its own column collide.
-template <bool kColMajor>
+// Where bin u of tile column j lies in the ring.  The 32 lanes write one
+// bin of 32 columns each: the bins are rotated across the banks
+// ((j + u) % 32) so that neither those writes nor each lane's reads of its
+// own column collide.
 __device__ __forceinline__ float* slot(float (*ring)[kCols], int u, int j) {
-  return &ring[u][kColMajor ? (j + u) % kCols : j];
+  return &ring[u][(j + u) % kCols];
 }
 
 // Streams n bins of the tile's columns through the ring, from `tile` (the
-// element of the chunk's first bin and the tile's first column; element
-// strides st over bins and sc over columns) and calls body(w) with this
-// lane's column, bin after bin (0 for a dead lane).  Time-major planes
-// (kColMajor false) are copied a bin row at a time, each lane its own
-// column, kGroup bins a group; column-major ones (the fleet's transposed
-// view, st == 1) 32 bins of one column per instruction, so that every
-// copy instruction reads 128 contiguous bytes in both.
-template <bool kColMajor, typename Body>
-__device__ __forceinline__ void stream(const float* tile, int64_t st, int64_t sc,
+// element of the chunk's first bin and the tile's first column; bins are
+// contiguous, columns sc elements apart) and calls body(w) with this
+// lane's column, bin after bin (0 for a dead lane).  A group is kGroup
+// bins: lane l copies bin l of every column, 32 bins of one column per
+// instruction.
+template <typename Body>
+__device__ __forceinline__ void stream(const float* tile, int64_t sc,
                                        int live_cols, float (*ring)[kCols],
                                        int lane, int n, Body&& body) {
-  constexpr int G = kColMajor ? kCols : kGroup;      // bins a group
-  constexpr int NG = kRing / G;                      // groups in the ring
-  const int groups = (n + G - 1) / G;
-  // Row layout: this lane's next bin; column layout: this lane's bin of
-  // the next group, in the tile's first column.
-  const float* next = kColMajor ? tile + lane * st : tile + lane * sc;
+  constexpr int NG = kRing / kGroup;                 // groups in the ring
+  const int groups = (n + kGroup - 1) / kGroup;
+  const float* next = tile + lane;   // this lane's bin of the next group
   auto issue = [&](int g) {
     if (g < groups) {
-      const int u0 = (g % NG) * G;
-      if (kColMajor) {
-        const bool ok_bin = g * G + lane < n;
-        const float* src = next;
+      const int u0 = (g % NG) * kGroup;
+      const bool ok_bin = g * kGroup + lane < n;
+      const float* src = next;
 #pragma unroll 8
-        for (int j = 0; j < kCols; ++j, src += sc) {
-          const bool ok = ok_bin && j < live_cols;
-          cp_async4_zfill(slot<true>(ring, u0 + lane, j), ok ? src : tile, ok);
-        }
-        next += G * st;
-      } else {
-#pragma unroll
-        for (int u = 0; u < G; ++u, next += st) {
-          const bool ok = lane < live_cols && g * G + u < n;
-          cp_async4_zfill(slot<false>(ring, u0 + u, lane), ok ? next : tile, ok);
-        }
+      for (int j = 0; j < kCols; ++j, src += sc) {
+        const bool ok = ok_bin && j < live_cols;
+        cp_async4_zfill(slot(ring, u0 + lane, j), ok ? src : tile, ok);
       }
+      next += kGroup;
     }
     cp_async_commit();
   };
@@ -154,25 +140,24 @@ __device__ __forceinline__ void stream(const float* tile, int64_t st, int64_t sc
     __syncwarp();                 // the slots refilled next were read before
     issue(g + NG - 1);
     cp_async_wait<NG - 1>();
-    if (kColMajor) __syncwarp();  // the other lanes' copies have landed
-    const int u0 = (g % NG) * G;
-    float w[G];
+    __syncwarp();                 // the other lanes' copies have landed
+    const int u0 = (g % NG) * kGroup;
+    float w[kGroup];
 #pragma unroll
-    for (int u = 0; u < G; ++u) w[u] = *slot<kColMajor>(ring, u0 + u, lane);
-    if ((g + 1) * G <= n) {
+    for (int u = 0; u < kGroup; ++u) w[u] = *slot(ring, u0 + u, lane);
+    if ((g + 1) * kGroup <= n) {
 #pragma unroll
-      for (int u = 0; u < G; ++u) body(w[u]);
+      for (int u = 0; u < kGroup; ++u) body(w[u]);
     } else {                      // the last, partial group
 #pragma unroll
-      for (int u = 0; u < G; ++u)
-        if (g * G + u < n) body(w[u]);
+      for (int u = 0; u < kGroup; ++u)
+        if (g * kGroup + u < n) body(w[u]);
     }
   }
   cp_async_wait<0>();
   __syncwarp();
 }
 
-template <bool kColMajor>
 __global__ void __launch_bounds__(kCols)
 backlog_scan_kernel(const Args a) {
   __shared__ float ring[kRing][kCols];
@@ -190,7 +175,7 @@ backlog_scan_kernel(const Args a) {
   const int64_t t0 = (int64_t)chunk * a.chunk;
   const int n = (int)(t0 + a.chunk < a.n_bins ? a.chunk : a.n_bins - t0);
   const float cap = a.cap, dt = a.dt;
-  const float* src = a.work + t0 * a.st + (int64_t)tile * kCols * a.sc;
+  const float* src = a.work + t0 + (int64_t)tile * kCols * a.sc;
   const int64_t cell = (int64_t)chunk * a.n_cols + c;     // of ends and coal
   unsigned long long* end = a.ends + cell;
 
@@ -199,7 +184,7 @@ backlog_scan_kernel(const Args a) {
   bool met = false;
   int tc = n, i = 0;
   float* out = a.wait + t0 * a.n_cols + c;
-  stream<kColMajor>(src, a.st, a.sc, live_cols, ring, lane, n, [&](float w) {
+  stream(src, a.sc, live_cols, ring, lane, n, [&](float w) {
     if (!met && same(lo, hi)) {
       met = true;
       tc = i;
@@ -223,7 +208,7 @@ backlog_scan_kernel(const Args a) {
     __syncwarp();
     float* o = a.wait + t0 * a.n_cols + c;
     int j = 0;
-    stream<kColMajor>(src, a.st, a.sc, live_cols, ring, lane, todo, [&](float w) {
+    stream(src, a.sc, live_cols, ring, lane, todo, [&](float w) {
       if (need && j < stop) {
         *o = x;
         x = step(x, w, cap, dt);
@@ -249,18 +234,19 @@ backlog_scan_kernel(const Args a) {
 }  // namespace
 
 // wait (n_bins, n_cols) f32, contiguous, from work (n_bins, n_cols) f32
-// with element strides st and sc (a transposed view is read in place), in
-// chunks of `chunk` bins.  ends: n_chunks * n_cols 64-bit words none of
-// which holds `epoch` in its high half (a number never passed before);
-// ticket: one unsigned zero, left zero; coal: null, or n_chunks * n_cols
-// ints that receive each chunk's bins to coalescence (-1: the runs never
-// met).  Returns the launch's error: 0 when the kernel was launched.
+// with element strides st and sc, st == 1 unless n_bins == 1 (the fleet's
+// transposed view is read in place), in chunks of `chunk` bins.  ends:
+// n_chunks * n_cols 64-bit words none of which holds `epoch` in its high
+// half (a number never passed before); ticket: one unsigned zero, left
+// zero; coal: null, or n_chunks * n_cols ints that receive each chunk's
+// bins to coalescence (-1: the runs never met).  Returns the launch's
+// error: 0 when the kernel was launched.
 extern "C" int repro_backlog_scan(const void* work, void* wait, void* ends,
                                   void* ticket, void* coal, int64_t n_bins,
                                   int64_t n_cols, int64_t st, int64_t sc,
                                   int chunk, float cap, float dt, unsigned epoch,
                                   void* stream) {
-  if (n_bins <= 0 || n_cols <= 0 || chunk <= 0)
+  if (n_bins <= 0 || n_cols <= 0 || chunk <= 0 || (st != 1 && n_bins > 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t n_tiles = (n_cols + kCols - 1) / kCols;
   const int64_t n_chunks = (n_bins + chunk - 1) / chunk;
@@ -268,13 +254,9 @@ extern "C" int repro_backlog_scan(const void* work, void* wait, void* ends,
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(work), static_cast<float*>(wait),
                static_cast<unsigned long long*>(ends), static_cast<unsigned*>(ticket),
-               static_cast<int*>(coal), n_bins, n_cols, st, sc, chunk,
+               static_cast<int*>(coal), n_bins, n_cols, sc, chunk,
                static_cast<int>(n_tiles), cap, dt, epoch};
   const unsigned grid = (unsigned)(n_tiles * n_chunks);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (st == 1 && sc != 1)
-    backlog_scan_kernel<true><<<grid, kCols, 0, s>>>(a);
-  else
-    backlog_scan_kernel<false><<<grid, kCols, 0, s>>>(a);
+  backlog_scan_kernel<<<grid, kCols, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -51,8 +51,7 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def decode_splits(b: int, hkv: int, s: int,
-                  sms: int = build.H100_SMS) -> tuple[int, int]:
+def decode_splits(b: int, hkv: int, s: int, sms: int) -> tuple[int, int]:
     """(n_split, chunk): the splits of the cache length ``s`` over blocks.
 
     Enough splits that b * hkv * n_split blocks put BLOCKS_PER_SM on each

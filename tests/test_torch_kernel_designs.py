@@ -22,7 +22,9 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from repro.kernels.ops import decode_attention as jax_decode_attention
-from repro_torch.kernels import backlog_scan, build, decode_attn
+from repro_torch.kernels import backlog_scan, decode_attn
+
+SMS = 132      # streaming multiprocessors of an H100 SXM, the pinned card
 
 # --------------------------------------------------------------------- #
 # backlog_scan: the chunked lo/hi scan and its fix-up
@@ -143,13 +145,13 @@ def test_idle_columns_coalesce_after_the_buffer_drains():
     (1, 1, 1024),
 ])
 def test_scan_chunk_pinned(n_bins, n_cols, want):
-    assert backlog_scan.scan_chunk(n_bins, n_cols) == want
+    assert backlog_scan.scan_chunk(n_bins, n_cols, SMS) == want
 
 
 def test_scan_chunk_gives_every_sm_blocks_on_the_run_plane():
-    chunk = backlog_scan.scan_chunk(40_966, 864)
+    chunk = backlog_scan.scan_chunk(40_966, 864, SMS)
     blocks = -(-864 // backlog_scan.TILE_COLS) * -(-40_966 // chunk)
-    assert blocks >= backlog_scan.WARPS_PER_SM * build.H100_SMS
+    assert blocks >= backlog_scan.WARPS_PER_SM * SMS
 
 
 def test_coalescence_report_needs_the_kernel():
@@ -176,7 +178,7 @@ def split_attention(q, k, v, pos, tile):
     rescale per tile; then the splits merged in split order."""
     b, hkv, g, hd = q.shape
     s = k.shape[2]
-    n_split, chunk = decode_attn.decode_splits(b, hkv, s)
+    n_split, chunk = decode_attn.decode_splits(b, hkv, s, SMS)
     scale = hd ** -0.5
     out = torch.empty(b, hkv, g, hd)
     for bi in range(b):
@@ -225,13 +227,13 @@ def _attn_inputs(b, hkv, g, s, hd, pos, seed=0):
     (2, 2, 333, (3, 128)),
 ])
 def test_decode_splits_pinned(b, hkv, s, want):
-    assert decode_attn.decode_splits(b, hkv, s) == want
+    assert decode_attn.decode_splits(b, hkv, s, SMS) == want
 
 
 @pytest.mark.parametrize("b,hkv,s", [(4, 32, 2048), (1, 8, 4096), (8, 32, 512)])
 def test_decode_splits_fill_the_card_in_whole_chunks(b, hkv, s):
-    n_split, chunk = decode_attn.decode_splits(b, hkv, s)
-    assert b * hkv * n_split >= 2 * build.H100_SMS
+    n_split, chunk = decode_attn.decode_splits(b, hkv, s, SMS)
+    assert b * hkv * n_split >= 2 * SMS
     assert chunk % decode_attn.MIN_CHUNK == 0
     assert (n_split - 1) * chunk < s <= n_split * chunk
 
@@ -257,7 +259,7 @@ def test_split_attention_matches_reference(b, hkv, g, s, hd, pos, bs):
     """The same numpy inputs through the JAX reference's Pallas kernel
     (interpret mode) and the split-S emulation."""
     arrays = _attn_inputs(b, hkv, g, s, hd, pos, seed=4)
-    assert decode_attn.decode_splits(b, hkv, s)[0] > 1
+    assert decode_attn.decode_splits(b, hkv, s, SMS)[0] > 1
     got = split_attention(*(torch.from_numpy(a) for a in arrays),
                           tile_rows(hd, 4))
     pallas = jax_decode_attention(*(jnp.asarray(a) for a in arrays),

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import decode_attn, moe_gmm
+from repro_torch.kernels import build, decode_attn, moe_gmm
 
 pytestmark = pytest.mark.gpu
 
@@ -219,7 +219,8 @@ def _long_cache(device, g, dtype, layout, b=5, hkv=8, s=2048, hd=128, seed=4):
     else:
         k, v = (torch.randn(b, s, hkv, hd, generator=gen, device=device)
                 .to(dtype).transpose(1, 2) for _ in range(2))
-    _, chunk = decode_attn.decode_splits(b, hkv, s)
+    _, chunk = decode_attn.decode_splits(b, hkv, s,
+                                         build.sm_count(q.device.index))
     pos = torch.tensor([0, s - 1, chunk - 1, chunk, chunk + 1],
                        dtype=torch.int32, device=device)
     return q, k, v, pos
@@ -230,7 +231,8 @@ def _long_cache(device, g, dtype, layout, b=5, hkv=8, s=2048, hd=128, seed=4):
 @pytest.mark.parametrize("g", [1, 3, 6])
 def test_decode_attention_split_matches_plain(cuda_device, g, dtype, layout):
     q, k, v, pos = _long_cache(cuda_device, g, dtype, layout)
-    assert decode_attn.decode_splits(5, 8, 2048)[0] > 1
+    assert decode_attn.decode_splits(
+        5, 8, 2048, build.sm_count(cuda_device.index))[0] > 1
     before = decode_attn.launches
     got = decode_attn.decode_attention(q, k, v, pos)
     torch.cuda.synchronize()
@@ -293,7 +295,8 @@ def test_backlog_scan_chunks_are_bitwise_the_plain_loop(cuda_device, kind, t,
     from repro_torch.kernels import backlog_scan
     dt = 0.05
     work = _scan_work(kind, t, c, dt).to(cuda_device)
-    chunk = backlog_scan.scan_chunk(t, c)
+    chunk = backlog_scan.scan_chunk(
+        t, c, build.sm_count(cuda_device.index))
     coal = torch.full((-(-t // chunk), c), -2, dtype=torch.int32,
                       device=cuda_device)
     before = backlog_scan.launches

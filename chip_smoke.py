@@ -33,16 +33,20 @@ Phases (any failure exits non-zero and prints no success line):
      llama-moe-3.5b's 32 MoE layers, 8 experts top-2, 3 plans, ~132
      requests, analytic service, ``QueueConfig()``): built on the card,
      ``run()`` with the launch counts of ``deposit`` and ``backlog_scan``
-     checked, the device busy share of one ``run()``, ``run_many`` over
-     11 thinning fractions, and the CPU (plain versions) held to the card
+     checked, the device busy share of one ``run()``, the host's time in
+     ``run()`` itemized (``chunk_table``, the iteration-1 ``np.bincount``,
+     the upload, the fixed point, ``_finalize``), ``run_many`` over 11
+     thinning fractions, and the CPU (plain versions) held to the card
      on ``run()`` and on the two smallest fractions, which must serve
      requests;
   8. fleet kernels: ``deposit`` and ``backlog_scan`` on the inputs that
-     ``run()`` gave them, each against its plain version (bitwise), with
-     device times, the plain version's and the library call's time, and
-     the least time the card could take; ``backlog_scan`` also on
-     ``run_many``'s plane and on a plane built never to coalesce, each
-     with its chunks' coalescence statistics;
+     ``run()`` and ``run_many`` gave them, each against its plain version
+     (bitwise), with device times, the plain version's and the library
+     call's time, and the least time the card could take; ``deposit``
+     with its table's shape (triples per row, per (row, tile) bucket and
+     on one cell, zero-valued share); ``backlog_scan`` also on a plane
+     built never to coalesce, each plane with its chunks' coalescence
+     statistics;
   9. the ``kernels`` JSON line (all four kernels; launches counted over
      the serve run for gmm/decode_attention and over the fleet ``run()``
      for deposit/backlog_scan), the card line, then the result line.
@@ -67,6 +71,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float64": 34e12}
 # Thinning fractions of the fleet sweep (benchmarks/bench_fleet.py).
 FLEET_FRACTIONS = (0.1, 0.15, 0.2, 0.25, 0.3, 0.35, 0.4, 0.5, 0.6, 0.8, 1.0)
+# The CUDA kernels each fleet wrapper call launches, by profiler name.
+FLEET_KERNELS = {"deposit": ("deposit_bucket_kernel",
+                             "deposit_accumulate_kernel"),
+                 "backlog_scan": ("backlog_scan_kernel",)}
 
 
 class SmokeFailure(RuntimeError):
@@ -561,6 +569,61 @@ def assert_parity(res_a, res_b, what, rtol=1e-5) -> int:
     return sum(int(p.served.sum()) for p in res_a.plans)
 
 
+def fleet_host_steps(torch, sim, res) -> dict[str, float]:
+    """``FleetSim.run()`` (all requests active) step by step, as its
+    ``_launch`` and ``run`` take them, each step timed on the host clock
+    and ended in a synchronize (ms): ``chunk_table``, the iteration-1
+    plane (``np.bincount``, per-row sums), the upload (f32 cast and
+    host-to-device copies), the fused fixed point on the card, and the
+    device-to-host copies with ``_finalize``.  The result must equal
+    ``res``, a ``run()`` of ``sim``, bit for bit."""
+    import numpy as np
+
+    from repro_torch.traffic import queueing
+    t_bins, n_rows, dev = sim.n_bins, sim.n_rows, sim.device
+    active = np.ones(sim.n_requests, dtype=bool)
+    times: dict[str, float] = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    t_all = time.perf_counter()
+    ct = step("chunk_table", lambda: sim.chunk_table(active[None, :]))
+
+    def plane():
+        plane0 = np.bincount(ct["flat0"], weights=ct["work0"],
+                             minlength=n_rows * t_bins).reshape(
+            1, n_rows, t_bins).astype(np.float64, copy=False)
+        if sim._mig_rm is not None:
+            plane0 += sim._mig_rm[None]
+        return plane0, plane0.sum(axis=2)
+    plane0, work0_sum = step("bincount", plane)
+
+    def upload():
+        chunks = {k: torch.from_numpy(ct[k]).to(dev)
+                  for k in ("src", "offs", "work", "fprow", "row_ptr")}
+        return (chunks, torch.from_numpy(plane0.astype(np.float32)).to(dev),
+                torch.from_numpy(work0_sum).to(dev))
+    chunks, work0, work0_sum = step("upload", upload)
+    out = step("fixed_point", lambda: queueing._fleet_fixed_point(
+        sim._device_tables(), chunks, work0, work0_sum,
+        max(1, sim.qcfg.iterations), t_bins, n_rows, True))
+
+    def finalize():
+        host = {k: v.cpu().numpy()[0] for k, v in out.items() if k != "wait"}
+        host["work_sum"] = sim._expand_rows(host["work_sum"])
+        return sim._finalize(active, host, None)
+    again = step("finalize", finalize)
+    times["total"] = (time.perf_counter() - t_all) * 1e3
+    assert_parity(res, again, "run() itemized vs run()", rtol=0.0)
+    return times
+
+
 def phase_fleet(torch) -> tuple[dict, dict, dict]:
     """Returns (launch counts of run(), the kernels' captured inputs, their
     device ms per launch in the profiled run())."""
@@ -585,8 +648,9 @@ def phase_fleet(torch) -> tuple[dict, dict, dict]:
     captured: dict = {}
     real_deposit, real_scan = queueing.deposit, queueing.backlog_scan
 
-    def deposit_rec(rows, cols, vals, n_rows, n_cols, row_ptr):
-        captured.setdefault("deposit", (
+    def deposit_rec(rows, cols, vals, n_rows, n_cols, row_ptr,
+                    key="deposit"):
+        captured.setdefault(key, (
             rows.clone(), cols.clone(), vals.clone(), n_rows, n_cols,
             row_ptr.clone()))
         return real_deposit(rows, cols, vals, n_rows, n_cols,
@@ -624,15 +688,16 @@ def phase_fleet(torch) -> tuple[dict, dict, dict]:
         torch_sync()
         prof_wall = time.perf_counter() - t0
     kernels = device_times(prof, 1)
-    in_run = {name: ms / calls for ms, calls, key in kernels
-              for name in ("deposit", "backlog_scan")
-              if f"{name}_kernel" in key}
-    seen = {name: calls for _, calls, key in kernels
-            for name in want if f"{name}_kernel" in key}
-    if seen != want:
+    in_run, seen = {}, {}
+    for name, cuda_names in FLEET_KERNELS.items():
+        hits = [(ms, calls) for ms, calls, key in kernels
+                if any(k in key for k in cuda_names)]
+        seen[name] = sorted(calls for _, calls in hits)
+        in_run[name] = sum(ms for ms, _ in hits) / want[name]
+    if any(seen[n] != [want[n]] * len(FLEET_KERNELS[n]) for n in want):
         raise SmokeFailure(f"the profiled fleet run() recorded launches "
-                           f"{seen}, not {want}: its busy share would be "
-                           "short")
+                           f"{seen} of {FLEET_KERNELS}, not {want} of each: "
+                           "its busy share would be short")
     busy = sum(k[0] for k in kernels) / 1e3
     log(f"fleet run(): {min(walls) * 1e3:.1f} ms wall (best of 2, "
         f"synchronized); under the profiler {prof_wall * 1e3:.1f} ms wall, "
@@ -641,6 +706,10 @@ def phase_fleet(torch) -> tuple[dict, dict, dict]:
         f"({sum(k[1] for k in kernels):.0f} kernel launches)")
     for ms, calls, name in sorted(kernels, reverse=True)[:10]:
         log(f"fleet profile: {ms:9.3f} ms {calls:6.0f} calls  {name[:80]}")
+    for _ in range(2):
+        steps = fleet_host_steps(torch, sim, res)
+        log(f"fleet run() itemized (host clock, each step ends in a "
+            f"synchronize; ms): {json.dumps(steps)}")
     for p in res.plans:
         log(f"fleet plan {p.plan_name}: served {int(p.served.sum())}/"
             f"{int(p.active.sum())}, goodput {p.goodput_tok_s:.3f} tok/s, "
@@ -666,12 +735,15 @@ def phase_fleet(torch) -> tuple[dict, dict, dict]:
     torch_sync()
     t_many = time.perf_counter() - t0
     many_counts = ops.launch_counts()
-    # One more, untimed call keeps run_many's first scan input for phase 8.
+    # One more, untimed call keeps run_many's first deposit and scan
+    # inputs for phase 8.
     queueing.backlog_scan = lambda *a: scan_rec(*a, key="backlog_scan_many")
+    queueing.deposit = lambda *a, row_ptr: deposit_rec(
+        *a, row_ptr, key="deposit_many")
     try:
         sim.run_many(masks)
     finally:
-        queueing.backlog_scan = real_scan
+        queueing.deposit, queueing.backlog_scan = real_deposit, real_scan
     log(f"fleet run_many over {len(FLEET_FRACTIONS)} fractions: "
         f"{t_many * 1e3:.1f} ms wall (synchronized), launch counts "
         f"{json.dumps(many_counts)}")
@@ -716,40 +788,90 @@ def phase_fleet(torch) -> tuple[dict, dict, dict]:
 # --------------------------------------------------------------------- #
 
 
-def phase_fleet_kernels(torch, captured, in_run) -> dict[str, dict]:
-    """Each fleet kernel against its plain version on the inputs run()
-    gave it.  ``in_run``: device ms per launch inside the profiled run()
-    (printed beside the kernel's own time)."""
+def deposit_table_stats(torch, rows, cols, vals, n_rows, n_cols,
+                        row_ptr) -> dict:
+    """The shape of a deposit table that the kernel's time rests on:
+    triples per row (median, max), per (row, tile) bucket (max; tiles of
+    ``deposit.TILE`` bins), the most triples on one cell (the longest
+    chain of dependent adds, also counting only the non-zero values the
+    kernel adds), and the shares of zero-valued triples and of triples
+    on the last bin (T - 1, where the fleet clamps times past its
+    horizon)."""
     from repro_torch.kernels import deposit
-    rows, cols, vals, n_rows, n_cols, row_ptr = captured["deposit"]
+    n = int(row_ptr[-1])
+    r, c, v = rows[:n], cols[:n], vals[:n]
+    per_row = (row_ptr[1:] - row_ptr[:-1]).float()
+    tiles = deposit.deposit_tiles(n_cols)
+    buckets = torch.bincount(r * tiles + c // deposit.TILE)
+    flat = r * n_cols + c
+    cells = torch.unique(flat, return_counts=True)[1]
+    nonzero = torch.unique(flat[v != 0], return_counts=True)[1]
+    return {"triples": n, "per_row_median": float(per_row.median()),
+            "per_row_max": int(per_row.max()),
+            "per_bucket_max": int(buckets.max()) if n else 0,
+            "per_cell_max": int(cells.max()) if n else 0,
+            "per_cell_max_nonzero": (int(nonzero.max())
+                                     if nonzero.numel() else 0),
+            "zero_share": float((v == 0).float().mean()) if n else 0.0,
+            "last_bin_share": (float((c == n_cols - 1).float().mean())
+                               if n else 0.0)}
+
+
+def deposit_bound(n_real: int, n_rows: int, n_cols: int) -> tuple[float, str]:
+    """What deposit must move: each real triple's bin and value (int64 +
+    f64; rows are implied by row_ptr, the padding is not read), row_ptr,
+    and the f64 plane written once; one add a triple."""
+    nbytes = 16 * n_real + 8 * (n_rows + 1) + 8 * n_rows * n_cols
+    return bound(nbytes, n_real, "float64")
+
+
+def check_deposit(torch, table, what: str) -> dict:
+    """deposit on a table the fleet passed it, against its plain version
+    (bitwise), with its table's shape, its device time and the plain
+    version's and the library call's, and the least time the card
+    could take."""
+    from repro_torch.kernels import deposit
+    rows, cols, vals, n_rows, n_cols, row_ptr = table
     got = deposit.deposit(rows, cols, vals, n_rows, n_cols, row_ptr=row_ptr)
     torch.cuda.synchronize()
     want = deposit.deposit_plain(rows, cols, vals, n_rows, n_cols)
     same = bool(torch.equal(got, want))
+    err = float((got - want).abs().max())
+    del got, want
     n_real = int(row_ptr[-1])
-    # What the function must move: each real triple's bin and value
-    # (int64 + f64; rows are implied by row_ptr, the padding is not read),
-    # row_ptr, and the f64 plane written once.
-    nbytes = 16 * n_real + 8 * (n_rows + 1) + 8 * n_rows * n_cols
-    b_ms, b_by = bound(nbytes, n_real, "float64")
+    b_ms, b_by = deposit_bound(n_real, n_rows, n_cols)
     flat = rows * n_cols + cols
 
     def library():
         return torch.zeros(n_rows * n_cols, dtype=torch.float64,
                            device="cuda").index_put_((flat,), vals,
                                                      accumulate=True)
-    dep = timed_record(
+    return timed_record(
         torch, {"name": "deposit",
                 "shape": f"{n_real} triples (+{rows.numel() - n_real} "
-                         f"padding) into {n_rows} x {n_cols} f64",
-                "max_abs_err": float((got - want).abs().max()),
-                "tol": 0.0, "ok": same, "bound_ms": b_ms, "bound_by": b_by},
+                         f"padding) into {n_rows} x {n_cols} f64, {what}",
+                **deposit_table_stats(torch, rows, cols, vals, n_rows,
+                                      n_cols, row_ptr),
+                "scratch_bytes": deposit.scratch_bytes(rows.numel(), n_rows,
+                                                       n_cols),
+                "max_abs_err": err, "tol": 0.0, "ok": same,
+                "bound_ms": b_ms, "bound_by": b_by},
         kernel=lambda: deposit.deposit(rows, cols, vals, n_rows, n_cols,
                                        row_ptr=row_ptr),
         plain=lambda: deposit.deposit_plain(rows, cols, vals, n_rows, n_cols),
         library=library, iters=5)
-    dep["in_run_ms"] = in_run["deposit"]
-    log("kernel " + json.dumps(dep))
+
+
+def phase_fleet_kernels(torch, captured, in_run) -> dict[str, dict]:
+    """Each fleet kernel against its plain version on the inputs run()
+    and run_many gave it.  ``in_run``: device ms per call inside the
+    profiled run() (printed beside the kernel's own time)."""
+    deps = [check_deposit(torch, captured.pop("deposit"), "run()"),
+            check_deposit(torch, captured.pop("deposit_many"),
+                          f"run_many over {len(FLEET_FRACTIONS)} fractions")]
+    deps[0]["in_run_ms"] = in_run["deposit"]
+    for dep in deps:
+        log("kernel " + json.dumps(dep))
 
     work, cap, dt = captured["backlog_scan"]
     scans = [check_scan(torch, work, cap, dt, "run()")]
@@ -761,12 +883,11 @@ def phase_fleet_kernels(torch, captured, in_run) -> dict[str, dict]:
                             cap, dt, "built never to coalesce"))
     for rec in scans:
         log("kernel " + json.dumps(rec))
-    bad = [rec["shape"] for rec in scans if not rec["ok"]]
-    if not same or bad:
+    bad = [rec["shape"] for rec in deps + scans if not rec["ok"]]
+    if bad:
         raise SmokeFailure(f"fleet kernels disagree with their plain "
-                           f"versions: deposit equal={same}, backlog_scan "
-                           f"not equal on {bad}")
-    return {"deposit": dep, "backlog_scan": scans[0]}
+                           f"versions on {bad}")
+    return {"deposit": deps[0], "backlog_scan": scans[0]}
 
 
 def never_coalescing_plane(torch, shape, cap, dt, time_major=False):

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Host cost of the port's ``gmm`` wrapper, and its ring depth, on one card;
-with ``--scan``, ``backlog_scan`` on a plane that never coalesces.
+with ``--scan``, ``backlog_scan`` on a plane that never coalesces; with
+``--deposit``, ``deposit`` on the fleet's tables.
 
     python3 gmm_bench.py                   # the port in this checkout
     python3 gmm_bench.py --src TREE/src    # the port in another tree
     python3 gmm_bench.py --scan [--src TREE/src]
+    python3 gmm_bench.py --deposit [--src TREE/src]
 
 At llama-moe-3.5b's bf16 serve shapes (E = 8, K/N = 4096/1376 and
 1376/4096, C = 2 and 40) it prints one JSON object a line:
@@ -29,12 +31,25 @@ transposed view, bins contiguous) and once time-major.  A wrapper that
 copies a layout to the one its kernel reads is timed with the copy.  Run
 it on two trees in one call to compare their kernels there.
 
+With ``--deposit`` it builds ``chip_smoke.py``'s fleet world, keeps the
+tables ``run()`` and ``run_many`` (11 fractions) hand to ``deposit`` on
+their first call, and prints one object a table: whether ``deposit`` is
+bitwise its plain version there, the least time the card could take
+(``chip_smoke.deposit_bound``), its device ms (three readings of
+``time_ms``) and, from ``torch.profiler``, the device ms of each CUDA
+kernel a call launches.  Then one object for a single row of one
+``deposit.TILE``-bin tile holding 140,800 triples, all on one cell
+("pile", a chain of dependent adds) or on 32 different cells a step
+("distinct"): the ns per triple of that one bucket's work.  Run it on two
+trees in one call to compare their kernels on the same tables.
+
 Needs a CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -93,12 +108,73 @@ def _scan(torch) -> None:
             flush=True)
 
 
+def _deposit(torch) -> None:
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import deposit
+    from repro_torch.traffic import queueing
+    sim, _ = chip_smoke.build_fleet(chip_smoke.fleet_world(), "cuda")
+    masks = (np.random.default_rng(1).random(sim.n_requests)[None, :]
+             < np.asarray(chip_smoke.FLEET_FRACTIONS)[:, None])
+    tables, real = {}, queueing.deposit
+
+    def keep(key):
+        def rec(rows, cols, vals, n_rows, n_cols, row_ptr):
+            tables.setdefault(key, (rows.clone(), cols.clone(), vals.clone(),
+                                    n_rows, n_cols, row_ptr.clone()))
+            return real(rows, cols, vals, n_rows, n_cols, row_ptr=row_ptr)
+        return rec
+    try:
+        queueing.deposit = keep("run()")
+        sim.run()
+        queueing.deposit = keep("run_many")
+        sim.run_many(masks)
+    finally:
+        queueing.deposit = real
+    del sim
+    n = 140_800                  # one bucket: a single row and tile
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    one = torch.rand(n, dtype=torch.float64, device="cuda", generator=gen) + 1
+    tile = getattr(deposit, "TILE", 512)
+    for what, cols in (("pile", torch.full((n,), 100, device="cuda")),
+                       ("distinct", torch.arange(n, device="cuda") % 32)):
+        tables[f"one row, one tile, {what}"] = (
+            torch.zeros(n, dtype=torch.int64, device="cuda"), cols, one, 1,
+            tile, torch.tensor([0, n], device="cuda"))
+    for what, (rows, cols, vals, n_rows, n_cols, row_ptr) in tables.items():
+        def call():
+            return deposit.deposit(rows, cols, vals, n_rows, n_cols,
+                                   row_ptr=row_ptr)
+        equal = bool(torch.equal(call(), deposit.deposit_plain(
+            rows, cols, vals, n_rows, n_cols)))
+        rec = {"deposit": what, "triples": int(row_ptr[-1]),
+               "plane": [n_rows, n_cols], "equal": equal,
+               "bound_ms": chip_smoke.deposit_bound(int(row_ptr[-1]), n_rows,
+                                                    n_cols)[0],
+               "ms": [chip_smoke.time_ms(torch, call, 5)[0] for _ in range(3)]}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        rec["kernel_ms"] = {re.search(r"deposit_\w*kernel", key).group(0): ms
+                            for ms, _, key in chip_smoke.device_times(prof, 1)
+                            if re.search(r"deposit_\w*kernel", key)}
+        if n_rows == 1:
+            rec["ns_per_triple"] = {k: v * 1e6 / n
+                                    for k, v in rec["kernel_ms"].items()}
+        print(json.dumps(rec), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(chip_smoke.ROOT / "src"),
                     help="the src directory of the port to measure")
     ap.add_argument("--scan", action="store_true",
                     help="time backlog_scan on a never-coalescing plane")
+    ap.add_argument("--deposit", action="store_true",
+                    help="time deposit on the fleet's run() and run_many "
+                         "tables")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -111,6 +187,9 @@ def main() -> int:
           flush=True)
     if args.scan:
         _scan(torch)
+        return 0
+    if args.deposit:
+        _deposit(torch)
         return 0
     build.load("moe_gmm")
     for c in (2, 40):

@@ -16,7 +16,7 @@ from . import backlog_scan as _scan
 from . import decode_attn, deposit as _deposit, moe_gmm
 from .backlog_scan import backlog_scan
 from .decode_attn import decode_attention
-from .deposit import deposit
+from .deposit import deposit, deposit_segments
 from .moe_gmm import gmm
 
 _COUNTED = {"gmm": moe_gmm, "decode_attention": decode_attn,
@@ -74,6 +74,6 @@ def expert_ffn(params: dict, xs: torch.Tensor, compute_dtype) -> torch.Tensor:
     return gmm(gate * up, wd)
 
 
-__all__ = ["gmm", "decode_attention", "deposit", "backlog_scan",
-           "expert_ffn", "timed_call",
+__all__ = ["gmm", "decode_attention", "deposit", "deposit_segments",
+           "backlog_scan", "expert_ffn", "timed_call",
            "launch_counts", "reset_launch_counts"]

@@ -7,6 +7,8 @@ tables the fleet produces and on adversarial ones.  Against the Pallas
 kernel (interpret mode, f32: its one-hot matmul sums in another order)
 the tolerance is the reference's own, rtol 1e-6.  The CUDA kernel is
 held to the plain version on a card (``test_torch_kernels_gpu.py``).
+``deposit_segments``, the reference's row-bucketed sort deposit, is held
+to the reference's bit for bit in f32, bucketed or not.
 """
 import jax
 import jax.numpy as jnp
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from repro.kernels.ops import deposit as pallas_deposit
+from repro.kernels.ops import deposit_segments as jax_deposit_segments
 from repro.kernels.ref import deposit_ref
 from repro_torch.kernels import deposit, ops
 
@@ -117,3 +120,37 @@ def test_plain_deposit_matches_a_sequential_loop_f32():
                           torch.from_numpy(vals), 4, 16)
     np.testing.assert_array_equal(got.numpy(), want)
     assert ops.launch_counts()["deposit"] == 0          # plain, not launched
+
+
+@pytest.mark.parametrize("bucketed", [True, False])
+@pytest.mark.parametrize("case,n_rows,n_cols,n", [
+    ("shuffled", 17, 300, 1000),
+    ("grouped", 40, 900, 5000),
+    ("duplicates", 4, 16, 3000),
+    ("empty", 8, 128, 0),
+])
+def test_deposit_segments_is_bitwise_the_reference_f32(case, n_rows, n_cols, n,
+                                                       bucketed):
+    """The port's ``deposit_segments`` against the reference's, f32 (no
+    x64), on the same numpy inputs."""
+    rows, cols, vals = _table(case, n_rows, n_cols, n, seed=7)
+    rows, cols = rows.astype(np.int32), cols.astype(np.int32)
+    vals = (vals * np.exp(np.random.default_rng(1).normal(0.0, 6.0, vals.size))
+            ).astype(np.float32)
+    want = np.asarray(jax_deposit_segments(
+        jnp.asarray(rows), jnp.asarray(cols), jnp.asarray(vals), n_rows,
+        n_cols, bucketed=bucketed))
+    got = ops.deposit_segments(torch.from_numpy(rows), torch.from_numpy(cols),
+                               torch.from_numpy(vals), n_rows, n_cols,
+                               bucketed=bucketed)
+    assert got.dtype == torch.float32 and got.shape == (n_rows, n_cols)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+    assert ops.launch_counts()["deposit"] == 0          # not a kernel
+
+
+def test_deposit_segments_refuses_mismatched_shapes():
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ops.deposit_segments(torch.zeros(3, dtype=torch.int64),
+                             torch.zeros(2, dtype=torch.int64),
+                             torch.zeros(3), 2, 2)

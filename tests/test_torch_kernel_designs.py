@@ -1,4 +1,5 @@
-"""The designs of the port's decode_attention and backlog_scan kernels, on the CPU.
+"""The designs of the port's decode_attention, backlog_scan and deposit
+kernels, on the CPU.
 
 The CUDA kernels run only on a card.  What their designs rest on is
 checked here with plain PyTorch emulations of the same algorithms:
@@ -13,6 +14,12 @@ checked here with plain PyTorch emulations of the same algorithms:
     online softmax per tile of rows, and merges the splits' (m, l, acc)
     in split order.  The emulation is held to the plain version and to
     the JAX reference's Pallas kernel in interpret mode.
+  * deposit buckets each row's triples stably by tile (a count pass and
+    a scatter pass per warp stretch, cursors scanned in (tile, warp)
+    order), then sums each (row, tile) bucket in 32-entry steps: single
+    lanes at once, lanes on one cell by their lowest lane in lane order,
+    a step all on one cell as one chain, zero-valued entries skipped.
+    The emulation is held bitwise to the plain version under hypothesis.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +29,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from repro.kernels.ops import decode_attention as jax_decode_attention
-from repro_torch.kernels import backlog_scan, decode_attn
+from repro_torch.kernels import backlog_scan, decode_attn, deposit
 
 SMS = 132      # streaming multiprocessors of an H100 SXM, the pinned card
 
@@ -266,3 +273,226 @@ def test_split_attention_matches_reference(b, hkv, g, s, hd, pos, bs):
                                   block_s=bs, interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(pallas),
                                atol=2e-5, rtol=2e-5)
+
+
+# --------------------------------------------------------------------- #
+# deposit: bucket by (row, tile), then one warp per bucket
+# --------------------------------------------------------------------- #
+
+def bucket_row(cols: np.ndarray, n_cols: int, warps: int | None = None):
+    """Launch 1 for one row (``cols`` its bins in table order): the row's
+    in-range entries in bucket order (positions in the row) and each
+    tile's bucket end.  Warp w of ``warps`` (``bucket_warps``) takes the
+    w-th stretch of ``span`` entries; a count pass, an exclusive scan of
+    the (warp, tile) counts in (tile, warp) order, then a scatter pass,
+    32 lanes a step, each lane to its warp's cursor for its tile plus
+    its rank among the step's lanes on that tile."""
+    n, k = cols.size, deposit.deposit_tiles(n_cols)
+    warps = deposit.bucket_warps(n_cols) if warps is None else warps
+    span = -(-n // (32 * warps)) * 32
+    stretches = [(min(n, w * span), min(n, w * span + span))
+                 for w in range(warps)]
+    ok = (cols >= 0) & (cols < n_cols)
+    tile = np.where(ok, cols // deposit.TILE, -1)
+    cnt = np.zeros((warps, k), np.int64)
+    for w, (lo, hi) in enumerate(stretches):
+        np.add.at(cnt[w], tile[lo:hi][ok[lo:hi]], 1)
+    flat = cnt.T.reshape(-1)                           # (tile, warp) order
+    cur = (np.cumsum(flat) - flat).reshape(k, warps).T.copy()
+    ends = np.append(cur[0, 1:], flat.sum())
+    order = np.full(int(flat.sum()), -1, np.int64)
+    for w, (lo, hi) in enumerate(stretches):
+        for j0 in range(lo, hi, 32):
+            lanes = np.arange(j0, min(j0 + 32, hi))
+            for t in np.unique(tile[lanes][ok[lanes]]):
+                mine = lanes[ok[lanes] & (tile[lanes] == t)]    # lane order
+                order[cur[w, t]:cur[w, t] + mine.size] = mine
+                cur[w, t] += mine.size
+    assert (order >= 0).all()
+    return order, ends
+
+
+def accumulate_bucket(bins: np.ndarray, vals: np.ndarray, paths: dict):
+    """Launch 2 for one (row, tile) bucket: the tile's sums, 32 entries a
+    step; ``paths`` counts the steps each branch took."""
+    acc = np.zeros(deposit.TILE)                        # +0.0 everywhere
+    for j0 in range(0, bins.size, 32):
+        b, v = bins[j0:j0 + 32], vals[j0:j0 + 32]
+        ok = v != 0.0                                   # zero-valued: skipped
+        if b.size == 32 and ok.all() and (b == b[0]).all():
+            s = acc[b[0]]                               # a pile: one chain
+            for x in v:
+                s = s + x
+            acc[b[0]] = s
+            paths["pile"] += 1
+            continue
+        keys, counts = np.unique(b[ok], return_counts=True)
+        for key in keys:
+            lanes = np.flatnonzero(ok & (b == key))     # lane order
+            s = acc[key]
+            for lane in lanes:
+                s = s + v[lane]
+            acc[key] = s
+        paths["shared" if (counts > 1).any() else "single"] += 1
+    return acc
+
+
+def bucketed_deposit(cols, vals, row_ptr, n_rows: int, n_cols: int,
+                     paths: dict | None = None,
+                     warps: int | None = None) -> torch.Tensor:
+    """The kernel's algorithm on a row-grouped table; entries from
+    ``row_ptr[-1]`` on are not read."""
+    paths = {"pile": 0, "shared": 0, "single": 0} if paths is None else paths
+    out = np.full((n_rows, n_cols), np.nan)
+    k = deposit.deposit_tiles(n_cols)
+    for r in range(n_rows):
+        lo, hi = int(row_ptr[r]), int(row_ptr[r + 1])
+        order, ends = bucket_row(cols[lo:hi], n_cols, warps)
+        starts = np.concatenate([[0], ends[:-1]])
+        for t in range(k):
+            sel = order[starts[t]:ends[t]] + lo
+            acc = accumulate_bucket(cols[sel] - t * deposit.TILE, vals[sel],
+                                    paths)
+            c0 = t * deposit.TILE
+            out[r, c0:c0 + deposit.TILE] = acc[:min(deposit.TILE, n_cols - c0)]
+    assert not np.isnan(out).any()              # every cell written once
+    return torch.from_numpy(out)
+
+
+# Values whose f64 sums depend on the order, signed zeros among them.
+_VALUES = [0.0, -0.0, 1.0, 3.0, 0.05, 1e16, -1e16, 1e-300, -2.5, 7e-17]
+
+
+def _fleet_like_table(rng, n_rows, n_cols, sizes, mode):
+    """A row-grouped table: ``sizes`` triples a row, each event's chunks
+    on neighbouring bins, plus a zero-valued padding tail."""
+    cols, vals = [], []
+    for size in sizes:
+        c = np.empty(size, np.int64)
+        j = 0
+        while j < size:                       # events of 1-4 chunks
+            m = min(size - j, int(rng.integers(1, 5)))
+            c[j:j + m] = rng.integers(0, n_cols) + np.arange(m)
+            j += m
+        c = np.minimum(c, n_cols - 1)
+        v = np.asarray(_VALUES)[rng.integers(0, len(_VALUES), size)]
+        if mode == "pile":                    # past the horizon: bin T - 1
+            c[rng.random(size) < 0.6] = n_cols - 1
+        elif mode == "hot":                   # one cell takes most triples
+            c[rng.random(size) < 0.8] = min(n_cols - 1, 700)
+        elif mode == "nonfinite":             # zero-valued triples on bin 0
+            hit = rng.random(size) < 0.4
+            c[hit], v[hit] = 0, 0.0
+        cols.append(c)
+        vals.append(v)
+    row_ptr = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    n = int(row_ptr[-1])
+    pad = int(rng.integers(0, 300))
+    rows = np.concatenate([np.repeat(np.arange(n_rows), sizes),
+                           np.zeros(pad, np.int64)])
+    cols = np.concatenate(cols + [rng.integers(0, n_cols, pad)])
+    vals = np.concatenate(vals + [np.zeros(pad)])
+    return rows, cols, vals, row_ptr, n
+
+
+@st.composite
+def _deposit_case(draw):
+    n_rows = draw(st.integers(1, 5))
+    n_cols = draw(st.sampled_from([1, 7, 511, 512, 513, 1100, 2600]))
+    shape = draw(st.sampled_from(["even", "one_big", "empty_rows"]))
+    size = draw(st.integers(0, 700))
+    if shape == "even":
+        sizes = [size] * n_rows
+    elif shape == "one_big":                  # one row holds most of the table
+        sizes = [draw(st.integers(0, 20)) for _ in range(n_rows)]
+        sizes[draw(st.integers(0, n_rows - 1))] = 2000 + size
+    else:
+        sizes = [size if draw(st.booleans()) else 0 for _ in range(n_rows)]
+    mode = draw(st.sampled_from(["spread", "pile", "hot", "nonfinite"]))
+    warps = draw(st.sampled_from([8, 16]))    # both block widths of launch 1
+    return n_rows, n_cols, sizes, mode, warps, draw(st.integers(0, 2 ** 31))
+
+
+@settings(max_examples=40, deadline=None)
+@given(case=_deposit_case())
+def test_bucketed_deposit_is_bitwise_the_plain_version(case):
+    n_rows, n_cols, sizes, mode, warps, seed = case
+    rows, cols, vals, row_ptr, n = _fleet_like_table(
+        np.random.default_rng(seed), n_rows, n_cols, sizes, mode)
+    got = bucketed_deposit(cols, vals, row_ptr, n_rows, n_cols, warps=warps)
+    want = deposit.deposit_plain(torch.from_numpy(rows), torch.from_numpy(cols),
+                                 torch.from_numpy(vals), n_rows, n_cols)
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+def test_cell_with_thousands_of_triples_runs_as_piles():
+    """4000 triples on one cell: 125 steps of 32 on the pile path, and
+    the sum is the in-order one."""
+    rng = np.random.default_rng(5)
+    vals = np.asarray(_VALUES)[rng.integers(0, len(_VALUES), 4000)]
+    vals[vals == 0.0] = 1.0
+    cols = np.full(4000, 513, np.int64)
+    paths = {"pile": 0, "shared": 0, "single": 0}
+    got = bucketed_deposit(cols, vals, np.array([0, 4000]), 1, 1100, paths)
+    want = deposit.deposit_plain(torch.zeros(4000, dtype=torch.int64),
+                                 torch.from_numpy(cols), torch.from_numpy(vals),
+                                 1, 1100)
+    assert paths == {"pile": 125, "shared": 0, "single": 0}
+    assert torch.equal(got, want)
+    acc = 0.0
+    for v in vals:
+        acc += v
+    assert got[0, 513].item() == acc
+
+
+@pytest.mark.parametrize("warps", [8, 16])
+def test_buckets_keep_table_order_across_warp_stretches(warps):
+    """One tile's entries spread over every warp's stretch: the bucket
+    lists them in table order."""
+    cols = np.tile(np.array([5, 600, 5, 1200]), 700)        # 2800 entries
+    order, ends = bucket_row(cols, 1300, warps)
+    assert ends.tolist() == [1400, 2100, 2800]
+    for lo, hi in ((0, 1400), (1400, 2100), (2100, 2800)):
+        assert (np.diff(order[lo:hi]) > 0).all()
+
+
+def test_out_of_range_bins_are_not_bucketed():
+    order, ends = bucket_row(np.array([3, -1, 9, 2, 12]), 10)
+    assert order.tolist() == [0, 2, 3] and ends.tolist() == [3]
+
+
+@pytest.mark.parametrize("n_cols,want", [
+    (40_966, 81),            # FleetSim.run() on the paper's world
+    (512, 1), (513, 2), (1, 1),
+    (2_000_000, 3907),       # the most bins FleetSim allows
+])
+def test_deposit_tiles_pinned(n_cols, want):
+    assert deposit.deposit_tiles(n_cols) == want
+    assert want <= deposit.MAX_TILES
+
+
+@pytest.mark.parametrize("n_cols,want", [
+    (40_966, 16),            # the fleet's T: 16 warps a row
+    (1, 16),
+    (3584 * 512, 16),
+    (3584 * 512 + 1, 8),     # 16 warps' counters would pass 227 KB
+    (2_000_000, 8),
+])
+def test_bucket_warps_pinned(n_cols, want):
+    assert deposit.bucket_warps(n_cols) == want
+    assert want * 4 * deposit.deposit_tiles(n_cols) <= 232_448 - 64
+
+
+@pytest.mark.parametrize("n,n_rows,n_cols,want", [
+    (5_414_912, 864, 40_966, 54_709_008),    # run()'s table, padding included
+    (0, 3, 10, 40),
+])
+def test_deposit_scratch_bytes_pinned(n, n_rows, n_cols, want):
+    assert deposit.scratch_bytes(n, n_rows, n_cols) == want
+
+
+def test_deposit_takes_every_horizon_the_fleet_allows():
+    """MAX_TILES * TILE bins fit the bucket pass's shared counters (8
+    warps x 4 bytes a tile, 227 KB at most) and cover FleetSim's 2 M."""
+    assert 8 * 4 * deposit.MAX_TILES <= 232_448 - 64
+    assert deposit.MAX_TILES * deposit.TILE >= 2_000_000

@@ -138,6 +138,28 @@ def test_wrappers_refuse_mixed_devices(cuda_device):
 # --------------------------------------------------------------------- #
 
 
+def _deposit_table(case, n_rows, n_cols, n, rng):
+    """(rows, cols, vals) in table order, not yet grouped by row."""
+    rows = rng.integers(0, n_rows, n)
+    cols = rng.integers(0, n_cols if case != "duplicates" else 4, n)
+    vals = rng.random(n) * 0.05
+    if case == "hot":                     # thousands of triples on one cell
+        cols[rng.random(n) < 0.8] = min(n_cols - 1, 700)
+    elif case == "skewed":                # one row holds most of the table
+        rows[rng.random(n) < 0.9] = n_rows // 2
+    elif case == "pile":                  # past the horizon: bin T - 1
+        cols[rng.random(n) < 0.5] = n_cols - 1
+    elif case == "fleet":                 # events of 1-4 neighbouring bins,
+        start = rng.integers(0, n_cols, n // 4 + 1)     # a pile on T - 1 and
+        cols = np.minimum(np.repeat(start, 4)[:n] + np.tile(np.arange(4),
+                                                             n // 4 + 1)[:n],
+                          n_cols - 1)                   # zero-valued triples
+        zero = rng.random(n) < 0.1                      # on bin 0
+        cols[zero], vals[zero] = 0, 0.0
+        cols[rng.random(n) < 0.05] = n_cols - 1
+    return rows, cols, vals
+
+
 @pytest.mark.parametrize("n_rows,n_cols,n,case", [
     (17, 300, 1000, "shuffled"),
     (144, 5000, 40000, "shuffled"),       # several tiles per row
@@ -145,14 +167,17 @@ def test_wrappers_refuse_mixed_devices(cuda_device):
     (8, 128, 0, "shuffled"),              # empty table
     (3, 64, 5000, "duplicates"),          # many triples on few cells
     (70000, 3, 100000, "shuffled"),       # more rows than grid.y takes
+    (4, 3000, 40000, "hot"),              # a cell with ~8000 triples
+    (9, 40_966, 200000, "skewed"),        # one row with 90 % of the table
+    (5, 100, 20000, "pile"),              # T below one tile, a pile on T - 1
+    (3, 40_966, 300000, "fleet"),         # the fleet's T at a few rows
+    (2, 1_900_000, 20000, "shuffled"),    # past 3584 tiles: 8 bucket warps
 ])
 def test_deposit_kernel_is_bitwise_the_plain_version(cuda_device, n_rows,
                                                      n_cols, n, case):
     from repro_torch.kernels import deposit
     rng = np.random.default_rng(n + n_cols)
-    rows = rng.integers(0, n_rows, n)
-    cols = rng.integers(0, n_cols if case != "duplicates" else 4, n)
-    vals = rng.random(n) * 0.05
+    rows, cols, vals = _deposit_table(case, n_rows, n_cols, n, rng)
     # The plain version takes the table as it came; the kernel takes it
     # stably grouped by row (as the fleet's chunk table comes).
     want = deposit.deposit_plain(*(torch.from_numpy(a).to(cuda_device)

@@ -47,9 +47,23 @@ Phases (any failure exits non-zero and prints no success line):
      on one cell, zero-valued share); ``backlog_scan`` also on a plane
      built never to coalesce, each plane with its chunks' coalescence
      statistics;
-  9. the ``kernels`` JSON line (all four kernels; launches counted over
-     the serve run for gmm/decode_attention and over the fleet ``run()``
-     for deposit/backlog_scan), the card line, then the result line.
+  9. fleet with ground and admission: phase 7's world behind the 8
+     default gateways (``build_ground_segment``, 10 degrees), a 60 s
+     Poisson trace at 2 requests/s over them, ``QueueConfig(admission=
+     AdmissionConfig())``: ``run()`` under AIMD and under PID on the card
+     (deposit 2, backlog_scan 3, admission_ctrl 3 launches), wall and
+     device time, the host itemized (with ``_build_admission_tables``
+     and the attempt resolve), each against the CPU (identical served,
+     shed and retry sets, ``assert_parity``), then ``run_many`` over
+     ``ttft_targets`` at 1.5, 2, 3 and 5 x the zero-load p99 TTFT, card
+     against CPU; ``admission_ctrl`` bitwise against its plain loop on
+     every window-maximum tensor those runs gave it, timed beside its
+     byte and serial-chain bounds;
+ 10. the ``kernels`` JSON line (all five kernels; launches counted over
+     the serve run for gmm/decode_attention, over the fleet ``run()``
+     for deposit/backlog_scan and over the AIMD ``run()`` for
+     admission_ctrl), the card line, then the result line.  Each phase's
+     seconds are printed as it ends.
 
 Imports nothing of JAX and nothing of the ``repro`` package.
 """
@@ -71,6 +85,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float64": 34e12}
 # Thinning fractions of the fleet sweep (benchmarks/bench_fleet.py).
 FLEET_FRACTIONS = (0.1, 0.15, 0.2, 0.25, 0.3, 0.35, 0.4, 0.5, 0.6, 0.8, 1.0)
+# Latency targets of the admission sweep, times the zero-load p99 TTFT
+# (benchmarks/bench_admission.py TARGET_SCALES).
+ADM_TARGET_SCALES = (1.5, 2.0, 3.0, 5.0)
 # The CUDA kernels each fleet wrapper call launches, by profiler name.
 FLEET_KERNELS = {"deposit": ("deposit_bucket_kernel",
                              "deposit_accumulate_kernel"),
@@ -500,7 +517,7 @@ def phase_profile(torch, n_steps: int = 4) -> None:
 
 def fleet_world():
     """The paper's constellation, llama-moe-3.5b's MoE shape, 3 plans and
-    a 60 s trace at 2 requests/s (seeded)."""
+    a 60 s trace at 2 requests/s (seeded); the constellation last."""
     import numpy as np
 
     from repro_torch import core
@@ -521,21 +538,25 @@ def fleet_world():
         f"topology {t_topo:.1f}s, plans {time.perf_counter() - t0 - t_topo:.1f}s; "
         f"R={req.n_requests} requests, N={req.total_decode_tokens} decode "
         f"tokens")
-    return topo, act, plans, req
+    return topo, act, plans, req, con
 
 
-def build_fleet(world, device, seed=5):
+def build_fleet(world, device, seed=5, qcfg=None, ground=None, req=None):
     """``FleetSim`` over ``world``; ``seed`` seeds the engine's expert
-    draws, which set the unloaded horizon and so T."""
+    draws, which set the unloaded horizon and so T.  ``qcfg``, ``ground``
+    and ``req`` replace ``QueueConfig()``, no ground segment and the
+    world's trace."""
     import numpy as np
 
     from repro_torch import core
     from repro_torch.traffic import FleetSim, QueueConfig
-    topo, act, plans, req = world
+    topo, act, plans, world_req = world[:4]
     t0 = time.perf_counter()
     sim = FleetSim(plans, topo, act, core.MoEWorkload.llama_moe_3p5b(),
-                   core.ComputeConfig(), req, np.random.default_rng(seed),
-                   qcfg=QueueConfig(), device=device)
+                   core.ComputeConfig(), world_req if req is None else req,
+                   np.random.default_rng(seed),
+                   qcfg=QueueConfig() if qcfg is None else qcfg,
+                   ground=ground, device=device)
     if device == "cuda":
         torch_sync()
     return sim, time.perf_counter() - t0
@@ -576,11 +597,13 @@ def fleet_host_steps(torch, sim, res) -> dict[str, float]:
     plane (``np.bincount``, per-row sums), the upload (f32 cast and
     host-to-device copies), the fused fixed point on the card, and the
     device-to-host copies with ``_finalize``.  The result must equal
-    ``res``, a ``run()`` of ``sim``, bit for bit."""
+    ``res``, a ``run()`` of ``sim``, bit for bit.  Under admission the
+    targets' upload joins the upload."""
     import numpy as np
 
     from repro_torch.traffic import queueing
     t_bins, n_rows, dev = sim.n_bins, sim.n_rows, sim.device
+    adm_on = sim.admission_on
     active = np.ones(sim.n_requests, dtype=bool)
     times: dict[str, float] = {}
 
@@ -606,27 +629,31 @@ def fleet_host_steps(torch, sim, res) -> dict[str, float]:
 
     def upload():
         chunks = {k: torch.from_numpy(ct[k]).to(dev)
-                  for k in ("src", "offs", "work", "fprow", "row_ptr")}
+                  for k in ("src", "offs", "work", "fprow", "row_ptr", "fpr")
+                  if k in ct}
+        targets = sim._targets(1, None, None) if adm_on else ()
         return (chunks, torch.from_numpy(plane0.astype(np.float32)).to(dev),
-                torch.from_numpy(work0_sum).to(dev))
-    chunks, work0, work0_sum = step("upload", upload)
+                torch.from_numpy(work0_sum).to(dev), targets)
+    chunks, work0, work0_sum, targets = step("upload", upload)
     out = step("fixed_point", lambda: queueing._fleet_fixed_point(
         sim._device_tables(), chunks, work0, work0_sum,
-        max(1, sim.qcfg.iterations), t_bins, n_rows, True))
+        max(1, sim.qcfg.iterations), t_bins, n_rows, True, *targets))
 
     def finalize():
         host = {k: v.cpu().numpy()[0] for k, v in out.items() if k != "wait"}
         host["work_sum"] = sim._expand_rows(host["work_sum"])
-        return sim._finalize(active, host, None)
+        return sim._finalize(active, host, adm_on, None)
     again = step("finalize", finalize)
     times["total"] = (time.perf_counter() - t_all) * 1e3
     assert_parity(res, again, "run() itemized vs run()", rtol=0.0)
+    if adm_on:
+        same_admission(res, again, "run() itemized vs run()")
     return times
 
 
-def phase_fleet(torch) -> tuple[dict, dict, dict]:
+def phase_fleet(torch) -> tuple[dict, dict, dict, tuple]:
     """Returns (launch counts of run(), the kernels' captured inputs, their
-    device ms per launch in the profiled run())."""
+    device ms per launch in the profiled run(), the world)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -780,7 +807,7 @@ def phase_fleet(torch) -> tuple[dict, dict, dict]:
             raise SmokeFailure(f"fleet card vs CPU {what}: no request "
                                "served, the comparison would be empty")
     log(f"fleet CPU construction {t_cpu_build:.1f}s, CPU run() {t_cpu:.1f}s")
-    return counts, captured, in_run
+    return counts, captured, in_run, world
 
 
 # --------------------------------------------------------------------- #
@@ -973,6 +1000,278 @@ def check_scan(torch, work, cap, dt, what: str) -> dict:
             "library_wall_ms": None}
 
 
+# --------------------------------------------------------------------- #
+# Phase 9: the fleet with a ground segment and the admission controller
+# --------------------------------------------------------------------- #
+
+
+def same_admission(res_a, res_b, what) -> None:
+    """Identical shed and retry sets, plan by plan."""
+    import numpy as np
+    for pa, pb in zip(res_a.plans, res_b.plans, strict=True):
+        if not (np.array_equal(pa.shed, pb.shed)
+                and np.array_equal(pa.retries, pb.retries)):
+            raise SmokeFailure(f"{what}: plan {pa.plan_name} sheds or "
+                               "retries differently")
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock, MHz (nvidia-smi)."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60)
+    if res.returncode != 0:
+        raise SmokeFailure(f"nvidia-smi failed: {res.stderr.strip()}")
+    return float(res.stdout.strip().splitlines()[0])
+
+
+def check_ctrl(torch, win, args, kw, what: str) -> dict:
+    """admission_ctrl on a window-maximum tensor the fleet gave it, against
+    its plain loop (bitwise), with its device time, the plain loop's wall
+    time, the byte/operation bound and the serial chain's bound."""
+    from repro_torch.kernels import admission_ctrl
+    n_ctrl, n_f, n_p = win.shape
+    n_g = args[0].shape[1]
+    got = admission_ctrl.admission_ctrl(win, *args, **kw)
+    torch.cuda.synchronize()
+    ms, wall_ms, hidden = time_ms(
+        torch, lambda: admission_ctrl.admission_ctrl(win, *args, **kw),
+        iters=20)
+    want = None
+
+    def plain():
+        nonlocal want
+        want = admission_ctrl.admission_ctrl_plain(win, *args, **kw)
+    plain_ms = event_ms(torch, plain, iters=1, warm=False)
+    same = bool(torch.equal(got, want))
+    cells = n_f * n_p * n_g
+    nbytes = 4 * (win.numel() + got.numel() + sum(a.numel() for a in args)
+                  + (n_p if kw["pid"] is not None else 0))
+    # f32 operations a (cell, control bin) of this data needs: AIMD two
+    # adds, two compares, one multiply or add and one max or min; PID the
+    # two headrooms (add, subtract, divide each, where a target is
+    # finite), their min, the clamped integral (3), delta (5) and the
+    # clamped update (4).
+    if kw["pid"] is None:
+        per_step = 6
+    else:
+        finite = int(bool(torch.isfinite(args[3]).all())) \
+            + int(bool(torch.isfinite(args[4]).all()))
+        per_step = 3 * finite + 1 + 3 + 5 + 4
+    b_ms, b_by = bound(nbytes, per_step * cells * n_ctrl, "float32")
+    # The loop-carried chain: three dependent f32 operations a control bin
+    # (AIMD: multiply or add, max or min, select; PID: add, max, min on
+    # both admit and the integral), about 4 cycles each.
+    serial_ms = n_ctrl * 3 * 4 / (sm_clock_mhz() * 1e3)
+    return {"name": "admission_ctrl",
+            "shape": f"win ({n_ctrl}, {n_f}, {n_p}) -> ({n_ctrl}, {n_f}, "
+                     f"{n_p}, {n_g}) f32, "
+                     f"{'AIMD' if kw['pid'] is None else 'PID'}, {what}",
+            "max_abs_err": float((got - want).abs().nan_to_num().max()),
+            "tol": 0.0, "ok": same, "bound_ms": b_ms, "bound_by": b_by,
+            "serial_bound_ms": serial_ms, "ms": ms, "wall_ms": wall_ms,
+            "hidden": hidden, "plain_ms": plain_ms,
+            "plain_wall_ms": plain_ms, "plain_hidden": False,
+            "library_ms": None, "library_wall_ms": None}
+
+
+def fleet_plan_lines(res, what: str) -> int:
+    """Served, shed and retried requests per plan; returns the served
+    total."""
+    import numpy as np
+    for p in res.plans:
+        log(f"{what} plan {p.plan_name}: served {int(p.served.sum())}/"
+            f"{int(p.active.sum())}, shed {int(p.shed.sum())}, admitted on "
+            f"a retry {int((p.retries > 0).sum())}, goodput "
+            f"{p.goodput_tok_s:.3f} tok/s, TTFT p50 "
+            f"{p.quantile('ttft', 0.5):.3f} s p99 "
+            f"{p.quantile('ttft', 0.99):.3f} s")
+        ok = (p.served.shape == p.shed.shape == (p.active.size,)
+              and not (p.served & p.shed).any()
+              and np.isfinite(p.ttft_s[p.served]).all()
+              and (p.e2e_s[p.served] >= p.ttft_s[p.served]).all()
+              and np.isfinite(p.token_total_s).all())
+        if not ok:
+            raise SmokeFailure(f"{what} plan {p.plan_name}: outputs of the "
+                               "wrong shape, served and shed, or non-finite")
+    return sum(int(p.served.sum()) for p in res.plans)
+
+
+def phase_fleet_admission(torch, world) -> tuple[dict, dict]:
+    """Returns (admission_ctrl's record on the AIMD run()'s last window
+    maxima, the launch counts of that run())."""
+    import copy
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import core
+    from repro_torch.kernels import ops
+    from repro_torch.traffic import (AdmissionConfig, QueueConfig, admission,
+                                     build_ground_segment, queueing,
+                                     sample_requests)
+    _, _, _, _, con = world
+    t0 = time.perf_counter()
+    ground = build_ground_segment(con, core.LinkConfig(),
+                                  min_elevation_deg=10.0)
+    req = sample_requests(np.random.default_rng(8), rate_rps=2.0,
+                          horizon_s=60.0, n_stations=ground.n_stations)
+    log(f"admission world: {ground.n_stations} gateways (coverage "
+        f"{ground.coverage():.3f}, ranked {ground.n_ranked} deep), built "
+        f"{time.perf_counter() - t0:.1f}s; R={req.n_requests} requests, "
+        f"N={req.total_decode_tokens} decode tokens")
+    want = {"deposit": 2, "backlog_scan": 3, "admission_ctrl": 3}
+    captured: dict[str, list] = {}
+    tag = [None]
+    real_ctrl, real_trace = admission.admission_ctrl, queueing.controller_trace
+    last_admit = []
+
+    def ctrl_rec(win, *args, **kw):
+        if tag[0] is not None:
+            captured.setdefault(tag[0], []).append((win.clone(), args, kw))
+        return real_ctrl(win, *args, **kw)
+
+    def trace_rec(*args, **kw):
+        out = real_trace(*args, **kw)
+        last_admit[:] = [out]
+        return out
+    admission.admission_ctrl, queueing.controller_trace = ctrl_rec, trace_rec
+    sims, served = {}, 0
+    try:
+        for policy in ("aimd", "pid"):
+            qcfg = QueueConfig(admission=AdmissionConfig(policy=policy))
+            sim, t_build = build_fleet(world, "cuda", qcfg=qcfg,
+                                       ground=ground, req=req)
+            n_ctrl = int(sim._device_tables()["ctrl"].sum())
+            twin = copy.copy(sim)
+            t0 = time.perf_counter()
+            twin._build_admission_tables(qcfg.admission, ground,
+                                         sim.slots[:sim.n_requests],
+                                         np.random.default_rng(0))
+            t_tables = (time.perf_counter() - t0) * 1e3
+            del twin
+            log(f"{policy}: FleetSim on the card: T={sim.n_bins} bins, "
+                f"SR={sim.n_rows} compact rows, n_ctrl={n_ctrl} control "
+                f"bins, {sim._f_req.size} chunks, built in {t_build:.1f}s "
+                f"(_build_admission_tables {t_tables:.1f} ms)")
+            tag[0] = f"{policy} run()"
+            ops.reset_launch_counts()
+            res = sim.run()
+            torch_sync()
+            counts = ops.launch_counts()
+            tag[0] = None
+            log(f"{policy} run() launch counts {json.dumps(counts)} "
+                f"(expected {json.dumps(want)})")
+            if {k: counts[k] for k in want} != want:
+                raise SmokeFailure(f"{policy} run() launch counts {counts} "
+                                   f"!= {want}")
+            if policy == "aimd":
+                aimd_counts = counts
+            walls = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                again = sim.run()
+                torch_sync()
+                walls.append(time.perf_counter() - t0)
+            assert_parity(res, again, f"{policy} card run() vs run()",
+                          rtol=0.0)
+            same_admission(res, again, f"{policy} card run() vs run()")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                sim.run()
+                torch_sync()
+                prof_wall = time.perf_counter() - t0
+            kernels = device_times(prof, 1)
+            busy = sum(k[0] for k in kernels) / 1e3
+            ctrl_k = [(ms, calls) for ms, calls, key in kernels
+                      if "admission_ctrl_kernel" in key]
+            log(f"{policy} run(): {min(walls) * 1e3:.1f} ms wall (best of 2, "
+                f"synchronized); under the profiler {prof_wall * 1e3:.1f} ms "
+                f"wall, device kernels {busy * 1e3:.1f} ms -> device busy "
+                f"{busy / prof_wall:.1%}, idle {1 - busy / prof_wall:.1%} "
+                f"({sum(k[1] for k in kernels):.0f} kernel launches; "
+                f"admission_ctrl {sum(c for _, c in ctrl_k):.0f} launches, "
+                f"{sum(m for m, _ in ctrl_k):.4f} ms)")
+            for ms, calls, name in sorted(kernels, reverse=True)[:10]:
+                log(f"{policy} profile: {ms:9.3f} ms {calls:6.0f} calls  "
+                    f"{name[:80]}")
+            steps = fleet_host_steps(torch, sim, res)
+            q = sim._device_tables()
+            resolve_ms = event_ms(
+                torch, lambda: queueing._resolve_attempts(q, last_admit[0]),
+                iters=5)
+            log(f"{policy} run() itemized (host clock, each step ends in a "
+                f"synchronize; ms): {json.dumps(steps)}; "
+                f"_build_admission_tables {t_tables:.1f} (construction); "
+                f"attempt resolve {resolve_ms:.3f} a fixed-point iteration "
+                f"(CUDA events)")
+            served += fleet_plan_lines(res, f"{policy} run()")
+            cpu_sim, t_cpu_build = build_fleet(world, "cpu", qcfg=qcfg,
+                                               ground=ground, req=req)
+            t0 = time.perf_counter()
+            res_cpu = cpu_sim.run()
+            t_cpu = time.perf_counter() - t0
+            n = assert_parity(res_cpu, res, f"{policy} card run() vs CPU")
+            same_admission(res_cpu, res, f"{policy} card run() vs CPU")
+            log(f"{policy} card vs CPU run(): parity holds, identical shed "
+                f"and retries, {n} requests served over the plans on both "
+                f"(CPU construction {t_cpu_build:.1f}s, run() {t_cpu:.1f}s)")
+            sims[policy] = (sim, cpu_sim)
+
+        # A latency-target sweep under AIMD, as bench_admission runs it.
+        sim, cpu_sim = sims["aimd"]
+        base = sim.run(zero_load=True)
+        p99 = max(p.quantile("ttft", 0.99) for p in base.plans)
+        targets = np.asarray(ADM_TARGET_SCALES) * p99
+        masks = np.ones((len(targets), sim.n_requests), dtype=bool)
+        tag[0] = "aimd run_many"
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        many = sim.run_many(masks, ttft_targets=targets)
+        torch_sync()
+        t_many = time.perf_counter() - t0
+        many_counts = ops.launch_counts()
+        tag[0] = None
+        log(f"aimd run_many over ttft_targets {np.round(targets, 3).tolist()}"
+            f" s ({list(ADM_TARGET_SCALES)} x the zero-load p99 TTFT "
+            f"{p99:.3f} s): {t_many * 1e3:.1f} ms wall (synchronized), "
+            f"launch counts {json.dumps(many_counts)}")
+        if {k: many_counts[k] for k in want} != want:
+            raise SmokeFailure(f"run_many launch counts {many_counts} != "
+                               f"{want}")
+        t0 = time.perf_counter()
+        many_cpu = cpu_sim.run_many(masks, ttft_targets=targets)
+        t_cpu = time.perf_counter() - t0
+        for target, r, r_cpu in zip(targets, many, many_cpu):
+            served += fleet_plan_lines(r, f"aimd target {target:.3f} s")
+            assert_parity(r_cpu, r, f"aimd run_many target {target:.3f} vs "
+                          "CPU")
+            same_admission(r_cpu, r, f"aimd run_many target {target:.3f} vs "
+                           "CPU")
+        log(f"aimd card vs CPU run_many: parity holds at every target, "
+            f"identical shed and retries (CPU run_many {t_cpu:.1f}s)")
+    finally:
+        admission.admission_ctrl = real_ctrl
+        queueing.controller_trace = real_trace
+    if served == 0:
+        raise SmokeFailure("no request served under admission: the card vs "
+                           "CPU comparisons would hold only failures")
+
+    recs = []
+    for what, calls in captured.items():
+        for i, (win, args, kw) in enumerate(calls):
+            rec = check_ctrl(torch, win, args, kw,
+                             f"{what} iteration {i + 1}")
+            log("kernel " + json.dumps(rec))
+            recs.append(rec)
+    bad = [r["shape"] for r in recs if not r["ok"]]
+    if bad or len(recs) != 9:
+        raise SmokeFailure(f"admission_ctrl disagrees with its plain loop on "
+                           f"{bad} (or missed a call: {len(recs)} of 9)")
+    return recs[2], aimd_counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -999,18 +1298,35 @@ def main() -> int:
             if "Used" in line or ("spill" in line and " 0 bytes spill" not in line):
                 log(f"ptxas {name}: {line.strip()}")
 
-    main_cases = phase_kernels(torch)
-    phase_small(torch)
-    counts = phase_serve(torch, card)
-    phase_profile(torch)
-    fleet_counts, captured, in_run = phase_fleet(torch)
-    main_cases.update(phase_fleet_kernels(torch, captured, in_run))
+    seconds = {"build": time.perf_counter() - t0}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        log(f"phase {name}: {seconds[name]:.1f}s")
+        return out
+
+    main_cases = timed("kernels", phase_kernels, torch)
+    timed("small", phase_small, torch)
+    counts = timed("serve", phase_serve, torch, card)
+    timed("profile", phase_profile, torch)
+    fleet_counts, captured, in_run, world = timed("fleet", phase_fleet, torch)
+    main_cases.update(timed("fleet_kernels", phase_fleet_kernels, torch,
+                            captured, in_run))
+    del captured
+    ctrl_rec, adm_counts = timed("fleet_admission", phase_fleet_admission,
+                                 torch, world)
+    main_cases["admission_ctrl"] = ctrl_rec
     mixed = [name for name, rec in main_cases.items() if not rec["hidden"]]
     if mixed:
         raise SmokeFailure(f"kernel device time not separable from the "
                            f"host's: {mixed}")
     counts = dict(counts, deposit=fleet_counts["deposit"],
-                  backlog_scan=fleet_counts["backlog_scan"])
+                  backlog_scan=fleet_counts["backlog_scan"],
+                  admission_ctrl=adm_counts["admission_ctrl"])
+    log(f"phase seconds {json.dumps({k: round(v, 1) for k, v in seconds.items()})}"
+        f", total {time.perf_counter() - t0:.1f}s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
@@ -1023,6 +1339,8 @@ def main() -> int:
                     "src/repro/kernels/deposit.py:147"),
         "backlog_scan": ("src/repro_torch/kernels/csrc/backlog_scan.cu",
                          "src/repro/traffic/queueing.py:553"),
+        "admission_ctrl": ("src/repro_torch/kernels/csrc/admission_ctrl.cu",
+                           "src/repro/traffic/queueing.py:589"),
     }
     kernels = []
     for name, rec in main_cases.items():

@@ -12,15 +12,18 @@ import time
 import torch
 import torch.nn.functional as F
 
+from . import admission_ctrl as _ctrl
 from . import backlog_scan as _scan
 from . import decode_attn, deposit as _deposit, moe_gmm
+from .admission_ctrl import admission_ctrl
 from .backlog_scan import backlog_scan
 from .decode_attn import decode_attention
 from .deposit import deposit, deposit_segments
 from .moe_gmm import gmm
 
 _COUNTED = {"gmm": moe_gmm, "decode_attention": decode_attn,
-            "deposit": _deposit, "backlog_scan": _scan}
+            "deposit": _deposit, "backlog_scan": _scan,
+            "admission_ctrl": _ctrl}
 
 
 def launch_counts() -> dict[str, int]:
@@ -75,5 +78,5 @@ def expert_ffn(params: dict, xs: torch.Tensor, compute_dtype) -> torch.Tensor:
 
 
 __all__ = ["gmm", "decode_attention", "deposit", "deposit_segments",
-           "backlog_scan", "expert_ffn", "timed_call",
+           "backlog_scan", "admission_ctrl", "expert_ffn", "timed_call",
            "launch_counts", "reset_launch_counts"]

@@ -1,16 +1,23 @@
 """Request-level traffic and queueing: the fleet simulator.
 
 Counterpart of ``repro.traffic`` for the fleet fast path: request traces
-(:mod:`.requests`), the per-satellite fleet queue and its fused fixed
-point (:mod:`.queueing`) and serving metrics (:mod:`.metrics`).  Ground
-segment, admission, batching, re-placement, scenarios and federation are
-later slices of the port.
+(:mod:`.requests`), the ground segment (:mod:`.ground`), the
+per-satellite fleet queue and its fused fixed point (:mod:`.queueing`),
+latency-target admission control with gateway retry (:mod:`.admission`)
+and serving metrics (:mod:`.metrics`).  Not ported yet: continuous
+batching, re-placement, scenarios and federation.
 
 Shape conventions: ``P`` plan/schedule rows, ``R`` requests, ``N``
 decode tokens, ``M = R + N`` engine tokens, ``L`` layers, ``I`` experts
 per layer, ``K`` top-k, ``S = V`` queue stations (one per satellite),
-``T`` time bins, ``F`` sweep entries of one fused launch.
+``G`` ground gateways, ``T`` time bins, ``A`` ingress attempts (1 +
+retries), ``F`` sweep entries of one fused launch.
 """
+from .admission import (AdmissionConfig, admission_queue_scan,
+                        control_bin_flags, resolve_admission)
+from .ground import (DEFAULT_STATIONS, GroundSegment, GroundStation,
+                     build_ground_segment, ground_delay_table,
+                     rank_constellations)
 from .metrics import (SLO, PlanTraffic, SaturationResult, TrafficResult,
                       format_table, saturation_sweep)
 from .queueing import (FleetSim, QueueConfig, simulate_traffic,
@@ -21,6 +28,10 @@ from .requests import (RequestBatch, diurnal_rate, hotspot_rate,
                        stream_requests, thinned_arrivals)
 
 __all__ = [
+    "AdmissionConfig", "admission_queue_scan", "control_bin_flags",
+    "resolve_admission",
+    "DEFAULT_STATIONS", "GroundSegment", "GroundStation",
+    "build_ground_segment", "ground_delay_table", "rank_constellations",
     "SLO", "PlanTraffic", "SaturationResult", "TrafficResult",
     "format_table", "saturation_sweep",
     "FleetSim", "QueueConfig", "simulate_traffic", "station_waiting_times",

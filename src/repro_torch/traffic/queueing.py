@@ -23,14 +23,20 @@ reference:
   f64 scatter-add) and the scan ``kernels.backlog_scan``; on the CPU
   both run their plain versions.
 * the **host path** (``run_legacy``): the reference's NumPy loop, with
-  only the backlog scan on the device — the semantic anchor the fused
-  path is held to.
+  only the backlog scan (and the admission controller) on the device —
+  the semantic anchor the fused path is held to.
 
-Not ported yet (each raises ``NotImplementedError``): the ground segment
-(``ground=``), the AIMD/PID admission controller, continuous batching
-(``batching=``), the telemetry probes (``probes=``) and the joint
-re-placement control plane (``run(replan=...)``).  The reference's jit
-and compile-cache machinery has no counterpart here: PyTorch runs
+With a ground segment (``ground=``) requests enter through their
+gateway's best visible satellite, uplink and ingress hop billed.  Under
+an AIMD or PID ``QueueConfig.admission`` the controller's admission
+trace (:mod:`.admission`: ``backlog_scan``, a gather and the
+``admission_ctrl`` kernel over control bins) is resolved into shed
+requests and gateway retries between fixed-point iterations.
+
+Not ported yet (each raises ``NotImplementedError``): continuous
+batching (``batching=``), the telemetry probes (``probes=``) and the
+joint re-placement control plane (``run(replan=...)``).  The reference's
+jit and compile-cache machinery has no counterpart here: PyTorch runs
 eagerly.
 """
 from __future__ import annotations
@@ -43,12 +49,16 @@ import torch
 from .. import resolve_device
 from ..core.activation import ActivationModel
 from ..core.calibration import resolve_service_model
-from ..core.engine import ScheduleBatch, evaluate_schedules
+from ..core.engine import (ScheduleBatch, evaluate_schedules,
+                           schedule_ingress_offsets)
 from ..core.latency import ComputeConfig, TopologySample
 from ..core.schedule import as_schedule, slot_of_time
 from ..core.workload import MoEWorkload
 from ..kernels.backlog_scan import backlog_scan
 from ..kernels.deposit import deposit
+from .admission import (_seq_sum, admission_queue_scan, control_bin_flags,
+                        controller_trace, qhat_trace, resolve_admission)
+from .ground import GroundSegment
 from .metrics import PlanTraffic, TrafficResult
 from .requests import RequestBatch
 
@@ -72,8 +82,9 @@ class QueueConfig:
         tail_s: Extra horizon past the last zero-load completion.
         iterations: Schedule<->queue fixed-point iterations (1 = open
             loop).
-        admission: The reference's ``AdmissionConfig``; a policy of
-            ``"aimd"`` or ``"pid"`` is not ported yet (raises).
+        admission: Optional :class:`~.admission.AdmissionConfig`; a
+            policy of ``"aimd"`` or ``"pid"`` runs the latency-target
+            controller, ``"static"`` keeps the ``kv_slots`` cap.
         migration_bytes_per_expert: Weight bytes one expert drags to a new
             satellite when a plan schedule switches plans.
         migration_rate_gbps: ISL share available to weight migration.
@@ -166,12 +177,22 @@ def _segment_any(flags: np.ndarray, seg_ids: np.ndarray,
     return hits.reshape(p, n_seg) > 0.0
 
 
-def _seq_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis in index order (XLA's CPU reduction order),
-    so the sum is the same on every device."""
-    out = x[..., 0]
-    for i in range(1, x.shape[-1]):
-        out = out + x[..., i]
+def _station_quantile(values: np.ndarray, ok: np.ndarray,
+                      station: np.ndarray, n_stations: int,
+                      q: float) -> np.ndarray:
+    """(P, G) per-(plan, station) q-quantile of ``values`` (P, R) over
+    the requests with ``ok`` set; stations with no valid request fall
+    back to the plan-wide quantile (0 when nothing is valid at all)."""
+    p = values.shape[0]
+    out = np.zeros((p, n_stations))
+    overall = np.array([
+        np.quantile(values[i][ok[i]], q) if ok[i].any() else 0.0
+        for i in range(p)])
+    for g in range(n_stations):
+        sel = ok & (station[None, :] == g)
+        for i in range(p):
+            out[i, g] = np.quantile(values[i][sel[i]], q) if sel[i].any() \
+                else overall[i]
     return out
 
 
@@ -184,37 +205,69 @@ def _seq_sum(x: torch.Tensor) -> torch.Tensor:
 _CHUNK_BLOCK = 8192
 
 
+def _resolve_attempts(q: dict, admit_floor: torch.Tensor):
+    """Per-request admission from the running-minimum admit trace
+    ``admit_floor`` (T, F, P, G): each attempt's uniform draw against the
+    probability in effect at its (bin, gateway), the first admitted
+    feasible attempt winning (the reference's ``resolve_admission``,
+    batched over F).  Returns (shed (F, P, R) bool, retries (F, P, R),
+    ingress_extra (F, P, R) float64 of the attempt taken)."""
+    F = admit_floor.shape[1]
+    adm = admit_floor.permute(0, 3, 1, 2)[q["att_bin"], q["att_station"]]
+    adm = adm.permute(2, 3, 0, 1)                             # (F, P, A, R)
+    ok = (q["adm_u"][None, None] < adm) & q["att_feasible"][None]
+    shed = ~ok.any(dim=2)
+    retries = torch.where(shed, 0, ok.to(torch.uint8).argmax(dim=2))
+    att_x = q["att_extra"][None].expand((F,) + q["att_extra"].shape)
+    ingress_extra = torch.gather(att_x, 2, retries[:, :, None, :])[:, :, 0]
+    return shed, retries, ingress_extra
+
+
 def _fleet_fixed_point(q: dict, chunks: dict, work0: torch.Tensor,
                        work0_sum: torch.Tensor, n_iter: int, n_bins: int,
-                       n_rows: int, want_wait: bool) -> dict:
+                       n_rows: int, want_wait: bool,
+                       ttft_target: torch.Tensor | None = None,
+                       tpot_target: torch.Tensor | None = None) -> dict:
     """The fused fixed point of ``FleetSim.run``, over a sweep axis F.
 
-    The reference's ``_fleet_fixed_point`` with admission, batching and
-    probes off: every tensor lives on one device; schedules, bins and
-    deposits in float64, the work plane time-major ``(T, F, rows)`` for
-    the float32 backlog scan.  The first iteration is peeled: its
-    zero-wait schedule is static, so its work plane ``work0`` (F, rows,
-    T) float32 and per-row sums ``work0_sum`` arrive precomputed, and
-    the deposit runs for iterations 2..n only.
+    The reference's ``_fleet_fixed_point`` (plan-leading tables; batching
+    and probes off): every tensor lives on one device; schedules, bins
+    and deposits in float64, the backlog scan in float32 over the
+    time-major view of the (F, rows, T) work plane.  The first iteration
+    is peeled: its zero-wait schedule is static, so its work plane
+    ``work0`` (F, rows, T) float32 and per-row sums ``work0_sum`` arrive
+    precomputed, and the deposit runs for iterations 2..n only.
+
+    Under admission (``q`` holds the controller's tables and the targets
+    are given) each iteration also runs the controller over the new wait
+    trace (:func:`.admission.controller_trace`), keeps the admit trace as
+    a running minimum (so the shed set only grows), resolves every
+    request's attempts (:func:`_resolve_attempts`), and the next
+    iteration's deposits skip shed requests and start each request after
+    the ingress latency of the attempt it took.
 
     Args:
         q: Device tables (:meth:`FleetSim._device_tables`).
         chunks: Compacted deposit table: ``src`` (gather index into the
             F-flattened [layer_arr | exp_arr] pair), ``offs`` (chunk
             offset in bins), ``work`` (seconds), ``fprow`` (row of the
-            (F * rows) plane) and ``row_ptr`` (the table's row grouping,
-            see ``kernels.deposit``).
+            (F * rows) plane), ``row_ptr`` (the table's row grouping,
+            see ``kernels.deposit``) and under admission ``fpr`` (index
+            into the (F, P, R) shed mask).
         work0: (F, rows, T) float32 iteration-1 offered work.
         work0_sum: (F, rows) float64 per-row sum of iteration-1 work.
         n_iter: Fixed-point iterations.
         n_bins: T, the time-bin count.
         n_rows: Compacted queue-row count.
         want_wait: Also return the final (T, F, rows) backlog trace.
+        ttft_target, tpot_target: (F,) float32 margin-scaled targets
+            (admission only).
 
     Returns:
         Dict with a leading F axis: ``ttft``/``e2e`` (F, P, R),
         ``tok_total`` (F, P, M), ``tok_over`` (F, P, M) bool,
-        ``work_sum`` (F, rows), and iff ``want_wait`` ``wait``.
+        ``shed``/``retries`` (F, P, R), ``work_sum`` (F, rows), and iff
+        ``want_wait`` ``wait``.
     """
     first_tok, tok_req = q["first_tok"], q["tok_req"]
     F = work0.shape[0]
@@ -223,6 +276,8 @@ def _fleet_fixed_point(q: dict, chunks: dict, work0: torch.Tensor,
     T, SR = n_bins, n_rows
     dt, cap = q["dt"], q["cap"]
     f64 = torch.float64
+    dev = work0.device
+    adm_on = "ctrl" in q
 
     def to_bins(times):
         finite = torch.isfinite(times)
@@ -245,12 +300,16 @@ def _fleet_fixed_point(q: dict, chunks: dict, work0: torch.Tensor,
         exp_arr = layer_arr + gw_wait + q["gw_service"][None, None, :, None]
         return layer_arr, exp_arr, tok_total, cs - base
 
-    def bin_work(layer_arr, exp_arr):
+    def bin_work(layer_arr, exp_arr, shed):
         flat_t = torch.cat([layer_arr.reshape(F, -1),
                             exp_arr.reshape(F, -1)], dim=1).reshape(-1)
         b_ch, fin = to_bins(flat_t[chunks["src"]])
         bins = torch.clamp_max(b_ch + chunks["offs"], T - 1)
         vals = chunks["work"] * fin
+        if adm_on:
+            # Shed requests stop depositing: their values become zeros in
+            # place, so the table keeps its row grouping (row_ptr).
+            vals = vals * ~shed.reshape(-1)[chunks["fpr"]]
         work = deposit(chunks["fprow"], bins, vals, F * SR, T,
                        row_ptr=chunks["row_ptr"]).reshape(F, SR, T)
         if "mig_dense" in q:
@@ -258,7 +317,7 @@ def _fleet_fixed_point(q: dict, chunks: dict, work0: torch.Tensor,
         return work
 
     def gather(wait_t, work32, gw_b, gw_fin, ex_b, ex_fin):
-        f_idx = torch.arange(F, device=work32.device)[:, None, None, None]
+        f_idx = torch.arange(F, device=dev)[:, None, None, None]
         gw_rows, ex_rows = q["gw_rows"][None], q["ex_rows"][None]
         w_g = wait_t[gw_b, f_idx, gw_rows]
         gw_wait = torch.where(gw_fin, w_g, 0.0).to(f64)
@@ -270,34 +329,53 @@ def _fleet_fixed_point(q: dict, chunks: dict, work0: torch.Tensor,
         ex_over = ex_f5 & ((w_e + work32[f_idx5, ex_rows, ex_b5]) > cap)
         return gw_wait, ex_wait.amax(dim=4), gw_over, ex_over.any(dim=4)
 
-    def finish_iter(work32, work_sum, gw_b, gw_fin, ex_b, ex_fin):
+    def finish_iter(work32, work_sum, gw_b, gw_fin, ex_b, ex_fin, c):
         work32_t = work32.permute(2, 0, 1).reshape(T, F * SR)
         wait_t = backlog_scan(work32_t, q["cap32"], q["dt32"]) \
             .reshape(T, F, SR)
-        gw_wait, ex_max, gw_over, ex_over = gather(
-            wait_t, work32, gw_b, gw_fin, ex_b, ex_fin)
-        return dict(gw_wait=gw_wait, ex_max=ex_max, gw_over=gw_over,
-                    ex_over=ex_over, work_sum=work_sum, wait=wait_t)
+        nxt = dict(c, work_sum=work_sum, wait=wait_t)
+        if adm_on:
+            qhat = qhat_trace(wait_t, work32[:, :, -1], cap, q["dt32_t"],
+                              q["gw_rows_slot"], q["exp_rows_slot"],
+                              q["slot_of_bin"])
+            admit = controller_trace(
+                qhat, q["ctrl"], q["ttft0"], q["tpot0"],
+                torch.ones((F,) + q["ttft0"].shape, dtype=torch.float32,
+                           device=dev),
+                ttft_target, tpot_target, **q["adm_kw"])
+            nxt["admit_floor"] = torch.minimum(c["admit_floor"], admit)
+            nxt["shed"], nxt["retries"], nxt["ingress_extra"] = \
+                _resolve_attempts(q, nxt["admit_floor"])
+        nxt.update(zip(("gw_wait", "ex_max", "gw_over", "ex_over"), gather(
+            wait_t, work32, gw_b, gw_fin, ex_b, ex_fin)))
+        return nxt
 
-    start_pref = (q["arrival_s"][None, None, :]
-                  + q["ingress_extra0"][None]).expand(F, P, R)
+    c = dict(shed=torch.zeros((F, P, R), dtype=torch.bool, device=dev),
+             retries=torch.zeros((F, P, R), dtype=torch.int64, device=dev),
+             ingress_extra=q["ingress_extra0"][None].expand(F, P, R))
+    if adm_on:
+        c["admit_floor"] = torch.ones(
+            (T, F) + q["ttft0"].shape, dtype=torch.float32, device=dev)
     c = finish_iter(work0, work0_sum, q["gw_b0"][None], q["gw_fin0"][None],
-                    q["ex_b0"][None], q["ex_fin0"][None])
+                    q["ex_b0"][None], q["ex_fin0"][None], c)
     for _ in range(n_iter - 1):
+        start_pref = q["arrival_s"][None, None, :] + c["ingress_extra"]
         layer_arr, exp_arr, _, _ = schedule(c["gw_wait"], c["ex_max"],
                                             start_pref)
-        work = bin_work(layer_arr, exp_arr)                   # (F, SR, T)
+        work = bin_work(layer_arr, exp_arr, c["shed"])        # (F, SR, T)
         gw_b, gw_fin = to_bins(layer_arr)
         ex_b, ex_fin = to_bins(exp_arr)
         c = finish_iter(work.to(torch.float32), work.sum(dim=2),
-                        gw_b, gw_fin, ex_b, ex_fin)
+                        gw_b, gw_fin, ex_b, ex_fin, c)
     # Fold the final gather into the schedule once more (see run_legacy).
+    start_pref = q["arrival_s"][None, None, :] + c["ingress_extra"]
     _, _, tok_total, seg_incl = schedule(c["gw_wait"], c["ex_max"],
                                          start_pref)
-    ttft = q["ingress_extra0"][None] + tok_total[:, :, :R]
+    ttft = c["ingress_extra"] + tok_total[:, :, :R]
     out = dict(ttft=ttft, e2e=ttft + seg_incl[:, :, q["last_tok"]],
                tok_total=tok_total,
                tok_over=c["gw_over"].any(dim=3) | c["ex_over"].any(dim=3),
+               shed=c["shed"], retries=c["retries"],
                work_sum=c["work_sum"])
     if want_wait:
         out["wait"] = c["wait"]
@@ -317,6 +395,13 @@ class FleetSim:
     and the same rate-independent precompute), plus ``device``: where the
     engine pass, the fused fixed point and the host path's scan run
     (CUDA unless the caller asks for the CPU).
+
+    With a ground segment requests enter through their gateway's best
+    visible satellite (uplink and ingress hop billed in TTFT); under an
+    AIMD or PID ``qcfg.admission`` construction also builds the
+    gateway-retry attempt tables and the controller's zero-load anchors,
+    and every run resolves per-request admission between fixed-point
+    iterations from the controller's trace (see :mod:`.admission`).
     """
 
     def __init__(
@@ -329,7 +414,7 @@ class FleetSim:
         requests: RequestBatch,
         rng: np.random.Generator,
         qcfg: QueueConfig = QueueConfig(),
-        ground=None,
+        ground: GroundSegment | None = None,
         ctx_len: int = 1024,
         eta: float = 1.0,
         include_lm_head: bool = True,
@@ -342,17 +427,9 @@ class FleetSim:
     ):
         """Build the simulator and run every rate-independent precompute.
 
-        Arguments as the reference's ``FleetSim``; ``ground``,
-        ``probes``, ``batching`` and an AIMD/PID ``qcfg.admission`` are
-        not ported yet and raise ``NotImplementedError``.
+        Arguments as the reference's ``FleetSim``; ``probes`` and
+        ``batching`` are not ported yet and raise ``NotImplementedError``.
         """
-        if ground is not None:
-            raise _not_ported("FleetSim(ground=...)", "ground/admission")
-        acfg = qcfg.admission
-        if acfg is not None and getattr(acfg, "policy", None) in ("aimd",
-                                                                   "pid"):
-            raise _not_ported("QueueConfig.admission (AIMD/PID)",
-                              "ground/admission")
         if batching is not None:
             raise _not_ported("FleetSim(batching=...)", "batching")
         if probes is not None:
@@ -389,13 +466,23 @@ class FleetSim:
                               topo.n_slots)
         self.slots = np.concatenate([slot_r, slot_r[tok_req]])   # (M,)
 
-        # --- ingress (no ground segment: zero uplink, zero offset) ---------
+        # --- ingress mapping ----------------------------------------------
         if batch is None:
             batch = ScheduleBatch.from_schedules(self.schedules, topo,
                                                  eta=eta)
         self.batch = batch
-        self.fail_ingress = np.zeros((P, R), dtype=bool)
-        self.ingress_extra = np.zeros((P, R))
+        if ground is not None:
+            ing_sat, uplink = ground.for_requests(slot_r, requests.station)
+            reachable = ing_sat >= 0
+            ing_off = schedule_ingress_offsets(
+                batch, slot_r, np.where(reachable, ing_sat, 0))
+            ing_off = np.where(reachable[None, :], ing_off, np.inf)
+        else:
+            uplink = np.zeros(R)
+            ing_off = np.zeros((P, R))
+        self.fail_ingress = ~np.isfinite(ing_off)                 # (P, R)
+        self.ingress_extra = uplink[None, :] + np.where(
+            self.fail_ingress, 0.0, ing_off)                      # (P, R)
 
         # --- engine pass: base (zero-load) per-token latencies -------------
         svc = resolve_service_model(service_model, workload, compute)
@@ -556,6 +643,7 @@ class FleetSim:
         self._chunk_src = ev_src[self._rep]
         self._chunk_row = self.ev_chunk_plan * self.n_stations \
             + self.ev_chunk_station
+        self._chunk_pr = self.ev_chunk_plan * R + self.ev_chunk_req
         self._dev: dict | None = None
 
         # --- time bins ----------------------------------------------------
@@ -572,7 +660,18 @@ class FleetSim:
                 f"{self.n_bins} time bins — raise dt_s or shrink the horizon")
 
         self._build_migration_load()
-        self.admission_on = False
+
+        # --- admission controller precompute ------------------------------
+        acfg = qcfg.admission
+        self.admission_on = acfg is not None \
+            and acfg.policy in ("aimd", "pid")
+        if self.admission_on:
+            if acfg.policy == "pid" and acfg.gain_scale is not None \
+                    and len(acfg.gain_scale) != len(self.schedules):
+                raise ValueError(
+                    f"gain_scale has {len(acfg.gain_scale)} entries for "
+                    f"{len(self.schedules)} plans")
+            self._build_admission_tables(acfg, ground, slot_r, rng)
         self._build_row_map()
         self._build_fused_tables()
 
@@ -614,10 +713,110 @@ class FleetSim:
         self._mig_work = (np.concatenate(work_parts) if work_parts
                           else np.empty(0, dtype=np.float64))
 
+    def _build_admission_tables(self, acfg, ground: GroundSegment | None,
+                                slot_r: np.ndarray,
+                                rng: np.random.Generator) -> None:
+        """The gateway-retry attempt tables and the controller's zero-load
+        anchors (the reference's precompute, host numpy).
+
+        Per attempt a (0 = the original gateway, a >= 1 = the a-th best
+        alternative from :meth:`GroundSegment.retry_stations`): target
+        gateway, ingress latency (a * backoff + terrestrial forward +
+        uplink + ingress hop, through the first rank of the gateway's
+        visibility table that the plan can route) and per-plan
+        feasibility.  Without an a-th alternative, attempt a retries the
+        origin after the backoff.  Then the attempts' bins, one uniform
+        per (attempt, request) shared by every plan, the TTFT/TPOT
+        anchors at ``reference_quantile`` and the per-bin station maps of
+        the controller's qhat.
+        """
+        req = self.requests
+        P, R = self.n_plans, self.n_requests
+        A = acfg.n_attempts
+        self.n_gw_stations = ground.n_stations if ground is not None else 1
+
+        # Without a ground segment there is a single logical gateway.
+        station = req.station if ground is not None \
+            else np.zeros(R, dtype=np.int64)
+        st_att = np.tile(station, (A, 1))                         # (A, R)
+        alt_ok = np.zeros((A, R), dtype=bool)
+        alt_ok[0] = True
+        if ground is not None and acfg.max_retries > 0:
+            alts = ground.retry_stations(slot_r, req.station,
+                                         acfg.max_retries)        # (R, n_alt)
+            n_alt = alts.shape[1]
+            for a in range(1, min(A, n_alt + 1)):
+                st_att[a] = alts[:, a - 1]
+                alt_ok[a] = True
+
+        extra = np.empty((A, P, R))
+        feas = np.zeros((A, P, R), dtype=bool)
+        extra[0] = self.ingress_extra
+        feas[0] = ~self.fail_ingress
+        for a in range(1, A):
+            if ground is None or not alt_ok[a].any():
+                extra[a] = self.ingress_extra + a * acfg.retry_backoff_s
+                feas[a] = feas[0]
+                continue
+            gdelay = ground.ground_delay_s[req.station, st_att[a]]
+            ing_r = ground.ingress_ranked[slot_r, st_att[a]]      # (R, K)
+            up_r = ground.uplink_ranked_s[slot_r, st_att[a]]      # (R, K)
+            best = np.zeros((P, R))
+            best_ok = np.zeros((P, R), dtype=bool)
+            for k in range(ground.n_ranked):
+                reachable = ing_r[:, k] >= 0
+                off = schedule_ingress_offsets(
+                    self.batch, slot_r, np.where(reachable, ing_r[:, k], 0))
+                ok = reachable[None, :] & np.isfinite(off)
+                take = ok & ~best_ok
+                best = np.where(take, up_r[None, :, k] + off, best)
+                best_ok |= ok
+            extra[a] = (a * acfg.retry_backoff_s + gdelay)[None, :] \
+                + np.where(best_ok, best, 0.0)
+            feas[a] = best_ok & alt_ok[a][None, :]
+        self._att_station = st_att
+        self._att_extra = extra
+        self._att_feasible = feas
+        # Attempt a is evaluated at the gateway it targets, after the
+        # backoff + terrestrial forward but before the uplink.
+        t_att = req.arrival_s[None, :] + np.arange(A)[:, None] \
+            * acfg.retry_backoff_s
+        if ground is not None:
+            t_att = t_att + ground.ground_delay_s[req.station, st_att]
+        self._att_bin = np.clip((t_att / self.qcfg.dt_s).astype(np.int64),
+                                0, self.n_bins - 1)
+        # Common random numbers: one uniform per (attempt, request).
+        self._adm_u = rng.random((A, R))
+
+        base_ttft = self.ingress_extra + self.tok_base[:, :R]     # (P, R)
+        ok = feas[0] & ~_segment_any(self.nan_tok[:, R:], self.tok_req, R) \
+            & ~self.nan_tok[:, :R]
+        self._adm_ttft0 = _station_quantile(
+            base_ttft, ok, station, self.n_gw_stations,
+            acfg.reference_quantile)                              # (P, G)
+        dec_ok = np.isfinite(self.tok_base[:, R:]) & ~self.nan_tok[:, R:]
+        self._adm_tpot0 = np.array([
+            np.quantile(self.tok_base[i, R:][dec_ok[i]],
+                        acfg.reference_quantile)
+            if dec_ok[i].any() else 0.0 for i in range(P)])        # (P,)
+
+        # Per time bin, the bin's topology slot selects each plan's
+        # gateway chain and expert satellites (qhat follows the schedule).
+        slot_of_bin = slot_of_time(np.arange(self.n_bins) * self.qcfg.dt_s,
+                                   self.qcfg.slot_period_s,
+                                   self.n_topo_slots)
+        self._adm_slot_of_bin = slot_of_bin
+        self._adm_gw_idx = np.ascontiguousarray(np.moveaxis(
+            self.gateways_slot[:, slot_of_bin], 1, 0)).astype(np.int32)
+        self._adm_exp_idx = np.ascontiguousarray(np.moveaxis(
+            self.expert_sats_slot[:, slot_of_bin], 1, 0)).reshape(
+                self.n_bins, P, -1).astype(np.int32)
+
     def _build_row_map(self) -> None:
         """Compact the (plan, satellite) rows the fused path keeps dense:
-        only rows that can receive a deposit or be read; every other
-        station carries exactly zero backlog, so dropping it is exact."""
+        only rows that can receive a deposit or be read (the admission
+        controller's stations included); every other station carries
+        exactly zero backlog, so dropping it is exact."""
         P, S, T = self.n_plans, self.n_stations, self.n_bins
         p_idx = np.arange(P)[:, None, None]
         gw_rows = p_idx * S + self.gather_gw_station              # (P,M,L)
@@ -625,6 +824,13 @@ class FleetSim:
         used = [self._chunk_row, gw_rows.ravel(), ex_rows.ravel()]
         if self._mig_flat.size:
             used.append(self._mig_flat // T)
+        if self.admission_on:
+            # The stations of the slots the bins fall in: the reference's
+            # per-bin maps hold exactly these values.
+            slots = np.unique(self._adm_slot_of_bin)
+            used.append((p_idx * S + self.gateways_slot[:, slots]).ravel())
+            used.append((p_idx[..., None] * S
+                         + self.expert_sats_slot[:, slots]).ravel())
         rows = np.unique(np.concatenate(used))
         inv = np.full(P * S, -1, dtype=np.int64)
         inv[rows] = np.arange(rows.size)
@@ -634,6 +840,15 @@ class FleetSim:
         self._chunk_rowc = inv[self._chunk_row].astype(np.int32)
         self._gw_rowc = inv[gw_rows]                              # (P,M,L)
         self._ex_rowc = inv[ex_rows]                              # (P,M,L,K)
+        if self.admission_on:
+            # The controller's compact rows per topology slot, (N_T, P, L)
+            # and (N_T, P, L * I): the reference's per-bin maps are these
+            # at each bin's slot.
+            self._adm_gw_rowc_slot = np.moveaxis(
+                inv[p_idx * S + self.gateways_slot], 1, 0)
+            self._adm_exp_rowc_slot = np.moveaxis(
+                inv[p_idx[..., None] * S + self.expert_sats_slot], 1, 0
+            ).reshape(self.n_topo_slots, P, -1)
 
     def _expand_rows(self, arr: np.ndarray) -> np.ndarray:
         """Scatter a compact-row array (..., n_rows) back to (..., P, S)."""
@@ -659,6 +874,7 @@ class FleetSim:
         self._f_offs = self._offs[perm]
         self._f_work = self.ev_chunk_work[perm]
         self._f_rowc = self._chunk_rowc[perm]
+        self._f_pr = self._chunk_pr[perm]
         self._f_req = self.ev_chunk_req[perm]
         self._f_bins0 = bins0[perm]
         self._f_fin0 = fin0[self._rep][perm]
@@ -787,7 +1003,9 @@ class FleetSim:
         """The fused fixed point's rate-independent tables on the
         simulator's device (built once): the zero-load schedule tensors
         in float64, the row and bin indices, the densified migration
-        background load."""
+        background load, and under admission the controller's tables
+        (float32 anchors, control flags, compact station rows per slot)
+        and the attempt tables."""
         if self._dev is not None:
             return self._dev
         dev, qcfg = self.device, self.qcfg
@@ -821,6 +1039,33 @@ class FleetSim:
         )
         if self._mig_rm is not None:
             d["mig_dense"] = put(self._mig_rm, torch.float64)
+        if self.admission_on:
+            acfg = qcfg.admission
+            f32 = torch.float32
+            d.update(
+                dt32_t=torch.tensor(d["dt32"], dtype=f32, device=dev),
+                ttft0=put(self._adm_ttft0.astype(np.float32)),
+                tpot0=put(self._adm_tpot0.astype(np.float32)),
+                ctrl=put(control_bin_flags(self.n_bins, qcfg.dt_s,
+                                           acfg.interval_s)),
+                slot_of_bin=put(self._adm_slot_of_bin, torch.int64),
+                gw_rows_slot=put(self._adm_gw_rowc_slot, torch.int64),
+                exp_rows_slot=put(self._adm_exp_rowc_slot, torch.int64),
+                att_bin=put(self._att_bin, torch.int64),
+                att_station=put(self._att_station, torch.int64),
+                att_feasible=put(np.moveaxis(self._att_feasible, 1, 0)),
+                att_extra=put(np.moveaxis(self._att_extra, 0, 1),
+                              torch.float64),
+                adm_u=put(self._adm_u, torch.float64),
+                adm_kw=dict(increase=acfg.increase, decrease=acfg.decrease,
+                            admit_min=acfg.admit_min, pid=None),
+            )
+            if acfg.policy == "pid":
+                gain = np.ones(self.n_plans) if acfg.gain_scale is None \
+                    else np.asarray(acfg.gain_scale, dtype=np.float64)
+                d["adm_kw"]["pid"] = dict(
+                    kp=acfg.kp, ki=acfg.ki, kd=acfg.kd,
+                    gain=put(gain.astype(np.float32)))
         self._dev = d
         return d
 
@@ -851,21 +1096,47 @@ class FleetSim:
         row_ptr = np.searchsorted(fprow[:n], np.arange(F * SR + 1),
                                   side="left")
         flat0 = fprow[:n] * T + self._f_bins0[cid]
-        return dict(src=src, offs=offs, work=work, fprow=fprow,
-                    row_ptr=row_ptr, n=n, flat0=flat0,
-                    work0=self._f_work[cid] * self._f_fin0[cid])
+        out = dict(src=src, offs=offs, work=work, fprow=fprow,
+                   row_ptr=row_ptr, n=n, flat0=flat0,
+                   work0=self._f_work[cid] * self._f_fin0[cid])
+        if self.admission_on:
+            fpr = np.zeros(n_pad, dtype=np.int64)
+            fpr[:n] = f_id * (self.n_plans * self.n_requests) \
+                + self._f_pr[cid]
+            out["fpr"] = fpr
+        return out
 
-    def _launch(self, masks: np.ndarray, want_wait: bool) -> dict:
+    def _targets(self, n_f: int, ttft_targets, tpot_targets):
+        """(F,) float32 margin-scaled TTFT and TPOT targets of one launch
+        on the device (the configuration's, or the given sweep's)."""
+        acfg = self.qcfg.admission
+        m = acfg.target_margin
+        tt = (np.full(n_f, m * acfg.ttft_target_s) if ttft_targets is None
+              else m * np.asarray(ttft_targets, dtype=np.float64))
+        tp = (np.full(n_f, m * acfg.tpot_target_s) if tpot_targets is None
+              else m * np.asarray(tpot_targets, dtype=np.float64))
+        if tt.shape != (n_f,) or tp.shape != (n_f,):
+            raise ValueError(f"latency targets must be ({n_f},), one per "
+                             "activity mask")
+        return tuple(torch.from_numpy(x.astype(np.float32)).to(self.device)
+                     for x in (tt, tp))
+
+    def _launch(self, masks: np.ndarray, ttft_targets, tpot_targets,
+                want_wait: bool) -> dict:
         """One fused fixed point over the leading sweep axis F.
 
         The request-activity masks fold into the compacted chunk table
         (only active chunks are deposited); iteration 1's work plane is
         one host ``np.bincount`` over the static zero-wait bins, as in
-        the reference.  Returns the :func:`_fleet_fixed_point` outputs as
-        host arrays, each with a leading F axis; ``wait``, when asked
-        for, stays a device tensor.
+        the reference.  ``ttft_targets``/``tpot_targets``: optional (F,)
+        raw targets of an admission sweep (the margin is applied here).
+        Returns the :func:`_fleet_fixed_point` outputs as host arrays,
+        each with a leading F axis; ``wait``, when asked for, stays a
+        device tensor.
         """
         F = masks.shape[0]
+        targets = (self._targets(F, ttft_targets, tpot_targets)
+                   if self.admission_on else (None, None))
         T, SR = self.n_bins, self.n_rows
         ct = self.chunk_table(masks)
         # astype: the bincount of an empty chunk set is int64.
@@ -877,12 +1148,13 @@ class FleetSim:
         work0_sum = plane0.sum(axis=2)                            # (F, SR)
         dev = self.device
         chunks = {k: torch.from_numpy(ct[k]).to(dev)
-                  for k in ("src", "offs", "work", "fprow", "row_ptr")}
+                  for k in ("src", "offs", "work", "fprow", "row_ptr", "fpr")
+                  if k in ct}
         out = _fleet_fixed_point(
             self._device_tables(), chunks,
             torch.from_numpy(plane0.astype(np.float32)).to(dev),
             torch.from_numpy(work0_sum).to(dev),
-            max(1, self.qcfg.iterations), T, SR, want_wait)
+            max(1, self.qcfg.iterations), T, SR, want_wait, *targets)
         # The (T, F, rows) wait trace stays on the device (see last_wait).
         return {k: v if k == "wait" else v.cpu().numpy()
                 for k, v in out.items()}
@@ -894,10 +1166,12 @@ class FleetSim:
         """Simulate with an optional per-request activity mask and return
         per-plan traffic metrics (one fused fixed point on the device).
 
-        ``zero_load`` delegates to the host path; ``replan`` (the joint
-        control plane) is not ported yet.
+        ``zero_load`` delegates to the host path (no queueing, no
+        admission); ``kv_slots`` overrides the static cap (ignored under
+        the admission controller, which replaces it); ``replan`` (the
+        joint control plane) is not ported yet.
         """
-        if replan is not None or replan_rng is not None:
+        if replan is not None:
             raise _not_ported("run(replan=...)", "replan")
         if zero_load:
             return self.run_legacy(active, zero_load=True,
@@ -905,12 +1179,12 @@ class FleetSim:
         if active is None:
             active = np.ones(self.n_requests, dtype=bool)
         active = np.asarray(active, dtype=bool)
-        out = self._launch(active[None, :], want_wait=True)
+        out = self._launch(active[None, :], None, None, want_wait=True)
         self.last_wait = None
         self._last_wait_rows = out.pop("wait")[:, 0, :]  # (T, rows), device
         out = {k: v[0] for k, v in out.items()}
         out["work_sum"] = self._expand_rows(out["work_sum"])
-        return self._finalize(active, out, kv_slots)
+        return self._finalize(active, out, self.admission_on, kv_slots)
 
     def run_many(self, active: np.ndarray | None = None, *,
                  ttft_targets: np.ndarray | None = None,
@@ -918,38 +1192,51 @@ class FleetSim:
                  kv_slots: int | None = None,
                  replan=None, replan_rng=None, base_scores=None,
                  cadences=None, mig_weights=None) -> list:
-        """Run a whole sweep of (F, R) activity masks as one fused fixed
-        point and return one :class:`TrafficResult` per entry, in order.
+        """Run a whole sweep as one fused fixed point and return one
+        :class:`TrafficResult` per entry, in order.
 
-        Latency-target sweeps need the admission controller and the
-        controller grid needs ``replan``; neither is ported yet.
+        Args:
+            active: (F, R) bool activity masks, one per sweep entry (rows
+                may repeat when only the targets vary).
+            ttft_targets: Optional (F,) TTFT targets overriding the
+                admission configuration's (AIMD/PID runs only).
+            tpot_targets: Optional (F,) TPOT targets, same contract.
+            kv_slots: Optional static-cap override.
+            replan, replan_rng, base_scores, cadences, mig_weights: The
+                joint control plane's grid (``replan`` is not ported yet;
+                the grid axes without it raise ``ValueError``, as in the
+                reference).
         """
-        if replan is not None or replan_rng is not None \
-                or base_scores is not None or cadences is not None \
-                or mig_weights is not None:
-            raise _not_ported("run_many(replan=...) and its grid axes",
-                              "replan")
-        if ttft_targets is not None or tpot_targets is not None:
-            raise _not_ported("run_many latency-target sweeps",
-                              "ground/admission")
+        if replan is not None:
+            raise _not_ported("run_many(replan=...)", "replan")
+        if cadences is not None or mig_weights is not None \
+                or base_scores is not None:
+            raise ValueError("controller grid axes need replan=...")
         if active is None:
             raise ValueError("run_many needs (F, R) activity masks")
         masks = np.asarray(active, dtype=bool)
         if masks.ndim != 2 or masks.shape[1] != self.n_requests:
             raise ValueError(f"active must be (F, {self.n_requests})")
-        out = self._launch(masks, want_wait=False)
+        if (ttft_targets is not None or tpot_targets is not None) \
+                and not self.admission_on:
+            raise ValueError(
+                "latency-target sweeps need an AIMD admission config")
+        out = self._launch(masks, ttft_targets, tpot_targets,
+                           want_wait=False)
         out["work_sum"] = self._expand_rows(out["work_sum"])
         return [self._finalize(masks[f], {k: v[f] for k, v in out.items()},
-                               kv_slots)
+                               self.admission_on, kv_slots)
                 for f in range(masks.shape[0])]
 
     def run_legacy(self, active: np.ndarray | None = None,
                    zero_load: bool = False,
                    kv_slots: int | None = None) -> TrafficResult:
         """Host-path reference fixed point: schedule, binning and gather
-        in NumPy, the backlog scan on the device in float32 (the
-        reference's ``run_legacy``)."""
+        in NumPy, the backlog scan (and under admission the controller,
+        :func:`.admission.admission_queue_scan`) on the device in float32
+        (the reference's ``run_legacy``)."""
         qcfg = self.qcfg
+        acfg = qcfg.admission
         req = self.requests
         P, R = self.n_plans, self.n_requests
         M, L = self.n_tokens, self.n_layers
@@ -957,22 +1244,61 @@ class FleetSim:
             active = np.ones(R, dtype=bool)
         active = np.asarray(active, dtype=bool)
 
+        adm_on = self.admission_on and not zero_load
+        shed = np.zeros((P, R), dtype=bool)
+        retries = np.zeros((P, R), dtype=np.int64)
+        ingress_extra = self.ingress_extra
+        start_pref = self.start_pref
+        dev = self.device
+        if adm_on:
+            admit_floor = np.ones((P, self.n_gw_stations, self.n_bins))
+            margin = acfg.target_margin
+            pid = None
+            if acfg.policy == "pid":
+                gain = np.ones(P) if acfg.gain_scale is None \
+                    else np.asarray(acfg.gain_scale, dtype=np.float64)
+                pid = dict(kp=acfg.kp, ki=acfg.ki, kd=acfg.kd,
+                           gain=torch.from_numpy(gain.astype(np.float32)))
+            adm_args = [torch.from_numpy(a).to(dev) for a in (
+                self._adm_ttft0.astype(np.float32),
+                self._adm_tpot0.astype(np.float32),
+                control_bin_flags(self.n_bins, qcfg.dt_s, acfg.interval_s),
+                self._adm_gw_idx, self._adm_exp_idx,
+                np.ones((P, self.n_gw_stations), dtype=np.float32))]
+
         gw_wait = np.zeros((P, M, L))
         ex_max = np.zeros((P, M, L))
         gw_over = np.zeros((P, M, L), dtype=bool)
         ex_over = np.zeros((P, M, L), dtype=bool)
-        start_pref = self.start_pref
         n_iter = 1 if zero_load else max(1, qcfg.iterations)
         for _ in range(n_iter):
             layer_arr, exp_arr, tok_total, seg_incl, c0 = \
                 self._schedule(gw_wait, ex_max, start_pref)
-            work = self._bin_work(layer_arr, exp_arr, active[None, :]
-                                  & np.ones((P, 1), dtype=bool))
+            work = self._bin_work(layer_arr, exp_arr,
+                                  active[None, :] & ~shed)
             if zero_load:
                 break
-            wait, dropped = _fleet_queue_scan(
-                torch.from_numpy(work).to(self.device),
-                float(qcfg.buffer_s), qcfg.dt_s)
+            work_t = torch.from_numpy(work).to(dev)
+            if adm_on:
+                wait, dropped, admit = admission_queue_scan(
+                    work_t, float(qcfg.buffer_s), qcfg.dt_s, *adm_args,
+                    margin * acfg.ttft_target_s,
+                    margin * acfg.tpot_target_s, acfg.increase,
+                    acfg.decrease, acfg.admit_min, pid=pid)
+                # Monotone outer iteration: the admit trace accumulates as
+                # a running minimum, so the shed set only grows.
+                admit_floor = np.minimum(admit_floor, admit.cpu().numpy())
+                choice, shed = resolve_admission(
+                    admit_floor, self._att_bin, self._att_station,
+                    self._att_feasible, self._adm_u)
+                retries = np.where(shed, 0, choice)
+                ingress_extra = np.take_along_axis(
+                    np.moveaxis(self._att_extra, 0, 1),     # (P, A, R)
+                    retries[:, None, :], axis=1)[:, 0, :]   # (P, R)
+                start_pref = req.arrival_s[None, :] + ingress_extra
+            else:
+                wait, dropped = _fleet_queue_scan(
+                    work_t, float(qcfg.buffer_s), qcfg.dt_s)
             wait = wait.cpu().numpy()
             overload = dropped.cpu().numpy() > 0.0
             self.last_wait = wait
@@ -982,34 +1308,41 @@ class FleetSim:
             self._schedule(gw_wait, ex_max, start_pref)
 
         last_tok = self.first_tok + req.decode_len - 1
-        ttft = self.ingress_extra + tok_total[:, :R]              # (P, R)
+        ttft = ingress_extra + tok_total[:, :R]                   # (P, R)
         out = dict(
             ttft=ttft, e2e=ttft + seg_incl[:, last_tok],
             tok_total=tok_total,
             tok_over=gw_over.any(axis=2) | ex_over.any(axis=2),
-            work_sum=work.sum(axis=2))
-        return self._finalize(active, out, kv_slots)
+            shed=shed, retries=retries, work_sum=work.sum(axis=2))
+        return self._finalize(active, out, adm_on, kv_slots)
 
-    def _finalize(self, active: np.ndarray, out: dict,
+    def _finalize(self, active: np.ndarray, out: dict, adm_on: bool,
                   kv_slots: int | None = None) -> TrafficResult:
         """Host post-processing shared by every execution path: delivery
-        failure aggregation, the static KV admission cap, spans,
-        utilization and the latency quantiles' NaN masking."""
+        failure aggregation (shed requests apart under admission), the
+        static KV admission cap (off under admission), spans, utilization
+        and the latency quantiles' NaN masking."""
         qcfg, req = self.qcfg, self.requests
         R = self.n_requests
         P = out["ttft"].shape[0]
         kv = qcfg.kv_slots if kv_slots is None else kv_slots
         ttft, e2e, tok_total = out["ttft"], out["e2e"], out["tok_total"]
+        shed, retries = out["shed"], out["retries"]
 
         fail_tok = self.nan_tok | out["tok_over"]
         failed = fail_tok[:, :R] \
             | _segment_any(fail_tok[:, R:], self.tok_req, R)      # (P, R)
-        failed = failed | self.fail_ingress
+        if adm_on:
+            # Shed requests are accounted apart from involuntary drops;
+            # admitted requests entered through a feasible attempt.
+            failed = failed | shed
+        else:
+            failed = failed | self.fail_ingress
 
         # KV admission cap: reject arrivals that would exceed the
         # in-flight budget (in-flight counted over all offered requests).
         admitted = np.ones((P, R), dtype=bool)
-        if kv > 0:
+        if kv > 0 and not adm_on:
             comp = req.arrival_s[None, :] + np.nan_to_num(
                 e2e, nan=np.inf, posinf=np.inf)
             comp = np.where(active[None, :], comp, -np.inf)
@@ -1048,8 +1381,9 @@ class FleetSim:
                 station_util=util[p],
                 span_s=span,
                 token_total_s=tok_total[p],
-                shed=None,
-                retries=None,
+                shed=(shed[p] & active) if adm_on else None,
+                retries=np.where(served[p], retries[p], 0)
+                if adm_on else None,
                 migration_bytes=float(self.migration_bytes[p]),
             ))
         return TrafficResult(plans=plans_out, requests=req,
@@ -1061,9 +1395,10 @@ def simulate_traffic(plans: list, topo: TopologySample,
                      activation: ActivationModel, workload: MoEWorkload,
                      compute: ComputeConfig, requests: RequestBatch,
                      rng: np.random.Generator,
-                     qcfg: QueueConfig = QueueConfig(), **kwargs
+                     qcfg: QueueConfig = QueueConfig(),
+                     ground: GroundSegment | None = None, **kwargs
                      ) -> TrafficResult:
     """Build a :class:`FleetSim` and run it with every request active."""
     sim = FleetSim(plans, topo, activation, workload, compute, requests,
-                   rng, qcfg=qcfg, **kwargs)
+                   rng, qcfg=qcfg, ground=ground, **kwargs)
     return sim.run()

@@ -76,9 +76,26 @@ def _worlds(n_experts):
     return (topo, act, plans), (ptopo, pact, pplans)
 
 
+def _grounds(min_elevation_deg=10.0):
+    """(reference, port) ground segments over the world of ``_worlds``:
+    the 8 default gateways."""
+    from repro.traffic import build_ground_segment
+    cfg = dict(n_slots=10, survival_prob=1.0)
+    con = Constellation(ConstellationConfig.scaled(8, 12, **cfg))
+    pcon = pc.Constellation(pc.ConstellationConfig.scaled(8, 12, **cfg))
+    return (build_ground_segment(con, LinkConfig(),
+                                 min_elevation_deg=min_elevation_deg),
+            pt.build_ground_segment(pcon, pc.LinkConfig(),
+                                    min_elevation_deg=min_elevation_deg))
+
+
 def _pair(ref, *, rate=2.0, horizon=40.0, n_experts=4, qkw=None,
-          calibrated=False, schedule=False, req_seed=8):
-    """The same FleetSim in both packages."""
+          calibrated=False, schedule=False, req_seed=8, ground=False,
+          admission=None):
+    """The same FleetSim in both packages.  ``ground``: through the 8
+    default gateways; ``admission``: the AdmissionConfig keywords of both
+    packages' configurations (with ``ground``, retries go to other
+    gateways)."""
     traffic, _ = ref
     (topo, act, plans), (ptopo, pact, pplans) = _worlds(n_experts)
     if schedule:
@@ -88,10 +105,19 @@ def _pair(ref, *, rate=2.0, horizon=40.0, n_experts=4, qkw=None,
                                   slot_plan=np.array([0, 1] * 5),
                                   name="flip")]
     qkw = dict(dict(dt_s=0.05, tail_s=30.0), **(qkw or {}))
+    pqkw = dict(qkw)
+    if admission is not None:
+        qkw["admission"] = traffic.AdmissionConfig(**admission)
+        pqkw["admission"] = pt.AdmissionConfig(**admission)
+    g = pg = None
+    req_kw = REQ_KW
+    if ground:
+        g, pg = _grounds()
+        req_kw = dict(REQ_KW, n_stations=g.n_stations)
     req = traffic.sample_requests(np.random.default_rng(req_seed),
-                                  rate_rps=rate, horizon_s=horizon, **REQ_KW)
+                                  rate_rps=rate, horizon_s=horizon, **req_kw)
     preq = pt.sample_requests(np.random.default_rng(req_seed), rate_rps=rate,
-                              horizon_s=horizon, **REQ_KW)
+                              horizon_s=horizon, **req_kw)
     wl, pwl = MoEWorkload.llama_moe_3p5b(), pc.MoEWorkload.llama_moe_3p5b()
     svc = psvc = None
     if calibrated:
@@ -102,10 +128,10 @@ def _pair(ref, *, rate=2.0, horizon=40.0, n_experts=4, qkw=None,
     sim = traffic.FleetSim(plans, topo, act, wl, ComputeConfig(), req,
                            np.random.default_rng(5),
                            qcfg=traffic.QueueConfig(**qkw),
-                           service_model=svc)
+                           service_model=svc, ground=g)
     psim = pt.FleetSim(pplans, ptopo, pact, pwl, pc.ComputeConfig(), preq,
-                       np.random.default_rng(5), qcfg=pt.QueueConfig(**qkw),
-                       service_model=psvc, device="cpu")
+                       np.random.default_rng(5), qcfg=pt.QueueConfig(**pqkw),
+                       service_model=psvc, ground=pg, device="cpu")
     return sim, psim
 
 
@@ -371,19 +397,12 @@ def test_station_waiting_times_match_reference(ref):
 # --------------------------------------------------------------------- #
 
 
-class _Aimd:
-    policy = "aimd"
-
-
-@pytest.mark.parametrize("option", ["ground", "admission", "batching",
-                                    "probes"])
+@pytest.mark.parametrize("option", ["batching", "probes"])
 def test_unported_constructor_options_raise(option):
     (_, _, _), (ptopo, pact, pplans) = _worlds(4)
     preq = pt.sample_requests(np.random.default_rng(8), rate_rps=1.0,
                               horizon_s=5.0, **REQ_KW)
-    kw = {"ground": dict(ground=object()),
-          "admission": dict(qcfg=pt.QueueConfig(admission=_Aimd())),
-          "batching": dict(batching=object()),
+    kw = {"batching": dict(batching=object()),
           "probes": dict(probes=object())}[option]
     with pytest.raises(NotImplementedError, match="not ported"):
         pt.FleetSim(pplans, ptopo, pact, pc.MoEWorkload.llama_moe_3p5b(),
@@ -392,17 +411,14 @@ def test_unported_constructor_options_raise(option):
 
 
 @pytest.mark.parametrize("call", ["run_replan", "run_many_replan",
-                                  "run_many_targets", "station_batching"])
+                                  "station_batching"])
 def test_unported_run_options_raise(ref, call):
     _, psim = _pair(ref, rate=1.0, horizon=10.0)
-    masks = np.ones((1, psim.n_requests), dtype=bool)
     with pytest.raises(NotImplementedError, match="not ported"):
         if call == "run_replan":
             psim.run(replan=object())
         elif call == "run_many_replan":
             psim.run_many(replan=object())
-        elif call == "run_many_targets":
-            psim.run_many(masks, ttft_targets=np.array([5.0]))
         else:
             pq.station_waiting_times(np.array([0.0, 1.0]), 0.01, 0.05,
                                      batching=object(), device="cpu")

@@ -17,8 +17,8 @@ from repro.kernels.ops import expert_ffn_pallas
 from repro.kernels.ops import gmm as jax_gmm
 from repro.kernels.ref import decode_attention_ref, gmm_ref
 from repro.models.moe import expert_ffn as jax_expert_ffn
-from repro_torch.kernels import (backlog_scan, build, decode_attn, deposit,
-                                  moe_gmm, ops)
+from repro_torch.kernels import (admission_ctrl, backlog_scan, build,
+                                 decode_attn, deposit, moe_gmm, ops)
 
 # f32: summation order only; bf16: one rounding of the output (8 bits).
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
@@ -155,12 +155,17 @@ def test_cpu_calls_do_not_count_as_launches():
     deposit.deposit(torch.zeros(3, dtype=torch.int64), torch.arange(3),
                     torch.ones(3, dtype=torch.float64), 2, 4)
     backlog_scan.backlog_scan(torch.ones(5, 3), 10.0, 0.05)
+    admission_ctrl.admission_ctrl(
+        torch.ones(4, 1, 2), torch.zeros(2, 3), torch.zeros(2),
+        torch.ones(1, 2, 3), torch.ones(1), torch.ones(1), increase=0.1,
+        decrease=0.6, admit_min=0.05)
     assert ops.launch_counts() == {"gmm": 0, "decode_attention": 0,
-                                   "deposit": 0, "backlog_scan": 0}
+                                   "deposit": 0, "backlog_scan": 0,
+                                   "admission_ctrl": 0}
 
 
 @pytest.mark.parametrize("op", ["gmm", "decode_attention", "deposit",
-                                "backlog_scan"])
+                                "backlog_scan", "admission_ctrl"])
 def test_non_cpu_tensor_never_falls_back(op):
     """A tensor off the CPU goes to the kernel's checks, which refuse a
     non-CUDA device instead of running the plain version."""
@@ -180,9 +185,16 @@ def test_non_cpu_tensor_never_falls_back(op):
                             torch.empty(3, dtype=torch.int64, device=meta),
                             torch.empty(3, dtype=torch.float64, device=meta),
                             2, 4)
-        else:
+        elif op == "backlog_scan":
             backlog_scan.backlog_scan(torch.empty(5, 3, device=meta),
                                       10.0, 0.05)
+        else:
+            admission_ctrl.admission_ctrl(
+                torch.empty(4, 1, 2, device=meta),
+                torch.empty(2, 3, device=meta), torch.empty(2, device=meta),
+                torch.empty(1, 2, 3, device=meta), torch.empty(1, device=meta),
+                torch.empty(1, device=meta), increase=0.1, decrease=0.6,
+                admit_min=0.05)
     assert ops.launch_counts()[op] == 0
 
 

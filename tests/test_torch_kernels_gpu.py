@@ -368,3 +368,111 @@ def test_decode_attention_refuses_unaligned_rows(cuda_device, hd, dtype,
     with pytest.raises(ValueError, match="16 bytes"):
         decode_attn.decode_attention(q, k, k, pos)
     assert decode_attn.launches == before
+
+
+# --------------------------------------------------------------------- #
+# admission_ctrl: the AIMD / PID cell over control bins
+# --------------------------------------------------------------------- #
+
+
+def _ctrl_inputs(device, n_ctrl, f, p, g, tt, tp, seed=0):
+    """Window maxima that cross the targets both ways, anchors, targets."""
+    rng = np.random.default_rng(seed)
+    win = rng.gamma(0.6, 3.0, (n_ctrl, f, p)) \
+        * (rng.random((n_ctrl, f, p)) < 0.7)
+
+    def t32(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(device)
+    return (t32(win), t32(rng.random((p, g)) * 2.0), t32(rng.random(p) * 0.5),
+            t32(np.ones((f, p, g))), t32(np.full(f, tt) * rng.uniform(
+                0.5, 1.5, f)), t32(np.full(f, tp)))
+
+
+@pytest.mark.parametrize("policy", ["aimd", "pid"])
+@pytest.mark.parametrize("n_ctrl,f,p,g,tt,tp", [
+    (4096, 1, 3, 8, 5.0, float("inf")),     # run() on the paper's world
+    (4096, 4, 3, 8, 5.0, float("inf")),     # a run_many target sweep
+    (333, 5, 7, 3, 4.0, 1.5),               # F * P * G = 105: not a warp's
+    (1, 2, 3, 2, 4.0, 1.5),                 # one control bin
+    (70, 3, 130, 1, 4.0, 1.5),              # several blocks, ragged tail
+    (100, 2, 3, 4, float("inf"), 1.5),      # infinite TTFT target
+    (100, 2, 3, 4, float("inf"), float("inf")),   # both infinite
+])
+def test_admission_ctrl_kernel_is_bitwise_the_plain_loop(cuda_device, policy,
+                                                         n_ctrl, f, p, g,
+                                                         tt, tp):
+    from repro_torch.kernels import admission_ctrl
+    args = _ctrl_inputs(cuda_device, n_ctrl, f, p, g, tt, tp)
+    kw = dict(increase=0.1, decrease=0.6, admit_min=0.05, pid=None)
+    if policy == "pid":
+        kw["pid"] = dict(kp=0.4, ki=0.05, kd=0.02, gain=torch.linspace(
+            0.5, 2.0, p, device=cuda_device))
+    before = admission_ctrl.launches
+    got = admission_ctrl.admission_ctrl(*args, **kw)
+    torch.cuda.synchronize()
+    assert admission_ctrl.launches == before + 1
+    want = admission_ctrl.admission_ctrl_plain(*args, **kw)
+    assert got.shape == (n_ctrl, f, p, g)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    # the plain loop is the same on the CPU
+    cpu_kw = dict(kw, pid=None if kw["pid"] is None
+                  else dict(kw["pid"], gain=kw["pid"]["gain"].cpu()))
+    np.testing.assert_array_equal(
+        admission_ctrl.admission_ctrl_plain(*(a.cpu() for a in args),
+                                            **cpu_kw).numpy(),
+        want.cpu().numpy())
+
+
+def test_admission_ctrl_without_control_bins_launches_nothing(cuda_device):
+    from repro_torch.kernels import admission_ctrl
+    args = _ctrl_inputs(cuda_device, 0, 2, 3, 4, 4.0, 1.5)
+    before = admission_ctrl.launches
+    out = admission_ctrl.admission_ctrl(*args, increase=0.1, decrease=0.6,
+                                        admit_min=0.05)
+    assert out.shape == (0, 2, 3, 4) and admission_ctrl.launches == before
+
+
+def test_fleet_admission_runs_the_ctrl_kernel_and_matches_the_cpu(cuda_device):
+    """A small fleet under AIMD admission on the card: one admission_ctrl
+    launch per fixed-point iteration, and the CPU's plain versions give
+    the same shed, retries and served sets and latencies."""
+    from repro_torch import core
+    from repro_torch.kernels import ops
+    from repro_torch.traffic import (AdmissionConfig, FleetSim, QueueConfig,
+                                     build_ground_segment, sample_requests)
+    con = core.Constellation(core.ConstellationConfig.scaled(
+        8, 12, n_slots=10, survival_prob=1.0))
+    topo = core.sample_topology(con, core.LinkConfig(),
+                                np.random.default_rng(0))
+    act = core.ActivationModel.zipf(4, 4, 2, seed=1)
+    plans = [core.spacemoe_plan(con, topo, act),
+             core.rand_intra_cg_plan(con.cfg, 4, 4, np.random.default_rng(7))]
+    ground = build_ground_segment(con, core.LinkConfig(),
+                                  min_elevation_deg=10.0)
+    req = sample_requests(np.random.default_rng(8), rate_rps=6.0,
+                          horizon_s=40.0, n_stations=ground.n_stations,
+                          prompt_median=4, prompt_max=16, decode_mean=4,
+                          decode_max=8)
+    qcfg = QueueConfig(dt_s=0.05, tail_s=30.0,
+                       admission=AdmissionConfig(ttft_target_s=3.0))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        sim = FleetSim(plans, topo, act, core.MoEWorkload.llama_moe_3p5b(),
+                       core.ComputeConfig(), req, np.random.default_rng(5),
+                       qcfg=qcfg, ground=ground, device=dev)
+        ops.reset_launch_counts()
+        res[dev] = sim.run()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            assert counts["admission_ctrl"] == qcfg.iterations
+            assert counts["backlog_scan"] == qcfg.iterations
+            assert counts["deposit"] == qcfg.iterations - 1
+    for a, b in zip(res["cpu"].plans, res["cuda"].plans):
+        for name in ("served", "shed", "retries"):
+            np.testing.assert_array_equal(getattr(b, name), getattr(a, name))
+        np.testing.assert_allclose(b.ttft_s, a.ttft_s, rtol=1e-5,
+                                   equal_nan=True)
+        np.testing.assert_allclose(b.e2e_s, a.e2e_s, rtol=1e-5,
+                                   equal_nan=True)
+    assert any(p.shed.any() for p in res["cpu"].plans)

@@ -51,19 +51,25 @@ Phases (any failure exits non-zero and prints no success line):
      default gateways (``build_ground_segment``, 10 degrees), a 60 s
      Poisson trace at 2 requests/s over them, ``QueueConfig(admission=
      AdmissionConfig())``: ``run()`` under AIMD and under PID on the card
-     (deposit 2, backlog_scan 3, admission_ctrl 3 launches), wall and
-     device time, the host itemized (with ``_build_admission_tables``
-     and the attempt resolve), each against the CPU (identical served,
-     shed and retry sets, ``assert_parity``), then ``run_many`` over
-     ``ttft_targets`` at 1.5, 2, 3 and 5 x the zero-load p99 TTFT, card
-     against CPU; ``admission_ctrl`` bitwise against its plain loop on
-     every window-maximum tensor those runs gave it, timed beside its
-     byte and serial-chain bounds;
- 10. the ``kernels`` JSON line (all five kernels; launches counted over
+     (deposit 2, backlog_scan 3, admission_window 3, admission_ctrl 3
+     launches), wall and device time, total launches beside the earlier
+     gather-based controller's (1,203 launches, 47.4 ms of device time
+     with copies, on an H100 at 700 W), the host
+     itemized (with ``_build_admission_tables`` and the attempt resolve),
+     each against the CPU (identical served, shed and retry sets,
+     ``assert_parity``), then ``run_many`` over ``ttft_targets`` at 1.5,
+     2, 3 and 5 x the zero-load p99 TTFT, card against CPU;
+     ``admission_window`` bitwise against its plain version on every wait
+     trace those runs gave it, timed beside its byte bound;
+     ``admission_ctrl`` bitwise against its plain loop on every window
+     tensor they gave it and on two built never to coalesce (AIMD, PID),
+     each with its chunks' coalescence statistics, timed beside its byte
+     and serial-chain bounds;
+ 10. the ``kernels`` JSON line (all six kernels; launches counted over
      the serve run for gmm/decode_attention, over the fleet ``run()``
      for deposit/backlog_scan and over the AIMD ``run()`` for
-     admission_ctrl), the card line, then the result line.  Each phase's
-     seconds are printed as it ends.
+     admission_window/admission_ctrl), the card line, then the result
+     line.  Each phase's seconds are printed as it ends.
 
 Imports nothing of JAX and nothing of the ``repro`` package.
 """
@@ -1025,14 +1031,50 @@ def sm_clock_mhz() -> float:
     return float(res.stdout.strip().splitlines()[0])
 
 
+def ctrl_coalescence_stats(torch, coal, n_ctrl: int) -> dict:
+    """From admission_ctrl's coalescence report (cells x chunks): over the
+    (cell, chunk) pairs after the first chunk (which starts exactly), the
+    share whose bracket runs met and the mean bins to meeting; the share
+    of all (cell, control bin) steps run again after pass 1 (the bins
+    before the meeting; a chunk that never met is run twice more, by the
+    walk and by pass 2); and the longest stretch of consecutive chunks in
+    one cell that never met (the walk runs those one after another)."""
+    from repro_torch.kernels.admission_ctrl import ctrl_chunk
+    chunk = ctrl_chunk(n_ctrl)
+    live = -(-n_ctrl // chunk)
+    later = coal[:, 1:live].long()
+    lengths = [min(chunk, n_ctrl - j * chunk) for j in range(live)]
+    if later.numel() == 0:
+        return {"chunk": chunk, "coalesced_share": None,
+                "mean_bins_to_coalesce": None, "rerun_share": 0.0,
+                "longest_serial_chunks": 0}
+    met = later >= 0
+    n = torch.tensor(lengths[1:], device=coal.device)[None, :]
+    redo = torch.where(met, later, 2 * n)
+    run = longest = torch.zeros(coal.shape[0], dtype=torch.long,
+                                device=coal.device)
+    for col in (~met).T:
+        run = torch.where(col, run + 1, 0)
+        longest = torch.maximum(longest, run)
+    return {"chunk": chunk, "coalesced_share": float(met.float().mean()),
+            "mean_bins_to_coalesce": (float(later[met].float().mean())
+                                      if bool(met.any()) else None),
+            "rerun_share": float(redo.sum()) / (coal.shape[0] * n_ctrl),
+            "longest_serial_chunks": int(longest.max())}
+
+
 def check_ctrl(torch, win, args, kw, what: str) -> dict:
-    """admission_ctrl on a window-maximum tensor the fleet gave it, against
-    its plain loop (bitwise), with its device time, the plain loop's wall
-    time, the byte/operation bound and the serial chain's bound."""
+    """admission_ctrl on a window-maximum tensor, against its plain loop
+    (bitwise), with its device time, the plain loop's wall time, its
+    chunks' coalescence statistics, the byte/operation bound and the
+    serial chain's bound."""
     from repro_torch.kernels import admission_ctrl
     n_ctrl, n_f, n_p = win.shape
     n_g = args[0].shape[1]
-    got = admission_ctrl.admission_ctrl(win, *args, **kw)
+    cells = n_f * n_p * n_g
+    coal = torch.empty((cells, admission_ctrl.LANES), dtype=torch.int32,
+                       device="cuda")
+    got = admission_ctrl.admission_ctrl(win, *args, coalescence=coal, **kw)
     torch.cuda.synchronize()
     ms, wall_ms, hidden = time_ms(
         torch, lambda: admission_ctrl.admission_ctrl(win, *args, **kw),
@@ -1043,8 +1085,9 @@ def check_ctrl(torch, win, args, kw, what: str) -> dict:
         nonlocal want
         want = admission_ctrl.admission_ctrl_plain(win, *args, **kw)
     plain_ms = event_ms(torch, plain, iters=1, warm=False)
-    same = bool(torch.equal(got, want))
-    cells = n_f * n_p * n_g
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    same = bool(torch.equal(nan_g, nan_w)) and bool(torch.equal(
+        got[~nan_g].view(torch.int32), want[~nan_w].view(torch.int32)))
     nbytes = 4 * (win.numel() + got.numel() + sum(a.numel() for a in args)
                   + (n_p if kw["pid"] is not None else 0))
     # f32 operations a (cell, control bin) of this data needs: AIMD two
@@ -1059,20 +1102,99 @@ def check_ctrl(torch, win, args, kw, what: str) -> dict:
             + int(bool(torch.isfinite(args[4]).all()))
         per_step = 3 * finite + 1 + 3 + 5 + 4
     b_ms, b_by = bound(nbytes, per_step * cells * n_ctrl, "float32")
-    # The loop-carried chain: three dependent f32 operations a control bin
-    # (AIMD: multiply or add, max or min, select; PID: add, max, min on
-    # both admit and the integral), about 4 cycles each.
-    serial_ms = n_ctrl * 3 * 4 / (sm_clock_mhz() * 1e3)
+    # The loop-carried chain of the plain loop's order: three dependent f32
+    # operations a control bin (AIMD: multiply or add, max or min, select;
+    # PID: add, max, min on both admit and the integral), about 4 cycles
+    # each, over every control bin; a chunk of the kernel runs it over
+    # ctrl_chunk(n_ctrl) bins.
+    clock = sm_clock_mhz() * 1e3
+    serial_ms = n_ctrl * 3 * 4 / clock
     return {"name": "admission_ctrl",
             "shape": f"win ({n_ctrl}, {n_f}, {n_p}) -> ({n_ctrl}, {n_f}, "
                      f"{n_p}, {n_g}) f32, "
                      f"{'AIMD' if kw['pid'] is None else 'PID'}, {what}",
+            **ctrl_coalescence_stats(torch, coal, n_ctrl),
             "max_abs_err": float((got - want).abs().nan_to_num().max()),
             "tol": 0.0, "ok": same, "bound_ms": b_ms, "bound_by": b_by,
-            "serial_bound_ms": serial_ms, "ms": ms, "wall_ms": wall_ms,
+            "serial_bound_ms": serial_ms,
+            "chunk_chain_ms": admission_ctrl.ctrl_chunk(n_ctrl) * 3 * 4
+            / clock, "ms": ms, "wall_ms": wall_ms,
             "hidden": hidden, "plain_ms": plain_ms,
             "plain_wall_ms": plain_ms, "plain_hidden": False,
             "library_ms": None, "library_wall_ms": None}
+
+
+def never_coalescing_windows(torch, n_ctrl, n_f, n_p, n_g, policy):
+    """Window maxima and a cell on which no chunk's bracket runs ever meet.
+    AIMD: admit0 = +inf and every window over the target, so the upper
+    run stays at +inf (the true trajectory) while the lower one falls to
+    admit_min.  PID: every window on the TTFT target (TPOT off), so err =
+    0, the integral runs from -W and W never meet, and admit, which
+    needs the integral, never starts.  The windows are k-contiguous, as
+    admission_window returns them."""
+    def full(shape, v):
+        return torch.full(shape, v, dtype=torch.float32, device="cuda")
+    kw = dict(increase=0.1, decrease=0.6, admit_min=0.05, pid=None)
+    win = full((n_f, n_p, n_ctrl), 5.0 if policy == "aimd" else 3.0)
+    win = win.permute(2, 0, 1)
+    if policy == "aimd":
+        admit0 = full((n_f, n_p, n_g), float("inf"))
+    else:
+        admit0 = full((n_f, n_p, n_g), 0.5)
+        kw["pid"] = dict(kp=0.4, ki=0.05, kd=0.0, gain=full((n_p,), 1.0))
+    return win, (full((n_p, n_g), 1.0), full((n_p,), 0.0), admit0,
+                 full((n_f,), 4.0), full((n_f,), float("inf"))), kw
+
+
+def window_bound(wait, work_last, tables, n_ctrl: int, seg) -> tuple:
+    """The least time the card could take for admission_window: the wait
+    plane, the last bin's work, the int32 station tables and the bins'
+    slot and window read once, the maxima written once; f32 operations
+    over the bins that belong to a window (the gateway sum, the expert
+    maxima and their sum, and gateway + expert a (bin, f, p))."""
+    n_bins, n_f, _ = wait.shape
+    gw, ex = tables
+    n_s, n_p, n_l = gw.shape
+    n_i = ex.shape[2] // n_l
+    nbytes = 4 * (wait.numel() + work_last.numel() + gw.numel() + ex.numel()
+                  + 2 * n_bins + n_ctrl * n_f * n_p)
+    bins = int((seg < n_ctrl).sum())
+    ops = bins * n_f * n_p * ((n_l - 1) + n_l * (n_i - 1) + (n_l - 1) + 1)
+    return bound(nbytes, ops, "float32")
+
+
+def check_window(torch, args, what: str) -> dict:
+    """admission_window on a wait trace the fleet gave it, against its
+    plain version (bitwise), with its device time, the plain version's
+    wall time and the least time the card could take."""
+    from repro_torch.kernels import admission_window
+    wait, work_last = args[0], args[1]
+    seg, n_ctrl = args[7], args[8]
+    got = admission_window.admission_window(*args)
+    torch.cuda.synchronize()
+    ms, wall_ms, hidden = time_ms(
+        torch, lambda: admission_window.admission_window(*args), iters=20)
+    want = None
+
+    def plain():
+        nonlocal want
+        want = admission_window.admission_window_plain(*args)
+    plain_ms = event_ms(torch, plain, iters=1, warm=False)
+    b_ms, b_by = window_bound(wait, work_last, args[4:6], n_ctrl, seg)
+    t, f, c = wait.shape
+    return {"name": "admission_window",
+            "shape": f"wait ({t}, {f}, {c}) f32, stations "
+                     f"{tuple(args[5].shape)} -> win ({n_ctrl}, {f}, "
+                     f"{args[4].shape[1]}), {what}",
+            "tile": admission_window.window_tile(
+                f, c, *args[4].shape[1:], args[5].shape[2]
+                // args[4].shape[2])[0],
+            "max_abs_err": float((got - want).abs().max()), "tol": 0.0,
+            "ok": bool(torch.equal(got, want)), "bound_ms": b_ms,
+            "bound_by": b_by, "ms": ms, "wall_ms": wall_ms, "hidden": hidden,
+            "plain_ms": plain_ms, "plain_wall_ms": plain_ms,
+            "plain_hidden": False, "library_ms": None,
+            "library_wall_ms": None}
 
 
 def fleet_plan_lines(res, what: str) -> int:
@@ -1097,9 +1219,9 @@ def fleet_plan_lines(res, what: str) -> int:
     return sum(int(p.served.sum()) for p in res.plans)
 
 
-def phase_fleet_admission(torch, world) -> tuple[dict, dict]:
-    """Returns (admission_ctrl's record on the AIMD run()'s last window
-    maxima, the launch counts of that run())."""
+def phase_fleet_admission(torch, world) -> tuple[dict, dict, dict]:
+    """Returns (admission_window's and admission_ctrl's records on the AIMD
+    run()'s last iteration, the launch counts of that run())."""
     import copy
 
     import numpy as np
@@ -1120,10 +1242,13 @@ def phase_fleet_admission(torch, world) -> tuple[dict, dict]:
         f"{ground.coverage():.3f}, ranked {ground.n_ranked} deep), built "
         f"{time.perf_counter() - t0:.1f}s; R={req.n_requests} requests, "
         f"N={req.total_decode_tokens} decode tokens")
-    want = {"deposit": 2, "backlog_scan": 3, "admission_ctrl": 3}
+    want = {"deposit": 2, "backlog_scan": 3, "admission_window": 3,
+            "admission_ctrl": 3}
     captured: dict[str, list] = {}
+    windows: dict[str, list] = {}
     tag = [None]
     real_ctrl, real_trace = admission.admission_ctrl, queueing.controller_trace
+    real_window = admission.admission_window
     last_admit = []
 
     def ctrl_rec(win, *args, **kw):
@@ -1131,11 +1256,18 @@ def phase_fleet_admission(torch, world) -> tuple[dict, dict]:
             captured.setdefault(tag[0], []).append((win.clone(), args, kw))
         return real_ctrl(win, *args, **kw)
 
+    def window_rec(*args):
+        if tag[0] is not None:
+            windows.setdefault(tag[0], []).append(
+                tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return real_window(*args)
+
     def trace_rec(*args, **kw):
         out = real_trace(*args, **kw)
         last_admit[:] = [out]
         return out
     admission.admission_ctrl, queueing.controller_trace = ctrl_rec, trace_rec
+    admission.admission_window = window_rec
     sims, served = {}, 0
     try:
         for policy in ("aimd", "pid"):
@@ -1184,15 +1316,19 @@ def phase_fleet_admission(torch, world) -> tuple[dict, dict]:
                 prof_wall = time.perf_counter() - t0
             kernels = device_times(prof, 1)
             busy = sum(k[0] for k in kernels) / 1e3
-            ctrl_k = [(ms, calls) for ms, calls, key in kernels
-                      if "admission_ctrl_kernel" in key]
+            adm_k = {name: [(ms, calls) for ms, calls, key in kernels
+                            if f"{name}_kernel" in key]
+                     for name in ("admission_window", "admission_ctrl")}
             log(f"{policy} run(): {min(walls) * 1e3:.1f} ms wall (best of 2, "
                 f"synchronized); under the profiler {prof_wall * 1e3:.1f} ms "
                 f"wall, device kernels {busy * 1e3:.1f} ms -> device busy "
                 f"{busy / prof_wall:.1%}, idle {1 - busy / prof_wall:.1%} "
-                f"({sum(k[1] for k in kernels):.0f} kernel launches; "
-                f"admission_ctrl {sum(c for _, c in ctrl_k):.0f} launches, "
-                f"{sum(m for m, _ in ctrl_k):.4f} ms)")
+                f"({sum(k[1] for k in kernels):.0f} kernel launches, against "
+                f"the earlier gather-based controller's 1,203 launches and "
+                f"47.4 ms with copies under AIMD; "
+                + "; ".join(f"{name} {sum(c for _, c in v):.0f} launches, "
+                            f"{sum(m for m, _ in v):.4f} ms"
+                            for name, v in adm_k.items()) + ")")
             for ms, calls, name in sorted(kernels, reverse=True)[:10]:
                 log(f"{policy} profile: {ms:9.3f} ms {calls:6.0f} calls  "
                     f"{name[:80]}")
@@ -1253,11 +1389,19 @@ def phase_fleet_admission(torch, world) -> tuple[dict, dict]:
             f"identical shed and retries (CPU run_many {t_cpu:.1f}s)")
     finally:
         admission.admission_ctrl = real_ctrl
+        admission.admission_window = real_window
         queueing.controller_trace = real_trace
     if served == 0:
         raise SmokeFailure("no request served under admission: the card vs "
                            "CPU comparisons would hold only failures")
 
+    wins = []
+    for what, calls in windows.items():
+        for i, args in enumerate(calls):
+            rec = check_window(torch, args, f"{what} iteration {i + 1}")
+            log("kernel " + json.dumps(rec))
+            wins.append(rec)
+    windows.clear()
     recs = []
     for what, calls in captured.items():
         for i, (win, args, kw) in enumerate(calls):
@@ -1265,11 +1409,24 @@ def phase_fleet_admission(torch, world) -> tuple[dict, dict]:
                              f"{what} iteration {i + 1}")
             log("kernel " + json.dumps(rec))
             recs.append(rec)
-    bad = [r["shape"] for r in recs if not r["ok"]]
-    if bad or len(recs) != 9:
-        raise SmokeFailure(f"admission_ctrl disagrees with its plain loop on "
-                           f"{bad} (or missed a call: {len(recs)} of 9)")
-    return recs[2], aimd_counts
+    win, args, _ = captured["aimd run()"][0]
+    for policy in ("aimd", "pid"):
+        never = never_coalescing_windows(torch, *win.shape,
+                                         args[0].shape[1], policy)
+        rec = check_ctrl(torch, *never, f"{policy.upper()} built never to "
+                         "coalesce")
+        log("kernel " + json.dumps(rec))
+        if rec["coalesced_share"] != 0.0:
+            raise SmokeFailure(f"the {policy} window tensor built never to "
+                               f"coalesce coalesced: {rec}")
+        recs.append(rec)
+    bad = [r["shape"] for r in wins + recs if not r["ok"]]
+    if bad or len(recs) != 11 or len(wins) != 9:
+        raise SmokeFailure(f"admission kernels disagree with their plain "
+                           f"versions on {bad} (or missed a call: "
+                           f"{len(wins)} of 9 windows, {len(recs)} of 11 "
+                           "cells)")
+    return wins[2], recs[2], aimd_counts
 
 
 def main() -> int:
@@ -1315,8 +1472,9 @@ def main() -> int:
     main_cases.update(timed("fleet_kernels", phase_fleet_kernels, torch,
                             captured, in_run))
     del captured
-    ctrl_rec, adm_counts = timed("fleet_admission", phase_fleet_admission,
-                                 torch, world)
+    win_rec, ctrl_rec, adm_counts = timed(
+        "fleet_admission", phase_fleet_admission, torch, world)
+    main_cases["admission_window"] = win_rec
     main_cases["admission_ctrl"] = ctrl_rec
     mixed = [name for name, rec in main_cases.items() if not rec["hidden"]]
     if mixed:
@@ -1324,6 +1482,7 @@ def main() -> int:
                            f"host's: {mixed}")
     counts = dict(counts, deposit=fleet_counts["deposit"],
                   backlog_scan=fleet_counts["backlog_scan"],
+                  admission_window=adm_counts["admission_window"],
                   admission_ctrl=adm_counts["admission_ctrl"])
     log(f"phase seconds {json.dumps({k: round(v, 1) for k, v in seconds.items()})}"
         f", total {time.perf_counter() - t0:.1f}s")
@@ -1339,6 +1498,8 @@ def main() -> int:
                     "src/repro/kernels/deposit.py:147"),
         "backlog_scan": ("src/repro_torch/kernels/csrc/backlog_scan.cu",
                          "src/repro/traffic/queueing.py:553"),
+        "admission_window": ("src/repro_torch/kernels/csrc/admission_window.cu",
+                             "src/repro/traffic/queueing.py:589"),
         "admission_ctrl": ("src/repro_torch/kernels/csrc/admission_ctrl.cu",
                            "src/repro/traffic/queueing.py:589"),
     }

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Host cost of the port's ``gmm`` wrapper, and its ring depth, on one card;
 with ``--scan``, ``backlog_scan`` on a plane that never coalesces; with
-``--deposit``, ``deposit`` on the fleet's tables.
+``--deposit``, ``deposit`` on the fleet's tables; with ``--ctrl``, the
+admission controller's kernels on synthetic inputs.
 
     python3 gmm_bench.py                   # the port in this checkout
     python3 gmm_bench.py --src TREE/src    # the port in another tree
     python3 gmm_bench.py --scan [--src TREE/src]
     python3 gmm_bench.py --deposit [--src TREE/src]
+    python3 gmm_bench.py --ctrl [--src TREE/src]
 
 At llama-moe-3.5b's bf16 serve shapes (E = 8, K/N = 4096/1376 and
 1376/4096, C = 2 and 40) it prints one JSON object a line:
@@ -42,6 +44,21 @@ kernel a call launches.  Then one object for a single row of one
 ("pile", a chain of dependent adds) or on 32 different cells a step
 ("distinct"): the ns per triple of that one bucket's work.  Run it on two
 trees in one call to compare their kernels on the same tables.
+
+With ``--ctrl`` it prints one object an input, at the shapes of the
+admission ``run()`` on the paper's world (``chip_smoke.py`` phase 9: T =
+60,054 bins, 864 compact rows, 3 plans of 32 layers x 8 experts, 200
+topology slots, a control bin every 10 bins, 8 gateways), from seeded
+random numbers: ``admission_window`` on wait planes of F = 1 and 4
+entries (where the tree has it), and ``admission_ctrl`` on window tensors
+of F = 1 and 4 laid out as ``admission_window`` returns them (each
+(entry, plan)'s windows contiguous; a tree whose wrapper copies them to
+another layout is timed with the copy): every window over the target,
+every window under it, a random mix, and
+``chip_smoke.never_coalescing_windows`` (AIMD, PID):
+whether each is bitwise its plain version, the least time the card
+could take and the device ms (three readings of ``time_ms``).  Run it on
+two trees in one call to compare their kernels on the same inputs.
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -166,6 +183,84 @@ def _deposit(torch) -> None:
         print(json.dumps(rec), flush=True)
 
 
+CTRL_BINS, CTRL_EVERY, CTRL_ROWS = 60_054, 10, 864  # phase 9's run()
+CTRL_PLANS, CTRL_LAYERS, CTRL_EXPERTS, CTRL_SLOTS = 3, 32, 8, 200
+CTRL_GATEWAYS = 8
+
+
+def _ctrl(torch) -> None:
+    from repro_torch.kernels import admission_ctrl
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t, n_ctrl = CTRL_BINS, CTRL_BINS // CTRL_EVERY
+    try:
+        from repro_torch.kernels import admission_window
+    except ImportError:
+        admission_window = None
+    if admission_window is not None:
+        per = CTRL_LAYERS * (1 + CTRL_EXPERTS)
+        stations = torch.randint(0, CTRL_ROWS, (CTRL_SLOTS, CTRL_PLANS, per),
+                                 generator=gen, device="cuda")
+        gw = stations[..., :CTRL_LAYERS].contiguous()
+        ex = stations[..., CTRL_LAYERS:].contiguous()
+        slot = torch.arange(t, device="cuda") * CTRL_SLOTS // t
+        ctrl = (torch.arange(t, device="cuda") + 1) % CTRL_EVERY == 0
+        seg, n_win = admission_window.control_segments(ctrl)
+        for f in (1, 4):
+            wait = torch.rand((t, f, CTRL_ROWS), generator=gen, device="cuda")
+            last = torch.rand((f, CTRL_ROWS), generator=gen, device="cuda")
+            args = (wait, last, 10.0, 0.05, gw.int(), ex.int(), slot.int(),
+                    seg.int(), n_win)
+            got = admission_window.admission_window(*args)
+            print(json.dumps({
+                "admission_window": f"random wait ({t}, {f}, {CTRL_ROWS})",
+                "equal": bool(torch.equal(
+                    got, admission_window.admission_window_plain(*args))),
+                "bound_ms": chip_smoke.window_bound(
+                    wait, last, (gw, ex), n_win, seg)[0],
+                "ms": [chip_smoke.time_ms(torch, lambda: admission_window
+                                          .admission_window(*args), 20)[0]
+                       for _ in range(3)]}), flush=True)
+    for f in (1, 4):
+        # k-contiguous, as admission_window hands them to admission_ctrl
+        base = torch.rand((f, CTRL_PLANS, n_ctrl), generator=gen,
+                          device="cuda").permute(2, 0, 1)
+        cell = (torch.rand((CTRL_PLANS, CTRL_GATEWAYS), generator=gen,
+                           device="cuda") * 2.0,
+                torch.rand((CTRL_PLANS,), generator=gen, device="cuda") * 0.5,
+                torch.ones((f, CTRL_PLANS, CTRL_GATEWAYS), device="cuda"),
+                torch.full((f,), 4.0, device="cuda"),
+                torch.full((f,), float("inf"), device="cuda"))
+        cases = {"over": (base * 100.0 + 10.0, cell),
+                 "under": (base * 0.01, cell),
+                 "mixed": (base * 6.0, cell)}
+        for policy in ("aimd", "pid"):
+            kw = dict(increase=0.1, decrease=0.6, admit_min=0.05, pid=None)
+            if policy == "pid":
+                kw["pid"] = dict(kp=0.4, ki=0.05, kd=0.0, gain=torch.ones(
+                    CTRL_PLANS, device="cuda"))
+            items = list(cases.items())
+            if f == 1:
+                win, cell_n, kw_n = chip_smoke.never_coalescing_windows(
+                    torch, n_ctrl, f, CTRL_PLANS, CTRL_GATEWAYS, policy)
+                items.append(("never coalescing", (win, cell_n)))
+            for what, (win, args) in items:
+                k = kw_n if what == "never coalescing" else kw
+
+                def call():
+                    return admission_ctrl.admission_ctrl(win, *args, **k)
+                got = call()
+                want = admission_ctrl.admission_ctrl_plain(win, *args, **k)
+                nbytes = 4 * (win.numel() + got.numel()
+                              + sum(a.numel() for a in args))
+                print(json.dumps({
+                    "admission_ctrl": f"{policy} {what}, win {tuple(win.shape)}"
+                                      f" -> {tuple(got.shape)}",
+                    "equal": bool(torch.equal(got, want)),
+                    "bound_ms": chip_smoke.bound(nbytes, 0, "float32")[0],
+                    "ms": [chip_smoke.time_ms(torch, call, 20)[0]
+                           for _ in range(3)]}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(chip_smoke.ROOT / "src"),
@@ -175,6 +270,9 @@ def main() -> int:
     ap.add_argument("--deposit", action="store_true",
                     help="time deposit on the fleet's run() and run_many "
                          "tables")
+    ap.add_argument("--ctrl", action="store_true",
+                    help="time admission_window and admission_ctrl on "
+                         "synthetic inputs at the admission run()'s shapes")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -190,6 +288,9 @@ def main() -> int:
         return 0
     if args.deposit:
         _deposit(torch)
+        return 0
+    if args.ctrl:
+        _ctrl(torch)
         return 0
     build.load("moe_gmm")
     for c in (2, 40):

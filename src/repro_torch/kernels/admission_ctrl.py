@@ -16,10 +16,19 @@ estimate qhat that bin k closes, the cell of ``repro.traffic.admission``
 ``out[k]`` is the admission probability in effect after control bin k.
 This is the serial half of the reference's ``adm_scan`` (a ``lax.scan``
 over every time bin, ``repro/traffic/queueing.py:589``); the rest of it
-is ``backlog_scan`` and tensor ops (``traffic/admission.py``).  All of it
-is float32, each operation rounded on its own in the reference's order:
-the plain loop and the kernel (``csrc/admission_ctrl.cu``, no FMA
-contraction) agree bit for bit.
+is ``backlog_scan`` and ``admission_window``.  All of it is float32, each
+operation rounded on its own in the reference's order: the plain loop and
+the kernel (``csrc/admission_ctrl.cu``, no FMA contraction) agree bit for
+bit (NaN payloads aside).
+
+The kernel is a chunk-parallel scan that stays exact: one warp a cell,
+each lane a chunk of ``ctrl_chunk(n_ctrl)`` control bins run from both
+ends of the state's bracket; from the bin where the two runs meet they
+are the true trajectory, and only the bins before it are re-run from the
+chunk's exact start, which a walk over the chunks in order supplies (the
+note at the head of ``csrc/admission_ctrl.cu`` gives the argument).  The
+bracket needs ``AdmissionConfig``'s ranges: ``0 < decrease < 1``,
+``increase > 0`` and ``0 < admit_min <= 1``; the wrapper refuses others.
 
 ``admission_ctrl`` runs the plain loop for CPU tensors and the kernel for
 CUDA tensors; on a CUDA tensor it launches the kernel or raises.
@@ -35,6 +44,7 @@ from . import build
 
 #: Anti-windup clamp on the PID integral (the reference's ``_PID_WINDUP``).
 PID_WINDUP = 10.0
+LANES = 32            # chunks of one cell's control bins: a warp, a lane each
 
 launches = 0          # kernel launches since the last reset (ops.py)
 
@@ -94,11 +104,19 @@ def admission_ctrl_plain(win, ttft0, tpot0, admit0, ttft_target,
     return out
 
 
+def ctrl_chunk(n_ctrl: int) -> int:
+    """Control bins of one chunk: the kernel cuts each cell's ``n_ctrl``
+    bins into ``LANES`` chunks of this many (the last ones shorter or
+    empty)."""
+    return max(1, -(-n_ctrl // LANES))
+
+
 def _library():
     lib = build.load("admission_ctrl")
     if lib.repro_admission_ctrl.argtypes is None:
-        lib.repro_admission_ctrl.argtypes = [ctypes.c_void_p] * 8 + [
-            ctypes.c_int64] * 4 + [ctypes.c_float] * 6 + [ctypes.c_void_p]
+        lib.repro_admission_ctrl.argtypes = [ctypes.c_void_p] * 9 + [
+            ctypes.c_int64] * 7 + [ctypes.c_int] + [ctypes.c_float] * 6 + [
+            ctypes.c_void_p]
         lib.repro_admission_ctrl.restype = ctypes.c_int
     return lib
 
@@ -107,8 +125,14 @@ def admission_ctrl(win: torch.Tensor, ttft0: torch.Tensor,
                    tpot0: torch.Tensor, admit0: torch.Tensor,
                    ttft_target: torch.Tensor, tpot_target: torch.Tensor, *,
                    increase: float, decrease: float, admit_min: float,
-                   pid: dict | None = None) -> torch.Tensor:
+                   pid: dict | None = None,
+                   coalescence: torch.Tensor | None = None) -> torch.Tensor:
     """Admission probability after each control bin, (n_ctrl, F, P, G).
+
+    On the card the result is a view of an (F, P, G, n_ctrl) buffer (each
+    cell's control bins contiguous, as the kernel writes them), and
+    ``win`` is read in place with any strides (``admission_window``
+    gives it k-contiguous); the CPU's result is contiguous.
 
     Args (all float32 tensors on one device):
         win: (n_ctrl, F, P) windowed maximum of qhat per control bin.
@@ -117,9 +141,15 @@ def admission_ctrl(win: torch.Tensor, ttft0: torch.Tensor,
         admit0: (F, P, G) admission probabilities before the first bin.
         ttft_target, tpot_target: (F,) margin-scaled targets (+inf
             disables a term).
-        increase, decrease, admit_min: AIMD constants (rounded to f32).
+        increase, decrease, admit_min: AIMD constants (rounded to f32;
+            ``0 < decrease < 1``, ``increase > 0``, ``0 < admit_min <=
+            1``).
         pid: None for AIMD, or ``kp``/``ki``/``kd`` floats and ``gain``
             (P,) float32 for the PID cell.
+        coalescence: CUDA only: an int32 (F * P * G, ``LANES``) tensor
+            that receives, for each cell and chunk, the control bins the
+            chunk's two bracket runs took to meet (-1: they never did, or
+            the chunk is empty).
     """
     global launches
     tensors = [win, ttft0, tpot0, admit0, ttft_target, tpot_target]
@@ -137,27 +167,44 @@ def admission_ctrl(win: torch.Tensor, ttft0: torch.Tensor,
                          f"{tuple(win.shape)}")
     if len({t.device for t in tensors}) != 1:
         raise ValueError("admission_ctrl: tensors on more than one device")
+    if not (0.0 < _f32(decrease) < 1.0 and _f32(increase) > 0.0
+            and 0.0 < _f32(admit_min) <= 1.0):
+        raise ValueError("admission_ctrl: takes 0 < decrease < 1, increase "
+                         "> 0 and 0 < admit_min <= 1 (AdmissionConfig's "
+                         f"ranges); got {decrease}, {increase}, {admit_min}")
     kw = dict(increase=increase, decrease=decrease, admit_min=admit_min,
               pid=pid)
-    if win.device.type == "cpu":
+    if win.device.type == "cpu" and coalescence is None:
         return admission_ctrl_plain(*tensors[:6], **kw)
     if win.device.type != "cuda":
         raise ValueError(f"admission_ctrl: tensors on {win.device}; the "
-                         "kernel needs a CUDA device")
-    out = torch.empty((n_ctrl, n_f, n_p, n_g), dtype=torch.float32,
+                         "kernel (and its coalescence report) needs a CUDA "
+                         "device")
+    n_cells = n_f * n_p * n_g
+    if coalescence is not None and (
+            coalescence.shape != (n_cells, LANES)
+            or coalescence.dtype != torch.int32
+            or coalescence.device != win.device
+            or not coalescence.is_contiguous()):
+        raise ValueError(f"admission_ctrl: coalescence must be a contiguous "
+                         f"int32 ({n_cells}, {LANES}) tensor on {win.device}")
+    out = torch.empty((n_f, n_p, n_g, n_ctrl), dtype=torch.float32,
                       device=win.device)
     if out.numel() == 0:
-        return out
-    tensors = [t.contiguous() for t in tensors]
+        return out.permute(3, 0, 1, 2)
+    tensors = [tensors[0]] + [t.contiguous() for t in tensors[1:]]
     gain = tensors[6].data_ptr() if pid is not None else None
     p = pid or {}
     lib = _library()
     with torch.cuda.device(win.device):
         err = lib.repro_admission_ctrl(
             *(t.data_ptr() for t in tensors[:6]), gain, out.data_ptr(),
-            n_ctrl, n_f, n_p, n_g, _f32(increase), _f32(decrease),
-            _f32(admit_min), _f32(p.get("kp", 0.0)), _f32(p.get("ki", 0.0)),
-            _f32(p.get("kd", 0.0)), torch.cuda.current_stream().cuda_stream)
+            coalescence.data_ptr() if coalescence is not None else None,
+            n_ctrl, n_f, n_p, n_g, *win.stride(), ctrl_chunk(n_ctrl),
+            _f32(increase),
+            _f32(decrease), _f32(admit_min), _f32(p.get("kp", 0.0)),
+            _f32(p.get("ki", 0.0)), _f32(p.get("kd", 0.0)),
+            torch.cuda.current_stream().cuda_stream)
     build.check(err, "admission_ctrl")
     launches += 1
-    return out
+    return out.permute(3, 0, 1, 2)

@@ -13,9 +13,11 @@ import torch
 import torch.nn.functional as F
 
 from . import admission_ctrl as _ctrl
+from . import admission_window as _window
 from . import backlog_scan as _scan
 from . import decode_attn, deposit as _deposit, moe_gmm
 from .admission_ctrl import admission_ctrl
+from .admission_window import admission_window
 from .backlog_scan import backlog_scan
 from .decode_attn import decode_attention
 from .deposit import deposit, deposit_segments
@@ -23,7 +25,7 @@ from .moe_gmm import gmm
 
 _COUNTED = {"gmm": moe_gmm, "decode_attention": decode_attn,
             "deposit": _deposit, "backlog_scan": _scan,
-            "admission_ctrl": _ctrl}
+            "admission_window": _window, "admission_ctrl": _ctrl}
 
 
 def launch_counts() -> dict[str, int]:
@@ -78,5 +80,5 @@ def expert_ffn(params: dict, xs: torch.Tensor, compute_dtype) -> torch.Tensor:
 
 
 __all__ = ["gmm", "decode_attention", "deposit", "deposit_segments",
-           "backlog_scan", "admission_ctrl", "expert_ffn", "timed_call",
+           "backlog_scan", "admission_window", "admission_ctrl", "expert_ffn", "timed_call",
            "launch_counts", "reset_launch_counts"]

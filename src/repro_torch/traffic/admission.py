@@ -10,20 +10,20 @@ never reads the controller's state, so it is computed apart from it:
 
 1. **wait** is :func:`~repro_torch.kernels.backlog_scan.backlog_scan` of
    the work plane (float32, bitwise the reference's recursion);
-2. **qhat[t]**, the critical-path estimate the cell reads after bin t,
-   is the backlog after bin t (``wait[t + 1]``, one more step for the
-   last bin) gathered at the bin's gateway and expert stations: the
-   gateway chain summed over layers in index order, plus per layer the
-   maximum over its experts, summed the same way (:func:`qhat_trace`);
-3. **win**, the maximum of qhat over each control window (the bins up
-   to and including the bin that ``ctrl`` marks), one reduction;
-4. the cell itself, serial over the control bins only:
+2. **win**, the maximum over each control window (the bins up to and
+   including the bin that ``ctrl`` marks) of qhat, the critical-path
+   estimate the cell reads after each bin (the backlog after the bin
+   gathered at its gateway and expert stations):
+   :func:`~repro_torch.kernels.admission_window.admission_window`, one
+   pass over the wait trace on the card, :func:`qhat_trace` and a
+   ``scatter_reduce`` on the CPU;
+3. the cell itself, serial over the control bins only:
    :func:`~repro_torch.kernels.admission_ctrl.admission_ctrl`;
-5. the **admit** trace repeats the value in effect over each window (bin
+4. the **admit** trace repeats the value in effect over each window (bin
    t carries the value before bin t's own update).
 
 The fused fleet fixed point (``queueing._fleet_fixed_point``) runs the
-same steps 2-5 through :func:`controller_trace`.
+same steps 2-4 through :func:`controller_trace`.
 """
 from __future__ import annotations
 
@@ -33,12 +33,9 @@ import numpy as np
 import torch
 
 from ..kernels.admission_ctrl import admission_ctrl
+from ..kernels.admission_window import (  # noqa: F401 (qhat_trace: public)
+    admission_window, control_segments, qhat_trace)
 from ..kernels.backlog_scan import backlog_scan
-
-#: Elements of one gather of :func:`qhat_trace` (the expert gather of the
-#: paper's world is T * F * P * L * I, about 0.5 G at F = 4): the bins are
-#: taken in chunks that keep each gather under this.
-QHAT_CHUNK_ELEMS = 1 << 24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,59 +111,9 @@ class AdmissionConfig:
         return self.max_retries + 1
 
 
-def _seq_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis in index order (XLA's CPU reduction order),
-    so the sum is the same on every device."""
-    out = x[..., 0]
-    for i in range(1, x.shape[-1]):
-        out = out + x[..., i]
-    return out
-
-
-def qhat_trace(wait: torch.Tensor, work_last: torch.Tensor, cap: torch.Tensor,
-               dt: torch.Tensor, gw_rows: torch.Tensor, exp_rows: torch.Tensor,
-               bin_map: torch.Tensor) -> torch.Tensor:
-    """(T, F, P) float32 critical-path backlog estimate after each bin.
-
-    The backlog after bin t is the wait of bin t + 1; after the last bin
-    it is one more step of the recursion, ``max(min(wait + work, cap) -
-    dt, 0)`` in float32 in that order.
-
-    Args:
-        wait: (T, F, C) float32 wait trace (the backlog before each bin).
-        work_last: (F, C) float32 work of the last bin.
-        cap, dt: float32 scalar tensors, the scan's cap and bin width.
-        gw_rows: (NB, P, L) int64 column of each plan's gateway per layer.
-        exp_rows: (NB, P, L * I) int64 column of each (layer, expert).
-        bin_map: (T,) int64 row of ``gw_rows``/``exp_rows`` per bin.
-
-    The gateway chain is summed over layers in index order; the expert
-    term takes each layer's maximum over I, summed the same way; then
-    gateway + expert, as the reference's cell adds them.
-    """
-    n_bins, n_f, _ = wait.shape
-    last = torch.clamp_min(torch.minimum(wait[-1] + work_last, cap) - dt, 0.0)
-    n_layers = gw_rows.shape[2]
-    n_p, n_li = exp_rows.shape[1], exp_rows.shape[2]
-    out = torch.empty((n_bins, n_f, n_p), dtype=torch.float32,
-                      device=wait.device)
-    step = max(1, QHAT_CHUNK_ELEMS // max(1, n_f * n_p * n_li))
-    f_idx = torch.arange(n_f, device=wait.device)[None, :, None, None]
-    for t0 in range(0, n_bins, step):
-        t1 = min(n_bins, t0 + step)
-        after = wait[t0 + 1:t1 + 1]
-        if t1 == n_bins:
-            after = torch.cat([after, last[None]])
-        t_idx = torch.arange(t1 - t0, device=wait.device)[:, None, None, None]
-        rows = bin_map[t0:t1]
-        gw = after[t_idx, f_idx, gw_rows[rows][:, None]]      # (Tc,F,P,L)
-        ex = after[t_idx, f_idx, exp_rows[rows][:, None]]     # (Tc,F,P,LI)
-        ex = ex.reshape(t1 - t0, n_f, n_p, n_layers, -1).amax(dim=4)
-        out[t0:t1] = _seq_sum(gw) + _seq_sum(ex)
-    return out
-
-
-def controller_trace(qhat: torch.Tensor, ctrl: torch.Tensor,
+def controller_trace(wait: torch.Tensor, work_last: torch.Tensor, cap: float,
+                     dt: float, gw_rows: torch.Tensor, exp_rows: torch.Tensor,
+                     bin_map: torch.Tensor, seg: torch.Tensor, n_ctrl: int,
                      ttft0: torch.Tensor, tpot0: torch.Tensor,
                      admit0: torch.Tensor, ttft_target: torch.Tensor,
                      tpot_target: torch.Tensor, *, increase: float,
@@ -174,19 +121,15 @@ def controller_trace(qhat: torch.Tensor, ctrl: torch.Tensor,
                      pid: dict | None = None) -> torch.Tensor:
     """(T, F, P, G) float32 admission probability in effect during each bin.
 
-    ``qhat`` (T, F, P) from :func:`qhat_trace`, ``ctrl`` (T,) bool (True on
-    bins that close a control window), the rest as
-    :func:`~repro_torch.kernels.admission_ctrl.admission_ctrl` takes them.
-    The window maximum of qhat needs no order (max is exact, and qhat is
-    never negative, so a window that starts from 0 gives the same value).
+    ``wait`` (T, F, C) float32 wait trace through ``n_ctrl`` as
+    :func:`~repro_torch.kernels.admission_window.admission_window` takes
+    them (``seg`` from :func:`control_segments` of the control flags);
+    the rest as :func:`~repro_torch.kernels.admission_ctrl.admission_ctrl`
+    takes them.
     """
-    ctrl = ctrl.to(torch.int64)
-    seg = torch.cumsum(ctrl, 0) - ctrl          # control bins before bin t
-    n_ctrl = int(ctrl.sum())
-    win = torch.zeros((n_ctrl + 1,) + qhat.shape[1:], dtype=torch.float32,
-                      device=qhat.device)
-    win.scatter_reduce_(0, seg[:, None, None].expand_as(qhat), qhat, "amax")
-    out = admission_ctrl(win[:n_ctrl], ttft0, tpot0, admit0, ttft_target,
+    win = admission_window(wait, work_last, cap, dt, gw_rows, exp_rows,
+                           bin_map, seg, n_ctrl)
+    out = admission_ctrl(win, ttft0, tpot0, admit0, ttft_target,
                          tpot_target, increase=increase, decrease=decrease,
                          admit_min=admit_min, pid=pid)
     return torch.cat([admit0[None], out])[seg]
@@ -228,8 +171,7 @@ def admission_queue_scan(work, cap, dt, ttft0, tpot0, ctrl, gw_idx, exp_idx,
     base = torch.arange(n_p, device=dev)[None, :, None] * n_s
     gw_rows = base + torch.as_tensor(gw_idx, device=dev).to(torch.int64)
     exp_rows = base + torch.as_tensor(exp_idx, device=dev).to(torch.int64)
-    qhat = qhat_trace(wait_t[:, None], w32[..., -1].reshape(1, -1), cap32,
-                      dt32, gw_rows, exp_rows, torch.arange(n_bins, device=dev))
+    seg, n_ctrl = control_segments(torch.as_tensor(ctrl, device=dev))
     pid_t = None
     if pid is not None:
         pid_t = dict(kp=float(pid["kp"]), ki=float(pid["ki"]),
@@ -239,8 +181,9 @@ def admission_queue_scan(work, cap, dt, ttft0, tpot0, ctrl, gw_idx, exp_idx,
     def target(x):
         return torch.full((1,), float(x), dtype=f32, device=dev)
     admit = controller_trace(
-        qhat, torch.as_tensor(ctrl, device=dev),
-        torch.as_tensor(ttft0, device=dev).to(f32),
+        wait_t[:, None], w32[..., -1].reshape(1, -1), float(cap32),
+        float(dt32), gw_rows, exp_rows, torch.arange(n_bins, device=dev),
+        seg, n_ctrl, torch.as_tensor(ttft0, device=dev).to(f32),
         torch.as_tensor(tpot0, device=dev).to(f32),
         torch.as_tensor(admit0, device=dev).to(f32)[None],
         target(ttft_target), target(tpot_target), increase=increase,

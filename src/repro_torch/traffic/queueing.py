@@ -29,8 +29,9 @@ reference:
 With a ground segment (``ground=``) requests enter through their
 gateway's best visible satellite, uplink and ingress hop billed.  Under
 an AIMD or PID ``QueueConfig.admission`` the controller's admission
-trace (:mod:`.admission`: ``backlog_scan``, a gather and the
-``admission_ctrl`` kernel over control bins) is resolved into shed
+trace (:mod:`.admission`: ``backlog_scan``, the ``admission_window``
+maxima of qhat and the ``admission_ctrl`` cell over control bins) is
+resolved into shed
 requests and gateway retries between fixed-point iterations.
 
 Not ported yet (each raises ``NotImplementedError``): continuous
@@ -54,10 +55,11 @@ from ..core.engine import (ScheduleBatch, evaluate_schedules,
 from ..core.latency import ComputeConfig, TopologySample
 from ..core.schedule import as_schedule, slot_of_time
 from ..core.workload import MoEWorkload
+from ..kernels.admission_window import _seq_sum
 from ..kernels.backlog_scan import backlog_scan
 from ..kernels.deposit import deposit
-from .admission import (_seq_sum, admission_queue_scan, control_bin_flags,
-                        controller_trace, qhat_trace, resolve_admission)
+from .admission import (admission_queue_scan, control_bin_flags,
+                        control_segments, controller_trace, resolve_admission)
 from .ground import GroundSegment
 from .metrics import PlanTraffic, TrafficResult
 from .requests import RequestBatch
@@ -335,11 +337,10 @@ def _fleet_fixed_point(q: dict, chunks: dict, work0: torch.Tensor,
             .reshape(T, F, SR)
         nxt = dict(c, work_sum=work_sum, wait=wait_t)
         if adm_on:
-            qhat = qhat_trace(wait_t, work32[:, :, -1], cap, q["dt32_t"],
-                              q["gw_rows_slot"], q["exp_rows_slot"],
-                              q["slot_of_bin"])
             admit = controller_trace(
-                qhat, q["ctrl"], q["ttft0"], q["tpot0"],
+                wait_t, work32[:, :, -1], q["cap32"], q["dt32"],
+                q["gw_rows_slot"], q["exp_rows_slot"], q["slot_of_bin"],
+                q["seg"], q["n_ctrl"], q["ttft0"], q["tpot0"],
                 torch.ones((F,) + q["ttft0"].shape, dtype=torch.float32,
                            device=dev),
                 ttft_target, tpot_target, **q["adm_kw"])
@@ -1041,16 +1042,19 @@ class FleetSim:
             d["mig_dense"] = put(self._mig_rm, torch.float64)
         if self.admission_on:
             acfg = qcfg.admission
-            f32 = torch.float32
+            # The controller's station tables: int32 for the card's
+            # admission_window, int64 for the CPU's gathers.
+            idx = torch.int32 if dev.type == "cuda" else torch.int64
+            ctrl = put(control_bin_flags(self.n_bins, qcfg.dt_s,
+                                         acfg.interval_s))
+            seg, n_ctrl = control_segments(ctrl)
             d.update(
-                dt32_t=torch.tensor(d["dt32"], dtype=f32, device=dev),
                 ttft0=put(self._adm_ttft0.astype(np.float32)),
                 tpot0=put(self._adm_tpot0.astype(np.float32)),
-                ctrl=put(control_bin_flags(self.n_bins, qcfg.dt_s,
-                                           acfg.interval_s)),
-                slot_of_bin=put(self._adm_slot_of_bin, torch.int64),
-                gw_rows_slot=put(self._adm_gw_rowc_slot, torch.int64),
-                exp_rows_slot=put(self._adm_exp_rowc_slot, torch.int64),
+                ctrl=ctrl, seg=seg.to(idx), n_ctrl=n_ctrl,
+                slot_of_bin=put(self._adm_slot_of_bin, idx),
+                gw_rows_slot=put(self._adm_gw_rowc_slot, idx),
+                exp_rows_slot=put(self._adm_exp_rowc_slot, idx),
                 att_bin=put(self._att_bin, torch.int64),
                 att_station=put(self._att_station, torch.int64),
                 att_feasible=put(np.moveaxis(self._att_feasible, 1, 0)),

@@ -22,6 +22,7 @@ import torch
 
 import repro_torch.traffic as pt
 from repro_torch.kernels import admission_ctrl as ctrl_mod
+from repro_torch.kernels import admission_window as window_mod
 from repro_torch.traffic import admission as padm
 from test_torch_fleet import _assert_parity, _pair, ref  # noqa: F401
 
@@ -206,7 +207,8 @@ def test_qhat_trace_chunks_do_not_change_it(monkeypatch):
     bin_map = torch.from_numpy(rng.integers(0, 5, t))
     args = (wait, work_last, cap, dt, gw, ex, bin_map)
     whole = padm.qhat_trace(*args)
-    monkeypatch.setattr(padm, "QHAT_CHUNK_ELEMS", 7 * f * p * n_layers * n_exp)
+    monkeypatch.setattr(window_mod, "QHAT_CHUNK_ELEMS",
+                        7 * f * p * n_layers * n_exp)
     np.testing.assert_array_equal(padm.qhat_trace(*args).numpy(),
                                   whole.numpy())
     # bin by bin in numpy: the backlog after bin t (one more step of the
@@ -226,6 +228,105 @@ def test_qhat_trace_chunks_do_not_change_it(monkeypatch):
             e_sum = e_sum + e[..., ll]
         want[b] = want[b] + e_sum
     np.testing.assert_array_equal(whole.numpy(), want)
+
+
+def _window_inputs(seed, t, f, every, last_ctrl, c=13, p=3, n_layers=4,
+                   n_exp=3, n_slots=4):
+    """A wait trace, the last bin's work, per-slot stations whose slot
+    changes inside windows, and the control flags (a control bin at T - 1
+    when ``last_ctrl``, else bins after the last control bin)."""
+    rng = np.random.default_rng(seed)
+    wait = (rng.gamma(0.5, 0.3, (t, f, c))
+            * (rng.random((t, f, c)) < 0.6)).astype(np.float32)
+    work_last = (rng.random((f, c)) * 2.0).astype(np.float32)
+    gw = rng.integers(0, c, (n_slots, p, n_layers))
+    ex = rng.integers(0, c, (n_slots, p, n_layers * n_exp))
+    cuts = np.sort(rng.choice(np.arange(1, t), n_slots - 1, replace=False))
+    bin_map = np.searchsorted(cuts, np.arange(t), side="right")
+    ctrl = (np.arange(t) + 1) % every == 0
+    ctrl[-1] = last_ctrl
+    return wait, work_last, gw, ex, bin_map, ctrl
+
+
+def _numpy_windows(wait, work_last, cap, dt, gw, ex, bin_map, ctrl):
+    """Window maxima bin by bin in numpy: the backlog after bin t (one
+    more step after the last), layers summed in index order."""
+    f32 = np.float32
+    t, f, _ = wait.shape
+    p, n_layers = gw.shape[1:]
+    last = np.maximum(np.minimum(wait[-1] + work_last, f32(cap)) - f32(dt),
+                      f32(0.0))
+    after = np.concatenate([wait[1:], last[None]])
+    n_ctrl = int(ctrl.sum())
+    win = np.zeros((n_ctrl, f, p), np.float32)
+    k = 0
+    for b in range(t):
+        if k == n_ctrl:
+            break
+        g_b, e_b = gw[bin_map[b]], ex[bin_map[b]]
+        q = after[b][:, g_b[:, 0]]
+        for ll in range(1, n_layers):
+            q = q + after[b][:, g_b[:, ll]]
+        e = after[b][:, e_b].reshape(f, p, n_layers, -1).max(-1)
+        e_sum = e[..., 0]
+        for ll in range(1, n_layers):
+            e_sum = e_sum + e[..., ll]
+        win[k] = np.maximum(win[k], q + e_sum)
+        k += int(ctrl[b])
+    return win
+
+
+@pytest.mark.parametrize("f", [1, 4])
+@pytest.mark.parametrize("last_ctrl", [True, False],
+                         ids=["ctrl-at-T-1", "bins-after-last-ctrl"])
+@pytest.mark.parametrize("cap", [0.9, 10.0])
+def test_admission_window_plain_matches_a_loop_over_bins(f, last_ctrl, cap):
+    wait, work_last, gw, ex, bin_map, ctrl = _window_inputs(
+        5, 157, f, 10, last_ctrl)
+    seg, n_ctrl = window_mod.control_segments(torch.from_numpy(ctrl))
+    assert n_ctrl == int(ctrl.sum())
+    np.testing.assert_array_equal(seg.numpy(),
+                                  np.cumsum(ctrl) - ctrl.astype(np.int64))
+    got = window_mod.admission_window(
+        torch.from_numpy(wait), torch.from_numpy(work_last), cap, 0.05,
+        torch.from_numpy(gw), torch.from_numpy(ex),
+        torch.from_numpy(bin_map), seg, n_ctrl)
+    want = _numpy_windows(wait, work_last, cap, 0.05, gw, ex, bin_map, ctrl)
+    assert got.shape == (n_ctrl, f, 3)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the plain composition, qhat_trace then a scatter of maxima
+    qhat = padm.qhat_trace(torch.from_numpy(wait),
+                           torch.from_numpy(work_last), torch.tensor(cap),
+                           torch.tensor(0.05), torch.from_numpy(gw),
+                           torch.from_numpy(ex), torch.from_numpy(bin_map))
+    full = torch.zeros((n_ctrl + 1, f, 3)).scatter_reduce(
+        0, seg[:, None, None].expand_as(qhat), qhat, "amax")
+    np.testing.assert_array_equal(got.numpy(), full[:n_ctrl].numpy())
+
+
+def test_admission_window_refuses_mixed_shapes():
+    wait, work_last, gw, ex, bin_map, ctrl = _window_inputs(0, 40, 1, 10,
+                                                            True)
+    seg, n_ctrl = window_mod.control_segments(torch.from_numpy(ctrl))
+    args = [torch.from_numpy(a) for a in (wait, work_last, gw, ex, bin_map)]
+    with pytest.raises(ValueError, match="shapes"):
+        window_mod.admission_window(args[0], args[1][:, 1:], 1.0, 0.05,
+                                    *args[2:], seg, n_ctrl)
+    with pytest.raises(TypeError, match="float32"):
+        window_mod.admission_window(args[0].double(), *args[1:2], 1.0, 0.05,
+                                    *args[2:], seg, n_ctrl)
+
+
+@pytest.mark.parametrize("policy", ["aimd", "pid"])
+def test_admission_queue_scan_slot_change_inside_a_window(ref, policy):
+    """T = 203 with a control bin every 7: the last bin is a control bin
+    (the backlog after it is one more step), and the stations switch at
+    bin 101, inside the window that bin 104 closes."""
+    (w_r, d_r, a_r), (w_p, d_p, a_p) = _both_scans(
+        ref, 203, 7, "capped", policy, 1.2)
+    np.testing.assert_array_equal(w_p, w_r)
+    np.testing.assert_array_equal(d_p, d_r)
+    _same_admit(a_p, a_r, policy)
 
 
 def test_admission_ctrl_plain_refuses_mixed_shapes():

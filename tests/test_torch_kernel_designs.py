@@ -1,5 +1,5 @@
-"""The designs of the port's decode_attention, backlog_scan and deposit
-kernels, on the CPU.
+"""The designs of the port's decode_attention, backlog_scan, deposit,
+admission_ctrl and admission_window kernels, on the CPU.
 
 The CUDA kernels run only on a card.  What their designs rest on is
 checked here with plain PyTorch emulations of the same algorithms:
@@ -20,6 +20,17 @@ checked here with plain PyTorch emulations of the same algorithms:
     lanes at once, lanes on one cell by their lowest lane in lane order,
     a step all on one cell as one chain, zero-valued entries skipped.
     The emulation is held bitwise to the plain version under hypothesis.
+  * admission_ctrl cuts each cell's control bins into chunks, runs each
+    from both ends of the state's bracket, trusts the lower run from the
+    first bin where the two agree bit for bit, walks the chunks in order
+    for their exact starts (a NaN start stays NaN) and re-runs the bins
+    before the meeting point.  The emulation is held bitwise to the plain
+    loop under hypothesis (AIMD and PID, NaN windows, infinite targets,
+    admit0 outside [admit_min, 1]) and on windows that never coalesce.
+  * admission_window stages the rows after a tile of bins, takes each
+    layer's gateway term and expert maximum, then the sums over layers
+    in order, and the window maxima on the f32 bit patterns.  The
+    emulation is held bitwise to the plain version.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +40,8 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from repro.kernels.ops import decode_attention as jax_decode_attention
+from repro_torch.kernels import admission_ctrl as ctrl_mod
+from repro_torch.kernels import admission_window as window_mod
 from repro_torch.kernels import backlog_scan, decode_attn, deposit
 
 SMS = 132      # streaming multiprocessors of an H100 SXM, the pinned card
@@ -496,3 +509,373 @@ def test_deposit_takes_every_horizon_the_fleet_allows():
     warps x 4 bytes a tile, 227 KB at most) and cover FleetSim's 2 M."""
     assert 8 * 4 * deposit.MAX_TILES <= 232_448 - 64
     assert deposit.MAX_TILES * deposit.TILE >= 2_000_000
+
+
+# --------------------------------------------------------------------- #
+# admission_ctrl: the chunked bracket scan over control bins
+# --------------------------------------------------------------------- #
+
+NAN = float("nan")
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, except that any NaN equals any NaN (the kernel's
+    min/max give the canonical NaN, torch's keep an input's)."""
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(nan_a, nan_b)) and bool(
+        torch.equal(_bits(a)[~nan_a], _bits(b)[~nan_b]))
+
+
+class _Cell:
+    """The AIMD / PID cell of ``admission_ctrl_plain`` for every (f, p, g)
+    at once, one step a call, in the plain loop's f32 operations."""
+
+    def __init__(self, ttft0, tpot0, ttft_target, tpot_target, *, increase,
+                 decrease, admit_min, pid):
+        def s(x):
+            return torch.tensor(float(np.float32(x)), dtype=torch.float32)
+        self.ttft0, self.tpot0 = ttft0[None], tpot0[None]
+        self.tt, self.tp = ttft_target[:, None, None], tpot_target[:, None]
+        self.one, self.inf, self.amin = s(1.0), s(float("inf")), s(admit_min)
+        self.inc, self.dec = s(increase), s(decrease)
+        self.pid = pid
+        if pid is not None:
+            self.kp, self.ki, self.kd = s(pid["kp"]), s(pid["ki"]), s(pid["kd"])
+            self.gain = pid["gain"][None, :, None]
+            self.w = s(ctrl_mod.PID_WINDUP)
+
+    def aimd(self, admit, w):
+        over = ((self.ttft0 + w[..., None]) > self.tt) \
+            | ((self.tpot0 + w) > self.tp)[..., None]
+        return torch.where(over, torch.maximum(admit * self.dec, self.amin),
+                           torch.minimum(admit + self.inc, self.one))
+
+    def err(self, w):
+        h_t = torch.where(torch.isfinite(self.tt),
+                          (self.tt - (self.ttft0 + w[..., None])) / self.tt,
+                          self.inf)
+        h_p = torch.where(torch.isfinite(self.tp),
+                          (self.tp - (self.tpot0 + w)) / self.tp,
+                          self.inf)[..., None]
+        return torch.minimum(h_t, h_p)
+
+    def integ(self, integ, err):
+        return torch.minimum(torch.maximum(integ + err, -self.w), self.w)
+
+    def admit_pid(self, admit, err, integ, prev):
+        delta = self.kp * err + self.ki * integ + self.kd * (err - prev)
+        return torch.minimum(torch.maximum(admit + self.gain * delta,
+                                           self.amin), self.one)
+
+    def run(self, state, win, prev, out=None, stop=None):
+        """The exact cell from ``state`` ((integ, admit)) over the rows of
+        ``win``; writes ``out[i]`` where i < ``stop``.  Returns the state
+        after the last row."""
+        integ, admit = state
+        for i in range(win.shape[0]):
+            if self.pid is None:
+                admit = self.aimd(admit, win[i])
+            else:
+                e = self.err(win[i])
+                integ = self.integ(integ, e)
+                admit = self.admit_pid(admit, e, integ, prev)
+                prev = e
+            if out is not None:
+                todo = i < stop
+                out[i][todo] = admit[todo]
+        return integ, admit
+
+
+def chunked_ctrl(win, ttft0, tpot0, admit0, ttft_target, tpot_target, *,
+                 chunk, **kw):
+    """``csrc/admission_ctrl.cu``'s algorithm in plain PyTorch, every cell
+    at once.  Returns (out, coal): coal[j] is the bins chunk j's bracket
+    runs took to meet in each cell, -1 where they never did.
+
+    Pass 1 runs each chunk from both ends of its bracket and keeps the
+    lower run from the first bin where the two agree bit for bit.  The
+    walk takes the chunks in order: a chunk whose runs met ends at the
+    lower run's end (NaN if it starts at NaN, which every step keeps),
+    any other is run from its exact start.  Pass 2 runs each chunk from
+    its exact start up to where its runs met (all of it if they never
+    did, or if it starts at NaN)."""
+    cell = _Cell(ttft0, tpot0, ttft_target, tpot_target, **kw)
+    pid = kw["pid"] is not None
+    n_ctrl = win.shape[0]
+    shape = admit0.shape
+    out = torch.full((n_ctrl,) + shape, -7.0)
+    zero, nan = torch.zeros(shape), torch.full(shape, NAN)
+    amin, one = cell.amin.expand(shape), cell.one.expand(shape)
+    chunks = range(0, n_ctrl, chunk)
+    ends, coal, prevs = [], [], []
+    for j, k0 in enumerate(chunks):
+        k1 = min(k0 + chunk, n_ctrl)
+        prev = zero if k0 == 0 or not pid else cell.err(win[k0 - 1])
+        prevs.append(prev)
+        if k0 == 0:                    # chunk 0 starts exactly
+            lo = hi = admit0
+            ilo = ihi = zero
+        elif pid:                      # after a step: [amin, 1], [-W, W]
+            lo, hi = amin, one
+            ilo, ihi = -cell.w.expand(shape), cell.w.expand(shape)
+        else:                          # [min(admit0, amin), max(admit0, 1)]
+            lo, hi = torch.fmin(admit0, cell.amin), torch.fmax(admit0, one)
+        imet = _bits(ilo) == _bits(ihi)
+        met = torch.zeros(shape, dtype=torch.bool)
+        tc = torch.full(shape, -1)
+        for i, k in enumerate(range(k0, k1)):
+            # lo <= the true state <= hi while it is not NaN (monotonicity)
+            if pid:
+                e = cell.err(win[k])
+                ilo, ihi = cell.integ(ilo, e), cell.integ(ihi, e)
+                imet |= _bits(ilo) == _bits(ihi)
+                # admit moves only once the integral is known exactly
+                lo = torch.where(imet, cell.admit_pid(lo, e, ilo, prev), lo)
+                hi = torch.where(imet, cell.admit_pid(hi, e, ilo, prev), hi)
+                prev = e
+            else:
+                lo, hi = cell.aimd(lo, win[k]), cell.aimd(hi, win[k])
+            now = ~met & imet & (_bits(lo) == _bits(hi))
+            tc[now] = i
+            met |= now
+            out[k][met] = lo[met]
+        coal.append(tc)
+        ends.append((ilo, lo))
+    # the walk: each chunk's exact start
+    state, starts = (zero, admit0), []
+    for j, k0 in enumerate(chunks):
+        starts.append(state)
+        k1 = min(k0 + chunk, n_ctrl)
+        dead = torch.isnan(state[1])
+        run = cell.run(state, win[k0:k1], prevs[j])
+        met = coal[j] >= 0
+        state = tuple(torch.where(met, torch.where(dead, nan, c), r)
+                      for c, r in zip(ends[j], run))
+    # pass 2: the bins before the runs met, from the exact start
+    for j, k0 in enumerate(chunks):
+        k1 = min(k0 + chunk, n_ctrl)
+        stop = torch.where((coal[j] >= 0) & ~torch.isnan(starts[j][1]),
+                           coal[j], k1 - k0)
+        cell.run(starts[j], win[k0:k1], prevs[j], out=out[k0:k1], stop=stop)
+    return out, torch.stack(coal) if coal else torch.empty((0,) + shape)
+
+
+def _ctrl_case(rng, n_ctrl, f, p, g, policy, targets, nan_share, admit0):
+    win = rng.gamma(0.6, 3.0, (n_ctrl, f, p)) \
+        * (rng.random((n_ctrl, f, p)) < 0.7)
+    win[rng.random(win.shape) < nan_share] = np.nan
+    tt = {"finite": rng.uniform(2.0, 6.0, f), "ttft inf": np.full(f, np.inf),
+          "both inf": np.full(f, np.inf)}[targets]
+    tp = np.full(f, np.inf) if targets == "both inf" \
+        else rng.uniform(0.5, 2.0, f)
+    a0 = {"ones": np.ones((f, p, g)),
+          "mixed": rng.choice([0.0, 0.01, 0.3, 1.0, 1.7, 40.0, -2.0],
+                              (f, p, g)),
+          "extreme": rng.choice([np.inf, -np.inf, np.nan, 0.5], (f, p, g))
+          }[admit0]
+
+    def t32(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.float32))
+    args = (t32(win), t32(rng.random((p, g)) * 2.0), t32(rng.random(p) * 0.5),
+            t32(a0), t32(tt), t32(tp))
+    kw = dict(increase=0.1, decrease=0.6, admit_min=0.05, pid=None)
+    if policy == "pid":
+        kw["pid"] = dict(kp=0.4, ki=0.05, kd=float(rng.choice([0.0, 0.02])),
+                         gain=t32(rng.uniform(0.5, 2.0, p)))
+    return args, kw
+
+
+@settings(max_examples=60, deadline=None)
+@given(policy=st.sampled_from(["aimd", "pid"]),
+       n_ctrl=st.integers(1, 150), chunk=st.sampled_from([1, 7, 64]),
+       f=st.integers(1, 2), p=st.integers(1, 3), g=st.integers(1, 3),
+       targets=st.sampled_from(["finite", "ttft inf", "both inf"]),
+       nan_share=st.sampled_from([0.0, 0.0, 0.05]),
+       admit0=st.sampled_from(["ones", "mixed", "extreme"]),
+       seed=st.integers(0, 2 ** 31))
+def test_chunked_ctrl_is_bitwise_the_plain_loop(policy, n_ctrl, chunk, f, p,
+                                                g, targets, nan_share, admit0,
+                                                seed):
+    args, kw = _ctrl_case(np.random.default_rng(seed), n_ctrl, f, p, g,
+                          policy, targets, nan_share, admit0)
+    got, coal = chunked_ctrl(*args, chunk=chunk, **kw)
+    want = ctrl_mod.admission_ctrl_plain(*args, **kw)
+    assert _same_bits(got, want)
+    assert bool((coal[0] == 0).all())            # chunk 0 starts exactly
+
+
+@pytest.mark.parametrize("policy", ["aimd", "pid"])
+@pytest.mark.parametrize("chunk", [1, 7, 64])
+def test_chunked_ctrl_on_fleet_like_windows_coalesces_early(policy, chunk):
+    """Windows all over or all under the target (the paper's world at
+    30 s, and at 1.5 to 5 x its zero-load p99): every chunk long enough
+    to hold them sees its runs meet within its first few bins (AIMD from
+    1 to admit_min takes 6 steps, from admit_min to 1 takes 10; PID over
+    the target pins the integral at -W at once).  PID under the target
+    winds the integral up by err a bin: its runs meet after 2 W / err."""
+    for scale in (100.0, 0.01):
+        args, kw = _ctrl_case(np.random.default_rng(1), 600, 2, 3, 4, policy,
+                              "finite", 0.0, "ones")
+        args = (torch.full_like(args[0], 3.0 * scale),) + args[1:]
+        got, coal = chunked_ctrl(*args, chunk=chunk, **kw)
+        assert _same_bits(got, ctrl_mod.admission_ctrl_plain(*args, **kw))
+        if chunk == 64 and (policy == "aimd" or scale > 1.0):
+            assert bool((coal >= 0).all()) and int(coal.max()) <= 12
+
+
+def never_coalescing_ctrl(n_ctrl, f, p, g, policy):
+    """A window tensor (and its cell) on which no chunk's bracket runs
+    ever meet.  AIMD: admit0 = +inf and every window over the target, so
+    the upper run stays at +inf (the true trajectory) while the lower
+    one falls to admit_min.  PID: every window exactly at the TTFT
+    target (TPOT off), so err = 0, the integral runs from -W and W stay
+    apart, and admit, which needs the integral, never starts."""
+    ttft0 = torch.full((p, g), 1.0)
+    tpot0 = torch.zeros(p)
+    tt = torch.full((f,), 4.0)
+    tp = torch.full((f,), float("inf"))
+    kw = dict(increase=0.1, decrease=0.6, admit_min=0.05, pid=None)
+    if policy == "aimd":
+        win = torch.full((n_ctrl, f, p), 5.0)
+        admit0 = torch.full((f, p, g), float("inf"))
+    else:
+        win = torch.full((n_ctrl, f, p), 3.0)
+        admit0 = torch.full((f, p, g), 0.5)
+        kw["pid"] = dict(kp=0.4, ki=0.05, kd=0.02, gain=torch.ones(p))
+    return (win, ttft0, tpot0, admit0, tt, tp), kw
+
+
+@pytest.mark.parametrize("policy", ["aimd", "pid"])
+@pytest.mark.parametrize("chunk", [1, 7, 64])
+def test_chunks_that_never_coalesce_are_exact(policy, chunk):
+    """Every chunk after the first runs whole from its exact start."""
+    args, kw = never_coalescing_ctrl(200, 2, 3, 2, policy)
+    got, coal = chunked_ctrl(*args, chunk=chunk, **kw)
+    assert _same_bits(got, ctrl_mod.admission_ctrl_plain(*args, **kw))
+    assert bool((coal[1:] == -1).all())
+    want = float("inf") if policy == "aimd" else 0.5
+    assert bool((got == want).all())
+
+
+def test_nan_met_upstream_reaches_every_later_chunk():
+    """A NaN window under PID makes the integral NaN for good; later
+    chunks whose own runs meet on a number (every window far over the
+    target) still give NaN."""
+    args, kw = _ctrl_case(np.random.default_rng(4), 100, 1, 2, 2, "pid",
+                          "finite", 0.0, "ones")
+    win = torch.full_like(args[0], 300.0)
+    win[20] = float("nan")
+    args = (win,) + args[1:]
+    got, coal = chunked_ctrl(*args, chunk=7, **kw)
+    want = ctrl_mod.admission_ctrl_plain(*args, **kw)
+    assert _same_bits(got, want)
+    assert bool(torch.isnan(got[20:]).all()) and not torch.isnan(got[:20]).any()
+    assert bool((coal[3:] == 0).all())     # later chunks met on numbers
+
+
+@pytest.mark.parametrize("n_ctrl,want", [
+    (6_005, 188),       # FleetSim.run() on the paper's world under admission
+    (4_096, 128),
+    (33, 2),
+    (1, 1),
+])
+def test_ctrl_chunk_pinned(n_ctrl, want):
+    assert ctrl_mod.ctrl_chunk(n_ctrl) == want
+    assert ctrl_mod.LANES * want >= n_ctrl
+
+
+# --------------------------------------------------------------------- #
+# admission_window: staged tiles of bins, one task a (bin, f, p)
+# --------------------------------------------------------------------- #
+
+
+def tiled_window(wait, work_last, cap, dt, gw, ex, bin_map, seg, n_ctrl):
+    """``csrc/admission_window.cu``'s algorithm in numpy: tiles of
+    ``window_tile`` bins, the rows after them staged at an odd stride
+    (the last bin's row one more step of the recursion), phase A's
+    per-(bin, f, p, layer) gateway terms and expert maxima, phase B's
+    sums over layers in the reference's order, and the window maxima
+    taken on the f32 bit patterns as int32."""
+    f32 = np.float32
+    n_bins, n_f, n_c = wait.shape
+    n_p, n_l = gw.shape[1:]
+    n_i = ex.shape[2] // n_l
+    tile, stride = window_mod.window_tile(n_f, n_c, n_p, n_l, n_i)
+    assert stride >= n_f * n_c and (stride % 2 == 1 or stride % 4 == 0)
+    plane = wait.reshape(n_bins, -1)
+    win = np.zeros(n_ctrl * n_f * n_p, np.int32)
+    for t0 in range(0, n_bins, tile):
+        rows = min(tile, n_bins - t0)
+        copy_rows = min(rows, n_bins - 1 - t0)
+        staged = np.full((tile, stride), np.nan, np.float32)
+        staged[:copy_rows, :n_f * n_c] = plane[t0 + 1:t0 + 1 + copy_rows]
+        if copy_rows < rows:
+            staged[copy_rows, :n_f * n_c] = np.maximum(np.minimum(
+                plane[-1] + work_last.reshape(-1), f32(cap)) - f32(dt),
+                f32(0.0))
+        g_term = np.zeros((n_f * n_p, n_l, rows), np.float32)
+        e_max = np.zeros((n_f * n_p, n_l, rows), np.float32)
+        for it in range(rows * n_f * n_p * n_l):          # phase A
+            b, q = it % rows, it // rows
+            ll, fp = q % n_l, q // n_l
+            f, p = divmod(fp, n_p)
+            row = staged[b, f * n_c:(f + 1) * n_c]
+            s = bin_map[t0 + b]
+            g_term[fp, ll, b] = row[gw[s, p, ll]]
+            e_max[fp, ll, b] = row[ex[s, p, ll * n_i:(ll + 1) * n_i]].max()
+        for task in range(rows * n_f * n_p):             # phase B
+            b, fp = task % rows, task // rows
+            k = int(seg[t0 + b])
+            if k >= n_ctrl:
+                continue
+            g, e = g_term[fp, 0, b], e_max[fp, 0, b]
+            for ll in range(1, n_l):
+                g = f32(g + g_term[fp, ll, b])
+                e = f32(e + e_max[fp, ll, b])
+            bits = np.array([g + e], np.float32).view(np.int32)[0]
+            key = k * n_f * n_p + fp
+            win[key] = max(win[key], bits)
+    return win.view(np.float32).reshape(n_ctrl, n_f, n_p)
+
+
+@pytest.mark.parametrize("t,f,every,last_ctrl,tile_bytes", [
+    (157, 1, 10, True, None),
+    (157, 4, 10, False, None),
+    (60, 2, 7, True, 1500),       # many tiles, a few bins each
+    (5, 1, 1, True, 100),         # one bin a tile, every bin a window
+])
+def test_tiled_window_is_bitwise_the_plain_version(monkeypatch, t, f, every,
+                                                   last_ctrl, tile_bytes):
+    from test_torch_admission import _window_inputs
+    if tile_bytes is not None:
+        monkeypatch.setattr(window_mod, "TILE_BYTES", tile_bytes)
+    wait, work_last, gw, ex, bin_map, ctrl = _window_inputs(
+        3, t, f, every, last_ctrl)
+    seg, n_ctrl = window_mod.control_segments(torch.from_numpy(ctrl))
+    got = tiled_window(wait, work_last, 0.9, 0.05, gw, ex, bin_map,
+                       seg.numpy(), n_ctrl)
+    want = window_mod.admission_window_plain(
+        torch.from_numpy(wait), torch.from_numpy(work_last), 0.9, 0.05,
+        torch.from_numpy(gw), torch.from_numpy(ex),
+        torch.from_numpy(bin_map), seg, n_ctrl)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((1, 864, 3, 32, 8), (16, 868)),     # run() on the paper's world
+    ((4, 864, 3, 32, 8), (4, 3_460)),    # run_many over 4 targets
+    ((11, 864, 3, 32, 8), (1, 9_508)),
+    ((1, 4, 2, 2, 2), (1_023, 8)),
+    ((1, 5, 2, 2, 2), (1_228, 5)),       # rows not whole 16-byte words
+])
+def test_window_tile_pinned(shape, want):
+    assert window_mod.window_tile(*shape) == want
+    n_f, n_c, n_p, n_l, n_i = shape
+    tile, stride = want
+    assert 4 * (tile * (stride + 2 * n_f * n_p * n_l + 2)
+                + n_p * n_l * (1 + n_i)) <= window_mod.SMEM_MAX
+
+
+def test_window_tile_refuses_rows_past_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        window_mod.window_tile(70, 864, 3, 32, 8)

@@ -17,7 +17,8 @@ from repro.kernels.ops import expert_ffn_pallas
 from repro.kernels.ops import gmm as jax_gmm
 from repro.kernels.ref import decode_attention_ref, gmm_ref
 from repro.models.moe import expert_ffn as jax_expert_ffn
-from repro_torch.kernels import (admission_ctrl, backlog_scan, build,
+from repro_torch.kernels import (admission_ctrl, admission_window,
+                                 backlog_scan, build,
                                  decode_attn, deposit, moe_gmm, ops)
 
 # f32: summation order only; bf16: one rounding of the output (8 bits).
@@ -159,13 +160,27 @@ def test_cpu_calls_do_not_count_as_launches():
         torch.ones(4, 1, 2), torch.zeros(2, 3), torch.zeros(2),
         torch.ones(1, 2, 3), torch.ones(1), torch.ones(1), increase=0.1,
         decrease=0.6, admit_min=0.05)
+    admission_window.admission_window(*_window_args("cpu"))
     assert ops.launch_counts() == {"gmm": 0, "decode_attention": 0,
                                    "deposit": 0, "backlog_scan": 0,
+                                   "admission_window": 0,
                                    "admission_ctrl": 0}
 
 
+def _window_args(device):
+    """admission_window's arguments at a toy size: T = 6, F = 1, C = 4,
+    one slot, P = 2, L = 2, I = 2, two windows."""
+    dev = torch.device(device)
+    i64 = dict(dtype=torch.int64, device=dev)
+    return (torch.ones(6, 1, 4, device=dev), torch.ones(1, 4, device=dev),
+            10.0, 0.05, torch.zeros(1, 2, 2, **i64),
+            torch.zeros(1, 2, 4, **i64), torch.zeros(6, **i64),
+            torch.tensor([0, 0, 0, 1, 1, 2], **i64), 2)
+
+
 @pytest.mark.parametrize("op", ["gmm", "decode_attention", "deposit",
-                                "backlog_scan", "admission_ctrl"])
+                                "backlog_scan", "admission_window",
+                                "admission_ctrl"])
 def test_non_cpu_tensor_never_falls_back(op):
     """A tensor off the CPU goes to the kernel's checks, which refuse a
     non-CUDA device instead of running the plain version."""
@@ -188,6 +203,8 @@ def test_non_cpu_tensor_never_falls_back(op):
         elif op == "backlog_scan":
             backlog_scan.backlog_scan(torch.empty(5, 3, device=meta),
                                       10.0, 0.05)
+        elif op == "admission_window":
+            admission_window.admission_window(*_window_args("meta"))
         else:
             admission_ctrl.admission_ctrl(
                 torch.empty(4, 1, 2, device=meta),

@@ -423,6 +423,24 @@ def test_admission_ctrl_kernel_is_bitwise_the_plain_loop(cuda_device, policy,
         want.cpu().numpy())
 
 
+@pytest.mark.parametrize("policy", ["aimd", "pid"])
+def test_admission_ctrl_reads_windows_in_any_layout(cuda_device, policy):
+    """Windows k-contiguous (as admission_window returns them) or a
+    sliced view: the same result, read in place."""
+    from repro_torch.kernels import admission_ctrl
+    args = list(_ctrl_inputs(cuda_device, 3000, 2, 3, 4, 5.0, 1.5, seed=5))
+    kw = dict(increase=0.1, decrease=0.6, admit_min=0.05, pid=None)
+    if policy == "pid":
+        kw["pid"] = dict(kp=0.4, ki=0.05, kd=0.02, gain=torch.linspace(
+            0.5, 2.0, 3, device=cuda_device))
+    want = admission_ctrl.admission_ctrl_plain(*args, **kw)
+    for win in (args[0].permute(1, 2, 0).contiguous().permute(2, 0, 1),
+                torch.cat([args[0], args[0]], dim=2)[:, :, 3:]):
+        got = admission_ctrl.admission_ctrl(win, *args[1:], **kw)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
 def test_admission_ctrl_without_control_bins_launches_nothing(cuda_device):
     from repro_torch.kernels import admission_ctrl
     args = _ctrl_inputs(cuda_device, 0, 2, 3, 4, 4.0, 1.5)
@@ -432,9 +450,141 @@ def test_admission_ctrl_without_control_bins_launches_nothing(cuda_device):
     assert out.shape == (0, 2, 3, 4) and admission_ctrl.launches == before
 
 
+def _never_coalescing(device, n_ctrl, f, p, g, policy):
+    """Windows and a cell on which no chunk's bracket runs ever meet (see
+    ``never_coalescing_ctrl`` of tests/test_torch_kernel_designs.py)."""
+    def full(shape, v):
+        return torch.full(shape, v, dtype=torch.float32, device=device)
+    kw = dict(increase=0.1, decrease=0.6, admit_min=0.05, pid=None)
+    if policy == "aimd":        # admit0 = +inf, every window over
+        win, admit0 = full((n_ctrl, f, p), 5.0), full((f, p, g), float("inf"))
+    else:                       # every window on the target: err = 0
+        win, admit0 = full((n_ctrl, f, p), 3.0), full((f, p, g), 0.5)
+        kw["pid"] = dict(kp=0.4, ki=0.05, kd=0.02, gain=full((p,), 1.0))
+    return (win, full((p, g), 1.0), full((p,), 0.0), admit0, full((f,), 4.0),
+            full((f,), float("inf"))), kw
+
+
+@pytest.mark.parametrize("policy", ["aimd", "pid"])
+@pytest.mark.parametrize("n_ctrl", [6005, 100, 33])
+def test_admission_ctrl_never_coalescing_is_exact(cuda_device, policy,
+                                                  n_ctrl):
+    from repro_torch.kernels import admission_ctrl
+    args, kw = _never_coalescing(cuda_device, n_ctrl, 2, 3, 4, policy)
+    coal = torch.empty((24, admission_ctrl.LANES), dtype=torch.int32,
+                       device=cuda_device)
+    got = admission_ctrl.admission_ctrl(*args, coalescence=coal, **kw)
+    torch.cuda.synchronize()
+    want = admission_ctrl.admission_ctrl_plain(*args, **kw)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    chunk = admission_ctrl.ctrl_chunk(n_ctrl)
+    live = -(-n_ctrl // chunk)
+    assert bool((coal[:, 0] == 0).all())
+    assert bool((coal[:, 1:live] == -1).all())
+
+
+@pytest.mark.parametrize("policy", ["aimd", "pid"])
+@pytest.mark.parametrize("case", ["nan windows", "both targets inf",
+                                  "admit0 outside", "over then under"])
+def test_admission_ctrl_kernel_edge_cases_are_bitwise(cuda_device, policy,
+                                                      case):
+    """NaN windows and delta's inf - inf (NaN for good from there),
+    admit0 below admit_min, above 1 and infinite, and windows that cross
+    the target once (every later chunk's runs meet on a number)."""
+    from repro_torch.kernels import admission_ctrl
+    tt, tp = (float("inf"), float("inf")) if case == "both targets inf" \
+        else (5.0, 1.5)
+    args = list(_ctrl_inputs(cuda_device, 3000, 2, 3, 4, tt, tp, seed=3))
+    if case == "nan windows":
+        args[0][1000, 0] = float("nan")
+    elif case == "admit0 outside":
+        args[3] = torch.tensor([0.0, 0.01, 1.7, 40.0, -2.0, float("inf"),
+                                -float("inf"), float("nan")] * 3,
+                               device=cuda_device).reshape(2, 3, 4)
+    elif case == "over then under":
+        args[0][:1500] = 100.0
+        args[0][1500:] = 0.01
+    kw = dict(increase=0.1, decrease=0.6, admit_min=0.05, pid=None)
+    if policy == "pid":
+        kw["pid"] = dict(kp=0.4, ki=0.05, kd=0.02, gain=torch.linspace(
+            0.5, 2.0, 3, device=cuda_device))
+    got = admission_ctrl.admission_ctrl(*args, **kw)
+    torch.cuda.synchronize()
+    want = admission_ctrl.admission_ctrl_plain(*args, **kw)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def test_admission_ctrl_refuses_ranges_outside_its_bracket(cuda_device):
+    from repro_torch.kernels import admission_ctrl
+    args = _ctrl_inputs(cuda_device, 10, 1, 2, 2, 4.0, 1.5)
+    before = admission_ctrl.launches
+    for bad in (dict(decrease=1.0), dict(increase=0.0), dict(admit_min=1.5)):
+        kw = dict(dict(increase=0.1, decrease=0.6, admit_min=0.05), **bad)
+        with pytest.raises(ValueError, match="AdmissionConfig"):
+            admission_ctrl.admission_ctrl(*args, **kw)
+    assert admission_ctrl.launches == before
+
+
+def _window_case(device, t, f, c, p, n_layers, n_exp, n_slots, every,
+                 last_ctrl, seed=0):
+    rng = np.random.default_rng(seed)
+    wait = rng.gamma(0.5, 0.3, (t, f, c)) * (rng.random((t, f, c)) < 0.6)
+    # the fleet passes the last bin's work as a strided view of its plane
+    work = torch.from_numpy(rng.random((f, c, 3)).astype(np.float32))
+    cuts = np.sort(rng.choice(np.arange(1, t), n_slots - 1, replace=False))
+    ctrl = (np.arange(t) + 1) % every == 0
+    ctrl[-1] = last_ctrl
+    from repro_torch.kernels.admission_window import control_segments
+    seg, n_ctrl = control_segments(torch.from_numpy(ctrl))
+    return (torch.from_numpy(wait.astype(np.float32)).to(device),
+            work.to(device)[:, :, -1], 0.9, 0.05,
+            torch.from_numpy(rng.integers(0, c, (n_slots, p, n_layers))
+                             ).to(device),
+            torch.from_numpy(rng.integers(0, c, (n_slots, p,
+                                                 n_layers * n_exp))
+                             ).to(device),
+            torch.from_numpy(np.searchsorted(cuts, np.arange(t),
+                                             side="right")).to(device),
+            seg.to(device), n_ctrl)
+
+
+@pytest.mark.parametrize("t,f,c,p,n_layers,n_exp,n_slots,every,last_ctrl", [
+    (6_005, 1, 864, 3, 32, 8, 3, 10, False),   # the paper's widths, F = 1
+    (6_005, 4, 864, 3, 32, 8, 3, 10, True),    # F = 4, control bin at T - 1
+    (157, 1, 13, 3, 4, 3, 4, 10, True),
+    (157, 4, 13, 3, 4, 3, 4, 7, False),        # bins after the last window
+    (40, 2, 5, 2, 1, 1, 40, 1, True),          # a slot and a window a bin
+    (3, 1, 700, 1, 2, 2, 2, 2, False),         # rows wider than the block
+])
+def test_admission_window_kernel_is_bitwise_the_plain_version(
+        cuda_device, t, f, c, p, n_layers, n_exp, n_slots, every, last_ctrl):
+    from repro_torch.kernels import admission_window
+    args = _window_case(cuda_device, t, f, c, p, n_layers, n_exp, n_slots,
+                        every, last_ctrl)
+    before = admission_window.launches
+    got = admission_window.admission_window(*args)
+    torch.cuda.synchronize()
+    assert admission_window.launches == before + 1
+    want = admission_window.admission_window_plain(*args)
+    assert got.shape == want.shape == (args[-1], f, p)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    cpu = admission_window.admission_window_plain(
+        *(a.cpu() if torch.is_tensor(a) else a for a in args))
+    np.testing.assert_array_equal(cpu.numpy(), want.cpu().numpy())
+
+
+def test_admission_window_without_windows_launches_nothing(cuda_device):
+    from repro_torch.kernels import admission_window
+    args = list(_window_case(cuda_device, 9, 1, 5, 2, 2, 2, 2, 10, False))
+    before = admission_window.launches
+    out = admission_window.admission_window(*args)
+    assert out.shape == (0, 1, 2) and admission_window.launches == before
+
+
 def test_fleet_admission_runs_the_ctrl_kernel_and_matches_the_cpu(cuda_device):
-    """A small fleet under AIMD admission on the card: one admission_ctrl
-    launch per fixed-point iteration, and the CPU's plain versions give
+    """A small fleet under AIMD admission on the card: one admission_window
+    and one admission_ctrl launch per fixed-point iteration, and the CPU's
+    plain versions give
     the same shed, retries and served sets and latencies."""
     from repro_torch import core
     from repro_torch.kernels import ops
@@ -466,6 +616,7 @@ def test_fleet_admission_runs_the_ctrl_kernel_and_matches_the_cpu(cuda_device):
             torch.cuda.synchronize()
             counts = ops.launch_counts()
             assert counts["admission_ctrl"] == qcfg.iterations
+            assert counts["admission_window"] == qcfg.iterations
             assert counts["backlog_scan"] == qcfg.iterations
             assert counts["deposit"] == qcfg.iterations - 1
     for a, b in zip(res["cpu"].plans, res["cuda"].plans):

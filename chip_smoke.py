@@ -65,7 +65,23 @@ Phases (any failure exits non-zero and prints no success line):
      tensor they gave it and on two built never to coalesce (AIMD, PID),
      each with its chunks' coalescence statistics, timed beside its byte
      and serial-chain bounds;
- 10. the ``kernels`` JSON line (all six kernels; launches counted over
+ 10. fleet with batching and probes: phase 7's world under
+     ``BatchingConfig(b_max=8)``: ``run()`` on the card (deposit 6,
+     backlog_scan 3 launches), wall and device time, busy share, peak
+     device memory, the host itemized, the batching law's device time
+     and peak on ``run()``'s planes, ``deposit`` bitwise against its plain
+     version on the decode-work and decode-visit tables ``run()`` gave it
+     (timed beside its byte bound), the card against the CPU; then
+     ``ProbeConfig()`` on that run and on phase 9's AIMD ``run()``:
+     ``last_probes`` card against CPU on every channel, a probes-off
+     ``run()`` afterwards bitwise as before, the flight log exported by
+     ``chrome_trace`` and passed by ``validate_trace``, the record's cost;
+     then the reference's batching frontier
+     (``benchmarks/bench_batching.py`` at its non-fast setting, rebuilt
+     with the port): FIFO and ``b_max=8``, each one ``run_many`` over 4
+     thinning fractions, card against CPU, ``b_max=1`` bitwise FIFO, and
+     batched goodput above FIFO at p99 TTFT <= 2.5 x the zero-load p99;
+ 11. the ``kernels`` JSON line (all six kernels; launches counted over
      the serve run for gmm/decode_attention, over the fleet ``run()``
      for deposit/backlog_scan and over the AIMD ``run()`` for
      admission_window/admission_ctrl), the card line, then the result
@@ -94,6 +110,12 @@ FLEET_FRACTIONS = (0.1, 0.15, 0.2, 0.25, 0.3, 0.35, 0.4, 0.5, 0.6, 0.8, 1.0)
 # Latency targets of the admission sweep, times the zero-load p99 TTFT
 # (benchmarks/bench_admission.py TARGET_SCALES).
 ADM_TARGET_SCALES = (1.5, 2.0, 3.0, 5.0)
+# The batching frontier of benchmarks/bench_batching.py: decode batch cap,
+# nested thinning fractions, and the matched bound on p99 TTFT as a
+# multiple of the zero-load p99.
+BATCH_B_MAX = 8
+BATCH_FRACTIONS = (0.25, 0.5, 0.75, 1.0)
+BATCH_TTFT_BOUND_SCALE = 2.5
 # The CUDA kernels each fleet wrapper call launches, by profiler name.
 FLEET_KERNELS = {"deposit": ("deposit_bucket_kernel",
                              "deposit_accumulate_kernel"),
@@ -547,11 +569,12 @@ def fleet_world():
     return topo, act, plans, req, con
 
 
-def build_fleet(world, device, seed=5, qcfg=None, ground=None, req=None):
+def build_fleet(world, device, seed=5, qcfg=None, ground=None, req=None,
+                **kw):
     """``FleetSim`` over ``world``; ``seed`` seeds the engine's expert
     draws, which set the unloaded horizon and so T.  ``qcfg``, ``ground``
     and ``req`` replace ``QueueConfig()``, no ground segment and the
-    world's trace."""
+    world's trace; ``kw`` (``batching``, ``probes``) go to ``FleetSim``."""
     import numpy as np
 
     from repro_torch import core
@@ -562,7 +585,7 @@ def build_fleet(world, device, seed=5, qcfg=None, ground=None, req=None):
                    core.ComputeConfig(), world_req if req is None else req,
                    np.random.default_rng(seed),
                    qcfg=QueueConfig() if qcfg is None else qcfg,
-                   ground=ground, device=device)
+                   ground=ground, device=device, **kw)
     if device == "cuda":
         torch_sync()
     return sim, time.perf_counter() - t0
@@ -604,10 +627,12 @@ def fleet_host_steps(torch, sim, res) -> dict[str, float]:
     host-to-device copies), the fused fixed point on the card, and the
     device-to-host copies with ``_finalize``.  The result must equal
     ``res``, a ``run()`` of ``sim``, bit for bit.  Under admission the
-    targets' upload joins the upload."""
+    targets' upload joins the upload; under batching the bincount step
+    takes the three planes and ``law0`` is iteration 1's law on the
+    host."""
     import numpy as np
 
-    from repro_torch.traffic import queueing
+    from repro_torch.traffic import batching, queueing
     t_bins, n_rows, dev = sim.n_bins, sim.n_rows, sim.device
     adm_on = sim.admission_on
     active = np.ones(sim.n_requests, dtype=bool)
@@ -624,26 +649,37 @@ def fleet_host_steps(torch, sim, res) -> dict[str, float]:
     t_all = time.perf_counter()
     ct = step("chunk_table", lambda: sim.chunk_table(active[None, :]))
 
-    def plane():
-        plane0 = np.bincount(ct["flat0"], weights=ct["work0"],
-                             minlength=n_rows * t_bins).reshape(
+    def planes():
+        out = [np.bincount(ct["flat0"], weights=ct[k],
+                           minlength=n_rows * t_bins).reshape(
             1, n_rows, t_bins).astype(np.float64, copy=False)
+            for k in ("work0", "wdec0", "cnt0") if k in ct]
         if sim._mig_rm is not None:
-            plane0 += sim._mig_rm[None]
-        return plane0, plane0.sum(axis=2)
-    plane0, work0_sum = step("bincount", plane)
+            out[0] += sim._mig_rm[None]
+        return out, out[0].sum(axis=2)
+    planes0, work0_sum = step("bincount", planes)
+    plane0 = planes0[0]
+    if sim.batching is not None:
+        plane0 = step("law0", lambda: batching.effective_work_np(
+            *planes0, sim._batch_table, sim._batch_cap,
+            sim._batch_window)[0])
 
     def upload():
         chunks = {k: torch.from_numpy(ct[k]).to(dev)
-                  for k in ("src", "offs", "work", "fprow", "row_ptr", "fpr")
+                  for k in ("src", "offs", "work", "fprow", "row_ptr", "fpr",
+                            "wdec", "cntw")
                   if k in ct}
         targets = sim._targets(1, None, None) if adm_on else ()
+        batch = None if sim.batching is None else dict(
+            table=torch.from_numpy(sim._batch_table).to(dev),
+            bcap=sim._batch_cap, window=sim._batch_window)
         return (chunks, torch.from_numpy(plane0.astype(np.float32)).to(dev),
-                torch.from_numpy(work0_sum).to(dev), targets)
-    chunks, work0, work0_sum, targets = step("upload", upload)
+                torch.from_numpy(work0_sum).to(dev), targets, batch)
+    chunks, work0, work0_sum, targets, batch = step("upload", upload)
     out = step("fixed_point", lambda: queueing._fleet_fixed_point(
         sim._device_tables(), chunks, work0, work0_sum,
-        max(1, sim.qcfg.iterations), t_bins, n_rows, True, *targets))
+        max(1, sim.qcfg.iterations), t_bins, n_rows, True, *targets,
+        batch=batch))
 
     def finalize():
         host = {k: v.cpu().numpy()[0] for k, v in out.items() if k != "wait"}
@@ -708,11 +744,16 @@ def phase_fleet(torch) -> tuple[dict, dict, dict, tuple]:
         raise SmokeFailure(f"fleet launch counts {counts} != {want}")
 
     walls = []
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
     for _ in range(2):
         t0 = time.perf_counter()
         again = sim.run()
         torch_sync()
         walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - mem0
+    log(f"fleet run(): peak device memory {peak / 2**20:.1f} MiB above what "
+        "it held before")
     assert_parity(res, again, "card run() vs card run()", rtol=0.0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1219,9 +1260,10 @@ def fleet_plan_lines(res, what: str) -> int:
     return sum(int(p.served.sum()) for p in res.plans)
 
 
-def phase_fleet_admission(torch, world) -> tuple[dict, dict, dict]:
+def phase_fleet_admission(torch, world) -> tuple[dict, dict, dict, tuple]:
     """Returns (admission_window's and admission_ctrl's records on the AIMD
-    run()'s last iteration, the launch counts of that run())."""
+    run()'s last iteration, the launch counts of that run(), the AIMD
+    simulators on the card and on the CPU)."""
     import copy
 
     import numpy as np
@@ -1247,7 +1289,7 @@ def phase_fleet_admission(torch, world) -> tuple[dict, dict, dict]:
     captured: dict[str, list] = {}
     windows: dict[str, list] = {}
     tag = [None]
-    real_ctrl, real_trace = admission.admission_ctrl, queueing.controller_trace
+    real_ctrl, real_states = admission.admission_ctrl, queueing.controller_states
     real_window = admission.admission_window
     last_admit = []
 
@@ -1262,11 +1304,11 @@ def phase_fleet_admission(torch, world) -> tuple[dict, dict, dict]:
                 tuple(a.clone() if torch.is_tensor(a) else a for a in args))
         return real_window(*args)
 
-    def trace_rec(*args, **kw):
-        out = real_trace(*args, **kw)
-        last_admit[:] = [out]
+    def states_rec(*args, **kw):
+        out = real_states(*args, **kw)
+        last_admit[:] = [out[args[7]]]        # the trace: states[seg]
         return out
-    admission.admission_ctrl, queueing.controller_trace = ctrl_rec, trace_rec
+    admission.admission_ctrl, queueing.controller_states = ctrl_rec, states_rec
     admission.admission_window = window_rec
     sims, served = {}, 0
     try:
@@ -1390,7 +1432,7 @@ def phase_fleet_admission(torch, world) -> tuple[dict, dict, dict]:
     finally:
         admission.admission_ctrl = real_ctrl
         admission.admission_window = real_window
-        queueing.controller_trace = real_trace
+        queueing.controller_states = real_states
     if served == 0:
         raise SmokeFailure("no request served under admission: the card vs "
                            "CPU comparisons would hold only failures")
@@ -1426,7 +1468,372 @@ def phase_fleet_admission(torch, world) -> tuple[dict, dict, dict]:
                            f"versions on {bad} (or missed a call: "
                            f"{len(wins)} of 9 windows, {len(recs)} of 11 "
                            "cells)")
-    return wins[2], recs[2], aimd_counts
+    return wins[2], recs[2], aimd_counts, sims["aimd"]
+
+
+# --------------------------------------------------------------------- #
+# Phase 10: the fleet with continuous batching and the flight recorder
+# --------------------------------------------------------------------- #
+
+#: The probe channels ``ProbeRecord`` carries (None where not recorded).
+PROBE_CHANNELS = ("bins", "backlog_s", "util_s", "drops_s", "batch_b",
+                  "qhat_s", "win_s", "admit", "gw_wait_s", "ex_wait_s")
+
+
+def same_results(res_a, res_b, what) -> None:
+    """Bit for bit: served sets and every latency array, NaNs included."""
+    import numpy as np
+    for pa, pb in zip(res_a.plans, res_b.plans, strict=True):
+        for k in ("served", "ttft_s", "e2e_s", "token_total_s"):
+            if not np.array_equal(getattr(pa, k), getattr(pb, k),
+                                  equal_nan=k != "served"):
+                raise SmokeFailure(f"{what}: plan {pa.plan_name} {k} differs")
+
+
+def best_wall_ms(fn, n: int = 2) -> tuple[float, object]:
+    """(best host-clock ms of ``n`` synchronized calls, the last result)."""
+    walls, out = [], None
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        torch_sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return min(walls), out
+
+
+def check_probes(torch, sim, cpu_sim, what: str) -> dict:
+    """``FleetSim(probes=)`` on a card simulator and its CPU twin: a
+    probes-off ``run()``, then probed ones, whose ``last_probes`` must be
+    the CPU's on every channel, then probes off again, which must give the
+    first result bit for bit; the flight log of the probed run exported
+    and validated.  Returns the probe record's cost, measured in one more
+    probed ``run()`` around its two steps, each ended in a synchronize:
+    the channels' gathers on the card (``_probe_channels``) and the
+    host's copies and unwrapping (``FleetSim._record_probes``); the
+    probed and unprobed ``run()`` walls (best of 2 each, host clock), and
+    the trace's event counts."""
+    import numpy as np
+
+    from repro_torch.obs import (ProbeConfig, build_flight_log, chrome_trace,
+                                 count_events, validate_trace)
+    from repro_torch.traffic import queueing
+    off_ms, before = best_wall_ms(sim.run)
+    sim.probes = cpu_sim.probes = ProbeConfig()
+    steps = {"gather_ms": 0.0, "record_ms": 0.0}
+    real_channels, real_record = queueing._probe_channels, sim._record_probes
+
+    def timed_step(key, fn):
+        def call(*args, **kw):
+            torch_sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch_sync()
+            steps[key] += (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+    try:
+        on_ms, probed = best_wall_ms(sim.run)
+        queueing._probe_channels = timed_step("gather_ms", real_channels)
+        sim._record_probes = timed_step("record_ms", real_record)
+        try:
+            sim.run()
+        finally:
+            queueing._probe_channels = real_channels
+            del sim._record_probes
+        rec = sim.last_probes
+        t0 = time.perf_counter()
+        cpu_res = cpu_sim.run()
+        t_cpu = time.perf_counter() - t0
+        cpu_rec = cpu_sim.last_probes
+    finally:
+        sim.probes = cpu_sim.probes = None
+    for name in PROBE_CHANNELS:
+        a, b = getattr(rec, name), getattr(cpu_rec, name)
+        if (a is None) != (b is None) or (a is not None
+                                          and not np.array_equal(a, b)):
+            raise SmokeFailure(f"{what}: probe channel {name} differs "
+                               "between the card and the CPU")
+    assert_parity(cpu_res, probed, f"{what} probed, card vs CPU")
+    same_results(before, probed, f"{what}: probed vs unprobed run()")
+    same_results(before, sim.run(), f"{what}: probes-off run() after a "
+                 "probed one")
+    log_ = build_flight_log(sim, probed, scenario=what)
+    trace = chrome_trace(log_)
+    problems = validate_trace(json.loads(json.dumps(trace)))
+    if problems:
+        raise SmokeFailure(f"{what}: the flight-log trace fails its "
+                           f"schema: {problems[:5]}")
+    events = {ph: count_events(trace, "", ph) for ph in ("X", "C", "i", "M")}
+    out = {**steps, "run_ms": off_ms,
+           "probed_run_ms": on_ms, "recorded_bins": rec.n_recorded,
+           "stride": rec.stride, "channels": [n for n in PROBE_CHANNELS
+                                              if getattr(rec, n) is not None],
+           "trace_events": events, "served": len(log_.served()),
+           "control_events": len(log_.events), "cpu_probed_run_s": t_cpu}
+    if rec.batch_b is not None:
+        out["batch_b_max"] = float(rec.batch_b.max())
+        out["batch_b_mean_where_decode"] = float(
+            rec.batch_b[rec.batch_b > 1.0].mean()) \
+            if (rec.batch_b > 1.0).any() else 1.0
+    log(f"{what} probes: " + json.dumps(out))
+    return out
+
+
+def batching_bench_world():
+    """The world of the reference's ``benchmarks/bench_batching.py`` at its
+    non-fast setting (``bench_traffic._world(False)``): 17 x 16
+    satellites, 20 slots, 16 MoE layers, Zipf 8 experts top-2, the 8
+    default gateways at 10 degrees, SpaceMoE and RandIntra-CG plans, 180 s
+    at 4 requests/s of short prompts; the constellation and the ground
+    segment last."""
+    import numpy as np
+
+    from repro_torch import core
+    from repro_torch.traffic import build_ground_segment, sample_requests
+    con = core.Constellation(core.ConstellationConfig.scaled(17, 16,
+                                                             n_slots=20))
+    link = core.LinkConfig()
+    topo = core.sample_topology(con, link, np.random.default_rng(0))
+    act = core.ActivationModel.zipf(16, 8, 2, seed=0)
+    ground = build_ground_segment(con, link, min_elevation_deg=10.0)
+    plans = [core.spacemoe_plan(con, topo, act),
+             core.rand_intra_cg_plan(con.cfg, 16, 8, np.random.default_rng(3))]
+    req = sample_requests(np.random.default_rng(29), rate_rps=4.0,
+                          horizon_s=180.0, n_stations=ground.n_stations,
+                          prompt_median=4, prompt_max=16, decode_mean=8,
+                          decode_max=16)
+    return topo, act, plans, req, con, ground
+
+
+def frontier_row(regime: str, fraction: float, plan) -> dict:
+    """One frontier point, as ``bench_batching._frontier_row`` reports it."""
+    import numpy as np
+
+    def rnd(x, d):
+        return round(float(x), d) if np.isfinite(x) else None
+    return {"regime": regime, "fraction": fraction, "plan": plan.plan_name,
+            "offered_rps": rnd(plan.offered_rps, 4),
+            "goodput_tok_s": rnd(plan.goodput_tok_s, 3),
+            "ttft_p99_s": rnd(plan.quantile("ttft", 0.99), 3),
+            "drop_rate": round(plan.drop_rate, 4)}
+
+
+def phase_batching_bench(torch) -> dict:
+    """The reference's batching frontier rebuilt with the port: FIFO and
+    ``BatchingConfig(b_max=8)``, each one ``run_many`` over the thinning
+    fractions on the card against the CPU; ``b_max=1`` bitwise FIFO; the
+    best goodput of each regime at p99 TTFT <= 2.5 x the zero-load p99,
+    batched above FIFO (the benchmark's own gate)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.traffic import BatchingConfig, QueueConfig
+    t0 = time.perf_counter()
+    world = batching_bench_world()
+    ground = world[5]
+    qcfg = QueueConfig(dt_s=0.05, tail_s=60.0)
+    req = world[3]
+    log(f"batching bench world: {world[4].cfg.n_sats} satellites, "
+        f"{world[0].n_slots} slots, R={req.n_requests} requests, "
+        f"N={req.total_decode_tokens} decode tokens, built "
+        f"{time.perf_counter() - t0:.1f}s")
+    regimes = {"fifo": None, "batched": BatchingConfig(b_max=BATCH_B_MAX),
+               "b_max=1": BatchingConfig(b_max=1)}
+    sims = {name: build_fleet(world, "cuda", seed=23, qcfg=qcfg,
+                              ground=ground, req=req, batching=cfg)[0]
+            for name, cfg in regimes.items()}
+    sim = sims["fifo"]
+    log(f"batching bench FleetSim: T={sim.n_bins} bins, SR={sim.n_rows} "
+        f"compact rows, {sim._f_req.size} chunks")
+    base = sim.run(zero_load=True)
+    ttft0_p99 = max(p.quantile("ttft", 0.99) for p in base.plans)
+    ttft_bound = BATCH_TTFT_BOUND_SCALE * ttft0_p99
+    u = np.random.default_rng(31).random(req.n_requests)
+    fractions = np.asarray(BATCH_FRACTIONS)
+    masks = u[None, :] < fractions[:, None]
+    rows, many, out = [], {}, {}
+    for name, sim in sims.items():
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        many[name] = sim.run_many(masks)
+        torch_sync()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        want = {"deposit": 2 if regimes[name] is None else 6,
+                "backlog_scan": 3}
+        log(f"batching bench {name} run_many over {list(BATCH_FRACTIONS)}: "
+            f"{wall * 1e3:.1f} ms wall (synchronized, first call), launch "
+            f"counts {json.dumps(counts)}")
+        if {k: counts[k] for k in want} != want:
+            raise SmokeFailure(f"batching bench {name} launch counts "
+                               f"{counts} != {want}")
+        out[f"{name}_run_many_ms"] = wall * 1e3
+    same = [same_results(a, b, f"b_max=1 vs FIFO fraction {f}")
+            for f, a, b in zip(BATCH_FRACTIONS, many["fifo"], many["b_max=1"])]
+    log(f"batching bench: b_max=1 bitwise FIFO at all {len(same)} fractions")
+    for name in ("fifo", "batched"):
+        cpu_sim, _ = build_fleet(world, "cpu", seed=23, qcfg=qcfg,
+                                 ground=ground, req=req,
+                                 batching=regimes[name])
+        t0 = time.perf_counter()
+        cpu_many = cpu_sim.run_many(masks)
+        t_cpu = time.perf_counter() - t0
+        exact = True
+        for frac, r, r_cpu in zip(BATCH_FRACTIONS, many[name], cpu_many):
+            assert_parity(r_cpu, r, f"batching bench {name} fraction {frac} "
+                          "card vs CPU")
+            try:
+                same_results(r_cpu, r, "")
+            except SmokeFailure:
+                exact = False
+            rows += [frontier_row(name, float(frac), p) for p in r.plans]
+        log(f"batching bench {name}: card vs CPU parity holds at every "
+            f"fraction, bitwise equal: {exact} (CPU run_many {t_cpu:.1f}s)")
+        del cpu_sim
+    for r in rows:
+        log("batching frontier " + json.dumps(r))
+    for name in ("fifo", "batched"):
+        ok = [r for r in rows if r["regime"] == name
+              and r["ttft_p99_s"] is not None and r["ttft_p99_s"] <= ttft_bound]
+        out[f"best_goodput_{name}"] = max(
+            (r["goodput_tok_s"] or 0.0 for r in ok), default=0.0)
+    out.update(zero_load_ttft_p99_s=ttft0_p99, ttft_bound_s=ttft_bound,
+               capacity_gain=(out["best_goodput_batched"]
+                              / out["best_goodput_fifo"]
+                              if out["best_goodput_fifo"] > 0 else None))
+    log(f"batching bench: zero-load p99 TTFT {ttft0_p99:.3f} s, bound "
+        f"{ttft_bound:.3f} s; best goodput within it: FIFO "
+        f"{out['best_goodput_fifo']:.3f}, batched "
+        f"{out['best_goodput_batched']:.3f} tok/s (gain "
+        f"{out['capacity_gain']})")
+    if not out["best_goodput_batched"] > out["best_goodput_fifo"]:
+        raise SmokeFailure("batching bench: batched goodput does not beat "
+                           "FIFO at the matched p99 TTFT bound")
+    return out
+
+
+def phase_fleet_batching(torch, world, adm_sims) -> None:
+    """Phase 7's world under ``BatchingConfig(b_max=8)``: ``run()`` on the
+    card (deposit 6, backlog_scan 3 launches), its wall and device time,
+    busy share, peak memory, host steps and the law's device time; the
+    deposit kernel bitwise on the decode-work and decode-visit tables the
+    run gave it; the card against the CPU; then the flight recorder on it
+    and on phase 9's AIMD ``run()``, and the reference's batching
+    frontier (:func:`phase_batching_bench`)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import deposit as dep
+    from repro_torch.kernels import ops
+    from repro_torch.traffic import BatchingConfig, queueing
+    cfg = BatchingConfig(b_max=BATCH_B_MAX)
+    sim, t_build = build_fleet(world, "cuda", batching=cfg)
+    log(f"batched FleetSim on the card: T={sim.n_bins} bins, {sim.n_rows} "
+        f"compact rows, {sim._f_req.size} chunks, speedup table "
+        f"{np.round(sim._batch_table, 4).tolist()}, built in {t_build:.1f}s")
+    captured = []
+    real_deposit = queueing.deposit
+
+    def deposit_rec(rows, cols, vals, n_rows, n_cols, row_ptr):
+        if len(captured) < 3:
+            captured.append((rows.clone(), cols.clone(), vals.clone(), n_rows,
+                             n_cols, row_ptr.clone()))
+        return real_deposit(rows, cols, vals, n_rows, n_cols,
+                            row_ptr=row_ptr)
+    queueing.deposit = deposit_rec
+    try:
+        ops.reset_launch_counts()
+        res = sim.run()
+        torch_sync()
+        counts = ops.launch_counts()
+    finally:
+        queueing.deposit = real_deposit
+    want = {"deposit": 6, "backlog_scan": 3}
+    log(f"batched run() launch counts {json.dumps(counts)} (expected "
+        f"{json.dumps(want)})")
+    if {k: counts[k] for k in want} != want:
+        raise SmokeFailure(f"batched run() launch counts {counts} != {want}")
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    wall_ms, again = best_wall_ms(sim.run)
+    peak = torch.cuda.max_memory_allocated() - mem0
+    log(f"batched run(): peak device memory {peak / 2**20:.1f} MiB above what "
+        "it held before")
+    same_results(res, again, "batched card run() vs run()")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run()
+        torch_sync()
+        prof_wall = time.perf_counter() - t0
+    kernels = device_times(prof, 1)
+    busy = sum(k[0] for k in kernels) / 1e3
+    per = {name: sum(ms for ms, _, key in kernels
+                     if any(k in key for k in cuda_names))
+           for name, cuda_names in FLEET_KERNELS.items()}
+    log(f"batched run(): {wall_ms:.1f} ms wall (best of 2, synchronized); "
+        f"under the profiler {prof_wall * 1e3:.1f} ms wall, device kernels "
+        f"{busy * 1e3:.1f} ms -> device busy {busy / prof_wall:.1%}, idle "
+        f"{1 - busy / prof_wall:.1%} ({sum(k[1] for k in kernels):.0f} "
+        f"kernel launches); deposit {per['deposit']:.3f} ms over 6 calls, "
+        f"backlog_scan {per['backlog_scan']:.3f} ms over 3")
+    for ms, calls, name in sorted(kernels, reverse=True)[:10]:
+        log(f"batched profile: {ms:9.3f} ms {calls:6.0f} calls  {name[:80]}")
+    for _ in range(2):
+        steps = fleet_host_steps(torch, sim, res)
+        log(f"batched run() itemized (host clock, each step ends in a "
+            f"synchronize; ms): {json.dumps(steps)}")
+
+    # The law on iteration 2's three planes, as run() deposited them.
+    planes = [dep.deposit(*t[:5], row_ptr=t[5]) for t in captured]
+    batch = dict(table=torch.from_numpy(sim._batch_table).cuda(),
+                 bcap=sim._batch_cap, window=sim._batch_window)
+    law_ms, law_wall_ms, _ = time_ms(
+        torch, lambda: queueing._effective_plane(*planes, batch), iters=3)
+    torch_sync()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    queueing._effective_plane(*planes, batch)
+    torch_sync()
+    law_peak = torch.cuda.max_memory_allocated() - mem0
+    cells = planes[0].numel()
+    log(f"batching law: {law_ms:.3f} ms device ({law_wall_ms:.3f} wall) per "
+        f"iteration on {tuple(planes[0].shape)} f64 planes, "
+        f"{-(-cells // queueing.LAW_BLOCK_CELLS)} row blocks; peak "
+        f"{law_peak / 2**20:.1f} MiB above its three input planes "
+        f"({3 * cells * 8 / 2**20:.1f} MiB); bound (3 f64 reads, one f32 "
+        f"write) {bound(28 * cells, 0, 'float64')[0]:.4f} ms")
+    del planes
+    deps = [check_deposit(torch, captured[i], f"batched run() {what}")
+            for i, what in ((1, "wdec"), (2, "cnt"))]
+    del captured
+    for d in deps:
+        log("kernel " + json.dumps(d))
+    if not all(d["ok"] for d in deps):
+        raise SmokeFailure("deposit disagrees with its plain version on the "
+                           "batching tables")
+
+    cpu_sim, t_cpu_build = build_fleet(world, "cpu", batching=cfg)
+    t0 = time.perf_counter()
+    res_cpu = cpu_sim.run()
+    t_cpu = time.perf_counter() - t0
+    served = assert_parity(res_cpu, res, "batched card run() vs CPU")
+    try:
+        same_results(res_cpu, res, "")
+        exact = True
+    except SmokeFailure:
+        exact = False
+    log(f"batched card vs CPU run(): parity holds, {served} requests served "
+        f"over the plans on both, bitwise equal: {exact} (CPU construction "
+        f"{t_cpu_build:.1f}s, run() {t_cpu:.1f}s)")
+    for p in res.plans:
+        log(f"batched plan {p.plan_name}: served {int(p.served.sum())}/"
+            f"{int(p.active.sum())}, TTFT p50 {p.quantile('ttft', 0.5):.3f} s"
+            f" p99 {p.quantile('ttft', 0.99):.3f} s")
+    check_probes(torch, sim, cpu_sim, "batched run()")
+    del sim, cpu_sim
+    check_probes(torch, *adm_sims, "AIMD run()")
+    phase_batching_bench(torch)
 
 
 def main() -> int:
@@ -1472,8 +1879,10 @@ def main() -> int:
     main_cases.update(timed("fleet_kernels", phase_fleet_kernels, torch,
                             captured, in_run))
     del captured
-    win_rec, ctrl_rec, adm_counts = timed(
+    win_rec, ctrl_rec, adm_counts, adm_sims = timed(
         "fleet_admission", phase_fleet_admission, torch, world)
+    timed("fleet_batching", phase_fleet_batching, torch, world, adm_sims)
+    del adm_sims
     main_cases["admission_window"] = win_rec
     main_cases["admission_ctrl"] = ctrl_rec
     mixed = [name for name, rec in main_cases.items() if not rec["hidden"]]

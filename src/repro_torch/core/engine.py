@@ -308,6 +308,62 @@ def schedule_ingress_offsets(batch: ScheduleBatch, slots: np.ndarray,
     return batch.base.dist[slots[None, :], g0, ingress_sats[None, :]]
 
 
+def eq43_layer_terms(batch: ScheduleBatch, sched: int, slots: np.ndarray,
+                     draws: np.ndarray, t_gateway: float,
+                     t_expert: float = 0.0,
+                     expert_sec: np.ndarray | None = None,
+                     inv_speed: np.ndarray | None = None) -> dict:
+    """Per-(token, layer, branch) decomposition of the Eq. 43 layer cost
+    (host numpy, the reference's function): the engine's indexing with
+    current-slot paths, so the flight recorder can split a token's
+    zero-load layer latency into outbound hop, expert service under
+    colocation contention and return hop.
+
+    Args:
+        batch: The :class:`ScheduleBatch` the run evaluated.
+        sched: Schedule row q to decompose.
+        slots: (T,) topology slot per token.
+        draws: (L, T, K) expert draws.
+        t_gateway: Gateway service seconds per layer.
+        t_expert: Analytic per-expert service seconds (used when the
+            calibrated tables below are absent).
+        expert_sec: Optional (I,) calibrated per-expert service seconds.
+        inv_speed: Optional (V,) per-satellite inverse speed factors
+            (both given => the calibrated Eq. 43 service term).
+
+    Returns:
+        Dict of arrays: ``d_out``/``d_in``/``t_exp`` (T, L, K) seconds,
+        ``q`` (T, L, K) colocation counts, ``sats`` (T, L, K) serving
+        satellites, and ``layer_s`` (T, L) — ``t_gateway + max_K(d_out +
+        t_exp + d_in)`` with unreachable branches as NaN.
+    """
+    base = batch.base
+    slots = np.asarray(slots)
+    rows = np.asarray(batch.plan_row)[int(sched), slots]        # (T,)
+    g_tok = np.asarray(base.g_idx)[rows]                        # (T, L)
+    g_next = np.roll(g_tok, -1, axis=1)   # ring wrap for the last layer
+    eta_tok = np.asarray(base.eta)[rows]                        # (T,)
+    draws_tlk = np.moveaxis(np.asarray(draws), 0, 1)            # (T, L, K)
+    sats = np.take_along_axis(np.asarray(base.expert_sats)[rows],
+                              draws_tlk, axis=2)                # (T, L, K)
+    dist = np.asarray(base.dist)
+    s3 = slots[:, None, None]
+    d_out = dist[s3, g_tok[:, :, None], sats]
+    d_in = dist[s3, g_next[:, :, None], sats]
+    q = (sats[..., :, None] == sats[..., None, :]).sum(axis=-1)
+    if expert_sec is not None and inv_speed is not None:
+        unit = np.asarray(expert_sec)[draws_tlk] \
+            * np.asarray(inv_speed)[sats]
+    else:
+        unit = t_expert
+    t_exp = (np.asarray(q, dtype=dist.dtype)
+             / eta_tok[:, None, None]) * unit
+    layer = t_gateway + (d_out + t_exp + d_in).max(axis=2)      # (T, L)
+    layer = np.where(np.isfinite(layer), layer, np.nan)
+    return dict(d_out=d_out, d_in=d_in, q=q, t_exp=t_exp, sats=sats,
+                layer_s=layer)
+
+
 # --------------------------------------------------------------------- #
 # The batched pass
 # --------------------------------------------------------------------- #

@@ -75,24 +75,33 @@ def qhat_trace(wait: torch.Tensor, work_last: torch.Tensor, cap: torch.Tensor,
     """
     n_bins, n_f, _ = wait.shape
     last = torch.clamp_min(torch.minimum(wait[-1] + work_last, cap) - dt, 0.0)
-    n_layers = gw_rows.shape[2]
     n_p, n_li = exp_rows.shape[1], exp_rows.shape[2]
     out = torch.empty((n_bins, n_f, n_p), dtype=torch.float32,
                       device=wait.device)
     step = max(1, QHAT_CHUNK_ELEMS // max(1, n_f * n_p * n_li))
-    f_idx = torch.arange(n_f, device=wait.device)[None, :, None, None]
     for t0 in range(0, n_bins, step):
         t1 = min(n_bins, t0 + step)
         after = wait[t0 + 1:t1 + 1]
         if t1 == n_bins:
             after = torch.cat([after, last[None]])
-        t_idx = torch.arange(t1 - t0, device=wait.device)[:, None, None, None]
         rows = bin_map[t0:t1]
-        gw = after[t_idx, f_idx, gw_rows[rows][:, None]]      # (Tc,F,P,L)
-        ex = after[t_idx, f_idx, exp_rows[rows][:, None]]     # (Tc,F,P,LI)
-        ex = ex.reshape(t1 - t0, n_f, n_p, n_layers, -1).amax(dim=4)
-        out[t0:t1] = _seq_sum(gw) + _seq_sum(ex)
+        out[t0:t1] = qhat_of(after, gw_rows[rows], exp_rows[rows])
     return out
+
+
+def qhat_of(after: torch.Tensor, gw_rows: torch.Tensor,
+            exp_rows: torch.Tensor) -> torch.Tensor:
+    """(n, F, P) qhat of n bins from the backlog after each, ``after``
+    (n, F, C), and each bin's gateway columns (n, P, L) and (layer,
+    expert) columns (n, P, L * I), as :func:`qhat_trace` sums them."""
+    n, n_f, _ = after.shape
+    n_p, n_layers = gw_rows.shape[1], gw_rows.shape[2]
+    t_idx = torch.arange(n, device=after.device)[:, None, None, None]
+    f_idx = torch.arange(n_f, device=after.device)[None, :, None, None]
+    gw = after[t_idx, f_idx, gw_rows[:, None]]                 # (n,F,P,L)
+    ex = after[t_idx, f_idx, exp_rows[:, None]]                # (n,F,P,LI)
+    ex = ex.reshape(n, n_f, n_p, n_layers, -1).amax(dim=4)
+    return _seq_sum(gw) + _seq_sum(ex)
 
 
 def control_segments(ctrl: torch.Tensor) -> tuple[torch.Tensor, int]:

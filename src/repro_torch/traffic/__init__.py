@@ -3,9 +3,10 @@
 Counterpart of ``repro.traffic`` for the fleet fast path: request traces
 (:mod:`.requests`), the ground segment (:mod:`.ground`), the
 per-satellite fleet queue and its fused fixed point (:mod:`.queueing`),
-latency-target admission control with gateway retry (:mod:`.admission`)
-and serving metrics (:mod:`.metrics`).  Not ported yet: continuous
-batching, re-placement, scenarios and federation.
+continuous decode batching for it (:mod:`.batching`), latency-target
+admission control with gateway retry (:mod:`.admission`) and serving
+metrics (:mod:`.metrics`).  Not ported yet: re-placement, scenarios and
+federation.
 
 Shape conventions: ``P`` plan/schedule rows, ``R`` requests, ``N``
 decode tokens, ``M = R + N`` engine tokens, ``L`` layers, ``I`` experts
@@ -15,6 +16,8 @@ retries), ``F`` sweep entries of one fused launch.
 """
 from .admission import (AdmissionConfig, admission_queue_scan,
                         control_bin_flags, resolve_admission)
+from .batching import (BatchingConfig, batched_effective_work,
+                       effective_work_np, windowed_counts)
 from .ground import (DEFAULT_STATIONS, GroundSegment, GroundStation,
                      build_ground_segment, ground_delay_table,
                      rank_constellations)
@@ -30,6 +33,8 @@ from .requests import (RequestBatch, diurnal_rate, hotspot_rate,
 __all__ = [
     "AdmissionConfig", "admission_queue_scan", "control_bin_flags",
     "resolve_admission",
+    "BatchingConfig", "batched_effective_work", "effective_work_np",
+    "windowed_counts",
     "DEFAULT_STATIONS", "GroundSegment", "GroundStation",
     "build_ground_segment", "ground_delay_table", "rank_constellations",
     "SLO", "PlanTraffic", "SaturationResult", "TrafficResult",

@@ -23,7 +23,7 @@ never reads the controller's state, so it is computed apart from it:
    t carries the value before bin t's own update).
 
 The fused fleet fixed point (``queueing._fleet_fixed_point``) runs the
-same steps 2-4 through :func:`controller_trace`.
+same steps 2-4 through :func:`controller_states`.
 """
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ from ..kernels.admission_ctrl import admission_ctrl
 from ..kernels.admission_window import (  # noqa: F401 (qhat_trace: public)
     admission_window, control_segments, qhat_trace)
 from ..kernels.backlog_scan import backlog_scan
+from .batching import batched_effective_work
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,28 +112,30 @@ class AdmissionConfig:
         return self.max_retries + 1
 
 
-def controller_trace(wait: torch.Tensor, work_last: torch.Tensor, cap: float,
-                     dt: float, gw_rows: torch.Tensor, exp_rows: torch.Tensor,
-                     bin_map: torch.Tensor, seg: torch.Tensor, n_ctrl: int,
-                     ttft0: torch.Tensor, tpot0: torch.Tensor,
-                     admit0: torch.Tensor, ttft_target: torch.Tensor,
-                     tpot_target: torch.Tensor, *, increase: float,
-                     decrease: float, admit_min: float,
-                     pid: dict | None = None) -> torch.Tensor:
-    """(T, F, P, G) float32 admission probability in effect during each bin.
+def controller_states(wait: torch.Tensor, work_last: torch.Tensor,
+                      cap: float, dt: float, gw_rows: torch.Tensor,
+                      exp_rows: torch.Tensor, bin_map: torch.Tensor,
+                      seg: torch.Tensor, n_ctrl: int, ttft0: torch.Tensor,
+                      tpot0: torch.Tensor, admit0: torch.Tensor,
+                      ttft_target: torch.Tensor, tpot_target: torch.Tensor,
+                      *, increase: float, decrease: float, admit_min: float,
+                      pid: dict | None = None) -> torch.Tensor:
+    """(n_ctrl + 1, F, P, G) float32 controller states: ``admit0``, then
+    the admission probability after each control bin's update.
 
     ``wait`` (T, F, C) float32 wait trace through ``n_ctrl`` as
     :func:`~repro_torch.kernels.admission_window.admission_window` takes
     them (``seg`` from :func:`control_segments` of the control flags);
     the rest as :func:`~repro_torch.kernels.admission_ctrl.admission_ctrl`
-    takes them.
+    takes them.  Bin t runs under ``states[seg[t]]`` and leaves
+    ``states[seg[t] + ctrl[t]]`` behind it.
     """
     win = admission_window(wait, work_last, cap, dt, gw_rows, exp_rows,
                            bin_map, seg, n_ctrl)
     out = admission_ctrl(win, ttft0, tpot0, admit0, ttft_target,
                          tpot_target, increase=increase, decrease=decrease,
                          admit_min=admit_min, pid=pid)
-    return torch.cat([admit0[None], out])[seg]
+    return torch.cat([admit0[None], out])
 
 
 def admission_queue_scan(work, cap, dt, ttft0, tpot0, ctrl, gw_idx, exp_idx,
@@ -146,19 +149,30 @@ def admission_queue_scan(work, cap, dt, ttft0, tpot0, ctrl, gw_idx, exp_idx,
     ``ctrl`` (T,) bool, ``gw_idx`` (T, P, L) and ``exp_idx`` (T, P, L*I)
     stations per bin, ``admit0`` (P, G), the margin-scaled scalar targets,
     the AIMD constants and ``pid`` (``kp``/``ki``/``kd`` and ``gain``
-    (P,)) or None.  ``batching`` is not ported yet (raises).
+    (P,)) or None.  ``batching``: None, or the continuous-batching planes
+    ``work_dec`` and ``cnt_win`` (P, S, T) (decode work and the windowed
+    occupancy) with ``table`` and ``bcap`` (the padded speedup table and
+    batch cap): :func:`~.batching.batched_effective_work` rewrites
+    ``work`` in the inputs' dtype before the scan, as the reference's
+    does.
 
     Returns:
         (wait, dropped, admit): wait/dropped (P, S, T) float32 exactly as
         the plain fleet scan; admit (P, G, T), the admission probability
         in effect during each bin.
     """
-    if batching is not None:
-        raise NotImplementedError(
-            "admission_queue_scan(batching=...) is not ported to repro_torch "
-            "yet (it comes with the batching slice of the port); use the "
-            "reference repro.traffic")
     dev = work.device
+    if batching is not None:
+        planes = [torch.as_tensor(batching[k], device=dev)
+                  for k in ("work_dec", "cnt_win")]
+        if any(t.shape != work.shape for t in planes):
+            raise ValueError(
+                "admission_queue_scan: the batching planes must be shaped "
+                f"like work {tuple(work.shape)}, not "
+                f"{[tuple(t.shape) for t in planes]}")
+        work, _ = batched_effective_work(
+            work, *planes, torch.as_tensor(batching["table"], device=dev),
+            float(batching["bcap"]))
     f32 = torch.float32
     n_p, n_s, n_bins = work.shape
     w32 = work.to(f32)
@@ -180,14 +194,14 @@ def admission_queue_scan(work, cap, dt, ttft0, tpot0, ctrl, gw_idx, exp_idx,
 
     def target(x):
         return torch.full((1,), float(x), dtype=f32, device=dev)
-    admit = controller_trace(
+    admit = controller_states(
         wait_t[:, None], w32[..., -1].reshape(1, -1), float(cap32),
         float(dt32), gw_rows, exp_rows, torch.arange(n_bins, device=dev),
         seg, n_ctrl, torch.as_tensor(ttft0, device=dev).to(f32),
         torch.as_tensor(tpot0, device=dev).to(f32),
         torch.as_tensor(admit0, device=dev).to(f32)[None],
         target(ttft_target), target(tpot_target), increase=increase,
-        decrease=decrease, admit_min=admit_min, pid=pid_t)   # (T, 1, P, G)
+        decrease=decrease, admit_min=admit_min, pid=pid_t)[seg]  # (T,1,P,G)
     return wait, dropped, admit[:, 0].permute(1, 2, 0)
 
 

@@ -34,11 +34,17 @@ maxima of qhat and the ``admission_ctrl`` cell over control bins) is
 resolved into shed
 requests and gateway retries between fixed-point iterations.
 
-Not ported yet (each raises ``NotImplementedError``): continuous
-batching (``batching=``), the telemetry probes (``probes=``) and the
-joint re-placement control plane (``run(replan=...)``).  The reference's
-jit and compile-cache machinery has no counterpart here: PyTorch runs
-eagerly.
+Under continuous batching (``batching=``, :mod:`.batching`) every
+deposit also lays down the decode work and the decode visits, and the
+scan takes the effective work of the law.  With probes (``probes=``,
+:mod:`repro_torch.obs.probes`) every launch leaves ``last_probes``: the
+reference writes its probe ring from inside its scans, bin by bin; here
+the final iteration's channels are gathered after its scan at the bins
+the ring keeps.
+
+Not ported yet (raises ``NotImplementedError``): the joint re-placement
+control plane (``run(replan=...)``).  The reference's jit and
+compile-cache machinery has no counterpart here: PyTorch runs eagerly.
 """
 from __future__ import annotations
 
@@ -55,11 +61,15 @@ from ..core.engine import (ScheduleBatch, evaluate_schedules,
 from ..core.latency import ComputeConfig, TopologySample
 from ..core.schedule import as_schedule, slot_of_time
 from ..core.workload import MoEWorkload
-from ..kernels.admission_window import _seq_sum
+from ..kernels.admission_window import _seq_sum, qhat_of
 from ..kernels.backlog_scan import backlog_scan
 from ..kernels.deposit import deposit
+from ..obs.probes import ProbeConfig, ProbeRecord, make_buffers, ring_bins
 from .admission import (admission_queue_scan, control_bin_flags,
-                        control_segments, controller_trace, resolve_admission)
+                        control_segments, controller_states, resolve_admission)
+from .batching import (BatchingConfig, batch_speedup_at,
+                       batched_effective_work, effective_work_np,
+                       windowed_counts, windowed_counts_torch)
 from .ground import GroundSegment
 from .metrics import PlanTraffic, TrafficResult
 from .requests import RequestBatch
@@ -69,6 +79,13 @@ def _not_ported(what: str, slice_: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (it comes with the "
         f"{slice_} slice of the port); use the reference repro.traffic")
+
+
+def _check_config(value, cls, name: str) -> None:
+    """Refuse a ``name=`` option that is neither None nor a ``cls``."""
+    if value is not None and not isinstance(value, cls):
+        raise TypeError(f"{name}= takes a {cls.__name__} or None, not "
+                        f"{type(value).__name__}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,9 +153,11 @@ def station_waiting_times(
 ) -> np.ndarray:
     """Per-arrival waiting times at one FIFO station via the fleet scan,
     refined with the exact within-bin Lindley correction (the reference's
-    single-station M/D/1 check).  ``batching`` is not ported yet."""
-    if batching is not None:
-        raise _not_ported("station_waiting_times(batching=...)", "batching")
+    single-station M/D/1 check).  ``batching``: an optional
+    :class:`~.batching.BatchingConfig`, whose law scales the station's
+    work (each arrival one occupancy unit) and the within-bin prior work
+    by the bin's speedup."""
+    _check_config(batching, BatchingConfig, "batching")
     t = np.asarray(arrival_s, dtype=np.float64)
     if len(t) and not (np.diff(t) >= 0).all():
         raise ValueError("arrivals must be sorted")
@@ -148,13 +167,23 @@ def station_waiting_times(
     n_bins = int(np.floor(horizon / dt_s)) + 2
     bins = np.minimum((t / dt_s).astype(np.int64), n_bins - 1)
     work = np.bincount(bins, weights=s, minlength=n_bins)
+    sp_bin = np.ones(n_bins)
+    if batching is not None:
+        cnt = np.bincount(bins, minlength=n_bins).astype(np.float64)
+        table = batching.resolve_table()
+        work, _ = effective_work_np(
+            work, work, cnt, table, batching.b_cap,
+            batching.window_bins(dt_s))
+        sp_bin, _ = batch_speedup_at(
+            windowed_counts(cnt, batching.window_bins(dt_s)),
+            table, batching.b_cap)
     dev = resolve_device(device)
     wait_bins = _fleet_queue_scan(
         torch.from_numpy(work[None, None, :]).to(dev), float(buffer_s),
         dt_s)[0][0, 0].cpu().numpy()
     cs = np.cumsum(s)
     first = np.searchsorted(bins, bins, side="left")
-    prior = (cs - s) - (cs[first] - s[first])
+    prior = ((cs - s) - (cs[first] - s[first])) / sp_bin[bins]
     delta = t - bins * dt_s
     return np.maximum(wait_bins[bins] + prior - delta, 0.0)
 
@@ -225,28 +254,116 @@ def _resolve_attempts(q: dict, admit_floor: torch.Tensor):
     return shed, retries, ingress_extra
 
 
+#: Cells of the (F * rows, T) plane the batching law takes at a time: its
+#: float64 temporaries (about 16 of them) stay near 16 * 8 bytes a cell
+#: of one block, not of the plane (9,504 x 40,966 cells, 3.1 GB a plane,
+#: on the paper's world at F = 11).
+LAW_BLOCK_CELLS = 1 << 24
+
+
+def _effective_plane(work: torch.Tensor, work_dec: torch.Tensor,
+                     cnt: torch.Tensor, batch: dict,
+                     bins: torch.Tensor | None = None):
+    """The batching law over (rows, T) float64 planes, a block of rows at a
+    time: ``(work_eff, beff_at)`` with ``work_eff`` (rows, T) float32 (the
+    law in float64, then the scan's downcast) and ``beff_at`` (rows, B)
+    float32, B_eff at the bins ``bins`` (None without ``bins``)."""
+    n_rows, n_bins = work.shape
+    out = torch.empty((n_rows, n_bins), dtype=torch.float32,
+                      device=work.device)
+    beff_at = None if bins is None else torch.empty(
+        (n_rows, bins.numel()), dtype=torch.float32, device=work.device)
+    step = max(1, LAW_BLOCK_CELLS // max(1, n_bins))
+    for r0 in range(0, n_rows, step):
+        rs = slice(r0, r0 + step)
+        eff, beff = batched_effective_work(
+            work[rs], work_dec[rs],
+            windowed_counts_torch(cnt[rs], batch["window"]), batch["table"],
+            batch["bcap"])
+        out[rs] = eff
+        if bins is not None:
+            beff_at[rs] = beff[:, bins]
+    return out, beff_at
+
+
+def _probe_channels(q: dict, probe: dict, wait_t: torch.Tensor,
+                    work32: torch.Tensor, beff_at: torch.Tensor | None,
+                    states: torch.Tensor | None) -> dict:
+    """The probe ring's channels at the recorded bins ``probe["bins"]``
+    (B,), taken from one iteration's scan: ``rows`` (B, C, F, SR) float32
+    (the backlog before the bin, the work the scan took, the overflow
+    ``max(wait + work - cap, 0)`` and under batching B_eff), and under
+    admission ``aimd`` (B, 2, F, P) (qhat after the bin, the controller's
+    window maximum after it, 0 at a control bin) and ``admit`` (B, F, P,
+    G) (the controller's state after the bin): what the reference's
+    scans write into the ring at those bins."""
+    bins = probe["bins"]
+    wait_b = wait_t[bins]                                     # (B, F, SR)
+    work_b = work32[:, :, bins].permute(2, 0, 1)
+    chans = [wait_b, work_b,
+             torch.clamp_min((wait_b + work_b) - q["cap"], 0.0)]
+    if beff_at is not None:
+        chans.append(beff_at.permute(2, 0, 1))
+    out = dict(rows=torch.stack(chans, dim=1))
+    if states is None:
+        return out
+    # qhat after each bin of each recorded bin's control window (the
+    # recorded bin last; shorter windows repeat it): its window maximum
+    # is the controller's running window.
+    idx = probe["win_idx"]                                    # (B, W)
+    flat = idx.reshape(-1)
+    n_bins = wait_t.shape[0]
+    dt32 = torch.tensor(q["dt32"], dtype=torch.float32, device=wait_t.device)
+    last = torch.clamp_min(torch.minimum(wait_t[-1] + work32[:, :, -1],
+                                         q["cap"]) - dt32, 0.0)
+    after = torch.where((flat == n_bins - 1)[:, None, None], last[None],
+                        wait_t[torch.clamp_max(flat + 1, n_bins - 1)])
+    slot = q["slot_of_bin"][flat].long()
+    qhat = qhat_of(after, q["gw_rows_slot"][slot].long(),
+                   q["exp_rows_slot"][slot].long()).reshape(
+                       idx.shape + after.shape[1:2] + (-1,))  # (B, W, F, P)
+    win = torch.where(probe["win_ctrl"][:, None, None], 0.0,
+                      qhat.amax(dim=1))
+    out["aimd"] = torch.stack([qhat[:, -1], win], dim=1)
+    out["admit"] = states[probe["state_idx"]]
+    return out
+
+
 def _fleet_fixed_point(q: dict, chunks: dict, work0: torch.Tensor,
                        work0_sum: torch.Tensor, n_iter: int, n_bins: int,
                        n_rows: int, want_wait: bool,
                        ttft_target: torch.Tensor | None = None,
-                       tpot_target: torch.Tensor | None = None) -> dict:
+                       tpot_target: torch.Tensor | None = None, *,
+                       batch: dict | None = None,
+                       probe: dict | None = None) -> dict:
     """The fused fixed point of ``FleetSim.run``, over a sweep axis F.
 
-    The reference's ``_fleet_fixed_point`` (plan-leading tables; batching
-    and probes off): every tensor lives on one device; schedules, bins
-    and deposits in float64, the backlog scan in float32 over the
-    time-major view of the (F, rows, T) work plane.  The first iteration
-    is peeled: its zero-wait schedule is static, so its work plane
-    ``work0`` (F, rows, T) float32 and per-row sums ``work0_sum`` arrive
-    precomputed, and the deposit runs for iterations 2..n only.
+    The reference's ``_fleet_fixed_point`` (plan-leading tables): every
+    tensor lives on one device; schedules, bins and deposits in float64,
+    the backlog scan in float32 over the time-major view of the (F, rows,
+    T) work plane.  The first iteration is peeled: its zero-wait schedule
+    is static, so its work plane ``work0`` (F, rows, T) float32 and
+    per-row sums ``work0_sum`` arrive precomputed, and the deposit runs
+    for iterations 2..n only.
 
     Under admission (``q`` holds the controller's tables and the targets
     are given) each iteration also runs the controller over the new wait
-    trace (:func:`.admission.controller_trace`), keeps the admit trace as
-    a running minimum (so the shed set only grows), resolves every
+    trace (:func:`.admission.controller_states`), keeps the admit trace
+    as a running minimum (so the shed set only grows), resolves every
     request's attempts (:func:`_resolve_attempts`), and the next
     iteration's deposits skip shed requests and start each request after
     the ingress latency of the attempt it took.
+
+    Under continuous batching (``batch``) each deposit is three: the
+    work, the decode work (``chunks["wdec"]``) and the decode visits
+    (``chunks["cntw"]``) over the same rows and bins; the scan and the
+    gathers take the effective work (:func:`_effective_plane`),
+    ``work_sum`` stays the raw offered sum.  ``work0`` is then the
+    effective plane of iteration 1 (computed on the host).
+
+    With ``probe`` the final iteration's channels are taken at the
+    recorded bins (:func:`_probe_channels`) into ``out["probe"]``, with
+    that iteration's gathered waits (``probe_gw_wait``/``probe_ex_wait``).
 
     Args:
         q: Device tables (:meth:`FleetSim._device_tables`).
@@ -254,22 +371,34 @@ def _fleet_fixed_point(q: dict, chunks: dict, work0: torch.Tensor,
             F-flattened [layer_arr | exp_arr] pair), ``offs`` (chunk
             offset in bins), ``work`` (seconds), ``fprow`` (row of the
             (F * rows) plane), ``row_ptr`` (the table's row grouping,
-            see ``kernels.deposit``) and under admission ``fpr`` (index
-            into the (F, P, R) shed mask).
-        work0: (F, rows, T) float32 iteration-1 offered work.
-        work0_sum: (F, rows) float64 per-row sum of iteration-1 work.
+            see ``kernels.deposit``), under admission ``fpr`` (index
+            into the (F, P, R) shed mask) and under batching ``wdec`` and
+            ``cntw``.
+        work0: (F, rows, T) float32 iteration-1 work the scan takes.
+        work0_sum: (F, rows) float64 per-row sum of iteration-1 offered
+            work.
         n_iter: Fixed-point iterations.
         n_bins: T, the time-bin count.
         n_rows: Compacted queue-row count.
         want_wait: Also return the final (T, F, rows) backlog trace.
         ttft_target, tpot_target: (F,) float32 margin-scaled targets
             (admission only).
+        batch: None, or ``table`` (the padded speedup table, float64 on
+            the device), ``bcap`` (the batch cap), ``window`` (the
+            occupancy window in bins) and, for a probed single
+            iteration, ``beff0_at`` (F, rows, B) float32, iteration 1's
+            B_eff at the recorded bins.
+        probe: None, or ``bins`` (B,) recorded bins and under admission
+            ``win_idx`` (B, W) the bins of each one's control window up
+            to it (it last), ``win_ctrl`` (B,) its control flag and
+            ``state_idx`` (B,) the controller state after it.
 
     Returns:
         Dict with a leading F axis: ``ttft``/``e2e`` (F, P, R),
         ``tok_total`` (F, P, M), ``tok_over`` (F, P, M) bool,
-        ``shed``/``retries`` (F, P, R), ``work_sum`` (F, rows), and iff
-        ``want_wait`` ``wait``.
+        ``shed``/``retries`` (F, P, R), ``work_sum`` (F, rows), iff
+        ``want_wait`` ``wait``, and iff ``probe`` ``probe`` (the
+        channels) with ``probe_gw_wait``/``probe_ex_wait`` (F, P, M, L).
     """
     first_tok, tok_req = q["first_tok"], q["tok_req"]
     F = work0.shape[0]
@@ -302,21 +431,37 @@ def _fleet_fixed_point(q: dict, chunks: dict, work0: torch.Tensor,
         exp_arr = layer_arr + gw_wait + q["gw_service"][None, None, :, None]
         return layer_arr, exp_arr, tok_total, cs - base
 
-    def bin_work(layer_arr, exp_arr, shed):
+    def bin_work(layer_arr, exp_arr, shed, record):
+        """(work the scan takes (F, SR, T) float32, raw per-row sums
+        (F, SR), B_eff at the recorded bins (F, SR, B) or None)."""
         flat_t = torch.cat([layer_arr.reshape(F, -1),
                             exp_arr.reshape(F, -1)], dim=1).reshape(-1)
         b_ch, fin = to_bins(flat_t[chunks["src"]])
         bins = torch.clamp_max(b_ch + chunks["offs"], T - 1)
-        vals = chunks["work"] * fin
-        if adm_on:
-            # Shed requests stop depositing: their values become zeros in
-            # place, so the table keeps its row grouping (row_ptr).
-            vals = vals * ~shed.reshape(-1)[chunks["fpr"]]
-        work = deposit(chunks["fprow"], bins, vals, F * SR, T,
-                       row_ptr=chunks["row_ptr"]).reshape(F, SR, T)
+        # Shed requests stop depositing: their values become zeros in
+        # place, so the table keeps its row grouping (row_ptr).
+        keep = ~shed.reshape(-1)[chunks["fpr"]] if adm_on else None
+
+        def scat(name):
+            vals = chunks[name] * fin
+            if keep is not None:
+                vals = vals * keep
+            return deposit(chunks["fprow"], bins, vals, F * SR, T,
+                           row_ptr=chunks["row_ptr"])       # (F * SR, T)
+        work = scat("work").reshape(F, SR, T)
         if "mig_dense" in q:
             work = work + q["mig_dense"][None]
-        return work
+        work_sum = work.sum(dim=2)
+        if batch is None:
+            return work.to(torch.float32), work_sum, None
+        # The migration background load stays out of the decode planes:
+        # it is not batchable decode work.
+        work32, beff_at = _effective_plane(
+            work.reshape(F * SR, T), scat("wdec"), scat("cntw"), batch,
+            probe["bins"] if record else None)
+        if beff_at is not None:
+            beff_at = beff_at.reshape(F, SR, -1)
+        return work32.reshape(F, SR, T), work_sum, beff_at
 
     def gather(wait_t, work32, gw_b, gw_fin, ex_b, ex_fin):
         f_idx = torch.arange(F, device=dev)[:, None, None, None]
@@ -331,24 +476,30 @@ def _fleet_fixed_point(q: dict, chunks: dict, work0: torch.Tensor,
         ex_over = ex_f5 & ((w_e + work32[f_idx5, ex_rows, ex_b5]) > cap)
         return gw_wait, ex_wait.amax(dim=4), gw_over, ex_over.any(dim=4)
 
-    def finish_iter(work32, work_sum, gw_b, gw_fin, ex_b, ex_fin, c):
+    def finish_iter(work32, work_sum, gw_b, gw_fin, ex_b, ex_fin, c,
+                    record=False, beff_at=None):
         work32_t = work32.permute(2, 0, 1).reshape(T, F * SR)
         wait_t = backlog_scan(work32_t, q["cap32"], q["dt32"]) \
             .reshape(T, F, SR)
         nxt = dict(c, work_sum=work_sum, wait=wait_t)
+        states = None
         if adm_on:
-            admit = controller_trace(
+            states = controller_states(
                 wait_t, work32[:, :, -1], q["cap32"], q["dt32"],
                 q["gw_rows_slot"], q["exp_rows_slot"], q["slot_of_bin"],
                 q["seg"], q["n_ctrl"], q["ttft0"], q["tpot0"],
                 torch.ones((F,) + q["ttft0"].shape, dtype=torch.float32,
                            device=dev),
                 ttft_target, tpot_target, **q["adm_kw"])
-            nxt["admit_floor"] = torch.minimum(c["admit_floor"], admit)
+            nxt["admit_floor"] = torch.minimum(c["admit_floor"],
+                                               states[q["seg"]])
             nxt["shed"], nxt["retries"], nxt["ingress_extra"] = \
                 _resolve_attempts(q, nxt["admit_floor"])
         nxt.update(zip(("gw_wait", "ex_max", "gw_over", "ex_over"), gather(
             wait_t, work32, gw_b, gw_fin, ex_b, ex_fin)))
+        if record:
+            nxt["probe"] = _probe_channels(q, probe, wait_t, work32,
+                                           beff_at, states)
         return nxt
 
     c = dict(shed=torch.zeros((F, P, R), dtype=torch.bool, device=dev),
@@ -358,16 +509,20 @@ def _fleet_fixed_point(q: dict, chunks: dict, work0: torch.Tensor,
         c["admit_floor"] = torch.ones(
             (T, F) + q["ttft0"].shape, dtype=torch.float32, device=dev)
     c = finish_iter(work0, work0_sum, q["gw_b0"][None], q["gw_fin0"][None],
-                    q["ex_b0"][None], q["ex_fin0"][None], c)
-    for _ in range(n_iter - 1):
+                    q["ex_b0"][None], q["ex_fin0"][None], c,
+                    record=probe is not None and n_iter == 1,
+                    beff_at=None if batch is None else batch.get("beff0_at"))
+    for i in range(n_iter - 1):
+        record = probe is not None and i == n_iter - 2
         start_pref = q["arrival_s"][None, None, :] + c["ingress_extra"]
         layer_arr, exp_arr, _, _ = schedule(c["gw_wait"], c["ex_max"],
                                             start_pref)
-        work = bin_work(layer_arr, exp_arr, c["shed"])        # (F, SR, T)
+        work32, work_sum, beff_at = bin_work(layer_arr, exp_arr, c["shed"],
+                                             record)
         gw_b, gw_fin = to_bins(layer_arr)
         ex_b, ex_fin = to_bins(exp_arr)
-        c = finish_iter(work.to(torch.float32), work.sum(dim=2),
-                        gw_b, gw_fin, ex_b, ex_fin, c)
+        c = finish_iter(work32, work_sum, gw_b, gw_fin, ex_b, ex_fin, c,
+                        record=record, beff_at=beff_at)
     # Fold the final gather into the schedule once more (see run_legacy).
     start_pref = q["arrival_s"][None, None, :] + c["ingress_extra"]
     _, _, tok_total, seg_incl = schedule(c["gw_wait"], c["ex_max"],
@@ -380,6 +535,9 @@ def _fleet_fixed_point(q: dict, chunks: dict, work0: torch.Tensor,
                work_sum=c["work_sum"])
     if want_wait:
         out["wait"] = c["wait"]
+    if probe is not None:
+        out.update(probe=c["probe"], probe_gw_wait=c["gw_wait"],
+                   probe_ex_wait=c["ex_max"])
     return out
 
 
@@ -403,6 +561,12 @@ class FleetSim:
     gateway-retry attempt tables and the controller's zero-load anchors,
     and every run resolves per-request admission between fixed-point
     iterations from the controller's trace (see :mod:`.admission`).
+    With ``batching`` (a :class:`~.batching.BatchingConfig`) the decode
+    chunks also carry their decode work and visits, and every path runs
+    the batching law; with ``probes`` (a
+    :class:`~repro_torch.obs.probes.ProbeConfig`) every ``run`` and
+    ``run_many`` leaves its final iteration's telemetry in
+    ``last_probes`` (a :class:`~repro_torch.obs.probes.ProbeRecord`).
     """
 
     def __init__(
@@ -428,13 +592,10 @@ class FleetSim:
     ):
         """Build the simulator and run every rate-independent precompute.
 
-        Arguments as the reference's ``FleetSim``; ``probes`` and
-        ``batching`` are not ported yet and raise ``NotImplementedError``.
+        Arguments as the reference's ``FleetSim``.
         """
-        if batching is not None:
-            raise _not_ported("FleetSim(batching=...)", "batching")
-        if probes is not None:
-            raise _not_ported("FleetSim(probes=...)", "obs probes")
+        _check_config(batching, BatchingConfig, "batching")
+        _check_config(probes, ProbeConfig, "probes")
         self.device = resolve_device(device)
         self.plans = list(plans)
         self.schedules = [as_schedule(p, topo.n_slots) for p in self.plans]
@@ -488,6 +649,14 @@ class FleetSim:
         # --- engine pass: base (zero-load) per-token latencies -------------
         svc = resolve_service_model(service_model, workload, compute)
         self.service_model = svc
+        # Continuous-batching statics: the padded speedup table (from the
+        # service model's batch-size-dependent decode rates), the
+        # KV-bounded batch cap and the occupancy window in bins.
+        self.batching = batching
+        if batching is not None:
+            self._batch_table = batching.resolve_table(svc, ctx_len)
+            self._batch_cap = float(batching.b_cap)
+            self._batch_window = batching.window_bins(qcfg.dt_s)
         draws = np.stack([activation.sample(layer, rng, M)
                           for layer in range(L)])                 # (L, M, K)
         self.draws = draws
@@ -645,6 +814,26 @@ class FleetSim:
         self._chunk_row = self.ev_chunk_plan * self.n_stations \
             + self.ev_chunk_station
         self._chunk_pr = self.ev_chunk_plan * R + self.ev_chunk_req
+        if batching is not None:
+            # Continuous-batching chunk channels: decode-side events (the
+            # decode tokens' gateway visits and their expert block) carry
+            # their work in ``wdec`` and one token visit per event in
+            # ``cntw`` (a chunk holds work/ev_work of its event's visit);
+            # prefill blocks batch over their own prompt and count zero.
+            ev_dec = np.concatenate([
+                np.broadcast_to((np.arange(M) >= R)[:, None],
+                                (M, L)).ravel(),
+                np.ones(N * L * K, dtype=bool),
+                np.zeros(R * L * n_exp, dtype=bool),
+            ]).astype(np.float64)                                 # (E,)
+            dec_ch = np.broadcast_to(ev_dec[None, :],
+                                     ev_work.shape).ravel()[self._rep]
+            wf = w_flat[self._rep]
+            self._chunk_wdec = self.ev_chunk_work * dec_ch
+            self._chunk_cntw = np.where(
+                wf > 0.0,
+                self.ev_chunk_work / np.where(wf > 0.0, wf, 1.0),
+                0.0) * dec_ch
         self._dev: dict | None = None
 
         # --- time bins ----------------------------------------------------
@@ -679,6 +868,9 @@ class FleetSim:
         # Filled by ``run``: the last fleet scan's backlog (see last_wait).
         self._last_wait: np.ndarray | None = None
         self._last_wait_rows: torch.Tensor | None = None
+        # Telemetry: filled by every launch when ``probes`` is set.
+        self.probes = probes
+        self.last_probes: ProbeRecord | None = None
 
     # ----------------------------------------------------------------- #
 
@@ -879,6 +1071,9 @@ class FleetSim:
         self._f_req = self.ev_chunk_req[perm]
         self._f_bins0 = bins0[perm]
         self._f_fin0 = fin0[self._rep][perm]
+        if self.batching is not None:
+            self._f_wdec = self._chunk_wdec[perm]
+            self._f_cntw = self._chunk_cntw[perm]
         if self._mig_flat.size:
             flat = self._row_inv[self._mig_flat // self.n_bins] \
                 * self.n_bins + self._mig_flat % self.n_bins
@@ -956,6 +1151,25 @@ class FleetSim:
             w = np.concatenate([w, self._mig_work])
         return np.bincount(flat, weights=w,
                            minlength=P * S * T).reshape(P, S, T)
+
+    def _bin_work_planes(self, layer_arr, exp_arr, active2d):
+        """Decode-work and occupancy-count planes (P, S, T) for the host
+        path's batching law: :meth:`_bin_work`'s bins, the decode-side
+        chunk channels, no migration background (it is not batchable
+        decode work)."""
+        P = self.n_plans
+        S, T = self.n_stations, self.n_bins
+        ev_time = self._event_times(layer_arr, exp_arr)           # (P*E,)
+        base_bin, finite = self._to_bins(ev_time)
+        bins = np.minimum(base_bin[self._rep] + self._offs, T - 1)
+        act = finite[self._rep] \
+            * active2d[self.ev_chunk_plan, self.ev_chunk_req]
+        flat = (self.ev_chunk_plan * S + self.ev_chunk_station) * T + bins
+        wdec = np.bincount(flat, weights=self._chunk_wdec * act,
+                           minlength=P * S * T).reshape(P, S, T)
+        cnt = np.bincount(flat, weights=self._chunk_cntw * act,
+                          minlength=P * S * T).reshape(P, S, T)
+        return wdec, cnt
 
     def _gather(self, wait, overload, layer_arr, exp_arr):
         """Per-(plan, token, layer) gateway wait, expert branch-max wait,
@@ -1078,7 +1292,10 @@ class FleetSim:
         host arrays (the reference's ``_launch`` compaction, padding
         included), plus ``row_ptr``: the table is grouped by ``fprow``
         (F-major, then the static row order) up to the padding, and row
-        r owns entries [row_ptr[r], row_ptr[r+1])."""
+        r owns entries [row_ptr[r], row_ptr[r+1]).  Iteration 1's
+        deposit is ``flat0`` (cells of the (F * rows * T) plane) with
+        weights ``work0``; under batching also ``wdec0`` and ``cnt0``,
+        and the table gains ``wdec`` and ``cntw``."""
         F = masks.shape[0]
         T, SR = self.n_bins, self.n_rows
         cids = [np.flatnonzero(masks[f, self._f_req]) for f in range(F)]
@@ -1100,9 +1317,18 @@ class FleetSim:
         row_ptr = np.searchsorted(fprow[:n], np.arange(F * SR + 1),
                                   side="left")
         flat0 = fprow[:n] * T + self._f_bins0[cid]
+        fin0 = self._f_fin0[cid]
         out = dict(src=src, offs=offs, work=work, fprow=fprow,
                    row_ptr=row_ptr, n=n, flat0=flat0,
-                   work0=self._f_work[cid] * self._f_fin0[cid])
+                   work0=self._f_work[cid] * fin0)
+        if self.batching is not None:
+            for name, table in (("wdec", self._f_wdec),
+                                ("cntw", self._f_cntw)):
+                padded = np.zeros(n_pad)
+                padded[:n] = table[cid]
+                out[name] = padded
+            out["wdec0"] = self._f_wdec[cid] * fin0
+            out["cnt0"] = self._f_cntw[cid] * fin0
         if self.admission_on:
             fpr = np.zeros(n_pad, dtype=np.int64)
             fpr[:n] = f_id * (self.n_plans * self.n_requests) \
@@ -1125,6 +1351,52 @@ class FleetSim:
         return tuple(torch.from_numpy(x.astype(np.float32)).to(self.device)
                      for x in (tt, tp))
 
+    def _probe_tables(self, bins: np.ndarray) -> dict:
+        """The fixed point's ``probe`` argument for the recorded ``bins``
+        (:func:`_probe_channels`), on the device.  Under admission each
+        bin's control window runs from the bin after the previous
+        control bin up to it: ``win_idx`` lists those bins (the recorded
+        bin last, shorter windows padded with it), ``win_ctrl`` flags
+        control bins (their window restarts: 0) and ``state_idx`` is the
+        controller state after the bin (``seg + ctrl``)."""
+        dev = self.device
+        out = dict(bins=torch.from_numpy(bins).to(dev))
+        if not self.admission_on:
+            return out
+        ctrl = control_bin_flags(self.n_bins, self.qcfg.dt_s,
+                                 self.qcfg.admission.interval_s)
+        seg = np.cumsum(ctrl) - ctrl
+        ctrl_pos = np.flatnonzero(ctrl)
+        start = np.where(seg[bins] > 0,
+                         ctrl_pos[np.maximum(seg[bins] - 1, 0)] + 1
+                         if ctrl_pos.size else 0, 0)
+        width = int((bins - start).max()) + 1 if bins.size else 1
+        idx = np.minimum(start[:, None] + np.arange(width)[None, :],
+                         bins[:, None])
+        out.update(win_idx=torch.from_numpy(idx).to(dev),
+                   win_ctrl=torch.from_numpy(ctrl[bins]).to(dev),
+                   state_idx=torch.from_numpy(
+                       seg[bins] + ctrl[bins]).to(dev))
+        return out
+
+    def _record_probes(self, out: dict, capacity: int, stride: int,
+                       slots: np.ndarray) -> None:
+        """Set ``last_probes`` from a probed launch's outputs (popped from
+        ``out``): the channels at the recorded bins go into the ring
+        buffers at their ``slots``, which :meth:`ProbeRecord.from_launch`
+        unwraps as it unwraps the reference's."""
+        chans = {k: v.cpu().numpy() for k, v in out.pop("probe").items()}
+        raw = make_buffers(capacity, chans["rows"].shape[2], self.n_rows,
+                           (self.n_plans, self.n_gw_stations)
+                           if self.admission_on else None,
+                           n_row_channels=chans["rows"].shape[1])
+        for k, v in chans.items():
+            raw[k][slots] = v
+        self.last_probes = ProbeRecord.from_launch(
+            raw, out.pop("probe_gw_wait").cpu().numpy(),
+            out.pop("probe_ex_wait").cpu().numpy(), self.qcfg.dt_s,
+            capacity, stride, self.n_bins, self._expand_rows)
+
     def _launch(self, masks: np.ndarray, ttft_targets, tpot_targets,
                 want_wait: bool) -> dict:
         """One fused fixed point over the leading sweep axis F.
@@ -1132,33 +1404,55 @@ class FleetSim:
         The request-activity masks fold into the compacted chunk table
         (only active chunks are deposited); iteration 1's work plane is
         one host ``np.bincount`` over the static zero-wait bins, as in
-        the reference.  ``ttft_targets``/``tpot_targets``: optional (F,)
-        raw targets of an admission sweep (the margin is applied here).
+        the reference (under batching three, and the law on the host in
+        float64).  ``ttft_targets``/``tpot_targets``: optional (F,) raw
+        targets of an admission sweep (the margin is applied here).
         Returns the :func:`_fleet_fixed_point` outputs as host arrays,
         each with a leading F axis; ``wait``, when asked for, stays a
-        device tensor.
+        device tensor.  With probes on, sets ``last_probes``.
         """
         F = masks.shape[0]
         targets = (self._targets(F, ttft_targets, tpot_targets)
                    if self.admission_on else (None, None))
         T, SR = self.n_bins, self.n_rows
+        n_iter = max(1, self.qcfg.iterations)
         ct = self.chunk_table(masks)
-        # astype: the bincount of an empty chunk set is int64.
-        plane0 = np.bincount(ct["flat0"], weights=ct["work0"],
-                             minlength=F * SR * T).reshape(F, SR, T) \
-            .astype(np.float64, copy=False)
+
+        def plane(weights):
+            # astype: the bincount of an empty chunk set is int64.
+            return np.bincount(ct["flat0"], weights=weights,
+                               minlength=F * SR * T).reshape(F, SR, T) \
+                .astype(np.float64, copy=False)
+        plane0 = plane(ct["work0"])
         if self._mig_rm is not None:
             plane0 += self._mig_rm[None]
         work0_sum = plane0.sum(axis=2)                            # (F, SR)
         dev = self.device
+        probe = batch = None
+        if self.probes is not None:
+            p_cap, p_stride = self.probes.resolve(T)
+            slots, bins = ring_bins(T, p_cap, p_stride)
+            probe = self._probe_tables(bins)
+        if self.batching is not None:
+            plane0, beff0 = effective_work_np(
+                plane0, plane(ct["wdec0"]), plane(ct["cnt0"]),
+                self._batch_table, self._batch_cap, self._batch_window)
+            batch = dict(table=torch.from_numpy(self._batch_table).to(dev),
+                         bcap=self._batch_cap, window=self._batch_window)
+            if probe is not None and n_iter == 1:
+                batch["beff0_at"] = torch.from_numpy(
+                    beff0[:, :, bins].astype(np.float32)).to(dev)
         chunks = {k: torch.from_numpy(ct[k]).to(dev)
-                  for k in ("src", "offs", "work", "fprow", "row_ptr", "fpr")
+                  for k in ("src", "offs", "work", "fprow", "row_ptr", "fpr",
+                            "wdec", "cntw")
                   if k in ct}
         out = _fleet_fixed_point(
             self._device_tables(), chunks,
             torch.from_numpy(plane0.astype(np.float32)).to(dev),
-            torch.from_numpy(work0_sum).to(dev),
-            max(1, self.qcfg.iterations), T, SR, want_wait, *targets)
+            torch.from_numpy(work0_sum).to(dev), n_iter, T, SR, want_wait,
+            *targets, batch=batch, probe=probe)
+        if probe is not None:
+            self._record_probes(out, p_cap, p_stride, slots)
         # The (T, F, rows) wait trace stays on the device (see last_wait).
         return {k: v if k == "wait" else v.cpu().numpy()
                 for k, v in out.items()}
@@ -1238,7 +1532,10 @@ class FleetSim:
         """Host-path reference fixed point: schedule, binning and gather
         in NumPy, the backlog scan (and under admission the controller,
         :func:`.admission.admission_queue_scan`) on the device in float32
-        (the reference's ``run_legacy``)."""
+        (the reference's ``run_legacy``).  Under batching the law runs on
+        the host in float64, or under admission inside
+        ``admission_queue_scan`` on float32 planes, as the reference's
+        does (its jitted scan runs without x64)."""
         qcfg = self.qcfg
         acfg = qcfg.admission
         req = self.requests
@@ -1282,13 +1579,31 @@ class FleetSim:
                                   active[None, :] & ~shed)
             if zero_load:
                 break
-            work_t = torch.from_numpy(work).to(dev)
+            batch_kw = None
+            scan_work = work
+            if self.batching is not None:
+                wdec, cnt = self._bin_work_planes(
+                    layer_arr, exp_arr, active[None, :] & ~shed)
+                if adm_on:
+                    planes = dict(
+                        work_dec=wdec, table=self._batch_table,
+                        cnt_win=windowed_counts(cnt, self._batch_window))
+                    batch_kw = {k: torch.from_numpy(v.astype(np.float32))
+                                .to(dev) for k, v in planes.items()}
+                    batch_kw["bcap"] = float(np.float32(self._batch_cap))
+                    scan_work = work.astype(np.float32)
+                else:
+                    scan_work, _ = effective_work_np(
+                        work, wdec, cnt, self._batch_table,
+                        self._batch_cap, self._batch_window)
+            work_t = torch.from_numpy(scan_work).to(dev)
             if adm_on:
                 wait, dropped, admit = admission_queue_scan(
                     work_t, float(qcfg.buffer_s), qcfg.dt_s, *adm_args,
                     margin * acfg.ttft_target_s,
                     margin * acfg.tpot_target_s, acfg.increase,
-                    acfg.decrease, acfg.admit_min, pid=pid)
+                    acfg.decrease, acfg.admit_min, batching=batch_kw,
+                    pid=pid)
                 # Monotone outer iteration: the admit trace accumulates as
                 # a running minimum, so the shed set only grows.
                 admit_floor = np.minimum(admit_floor, admit.cpu().numpy())

@@ -186,13 +186,18 @@ def test_admission_queue_scan_infinite_ttft_target(ref):
 
 
 def test_admission_queue_scan_refuses_batching():
+    """Batching planes not shaped like the work plane are refused (the
+    law itself: ``tests/test_torch_batching.py``)."""
     work, cap, ctrl, gw_idx, exp_idx, ttft0, tpot0 = _scan_inputs(40, 10,
                                                                   "capped")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="shaped like work"):
         padm.admission_queue_scan(
             torch.from_numpy(work), float(cap), 0.05, ttft0, tpot0, ctrl,
             gw_idx, exp_idx, np.ones(ttft0.shape, np.float32), 2.0, 1.0,
-            0.1, 0.6, 0.05, batching=dict())
+            0.1, 0.6, 0.05, batching=dict(
+                work_dec=torch.zeros(work.shape[:2] + (39,)),
+                cnt_win=torch.zeros(work.shape), table=torch.ones(3),
+                bcap=1.0))
 
 
 def test_qhat_trace_chunks_do_not_change_it(monkeypatch):

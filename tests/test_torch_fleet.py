@@ -91,11 +91,12 @@ def _grounds(min_elevation_deg=10.0):
 
 def _pair(ref, *, rate=2.0, horizon=40.0, n_experts=4, qkw=None,
           calibrated=False, schedule=False, req_seed=8, ground=False,
-          admission=None):
+          admission=None, batching=None, probes=None):
     """The same FleetSim in both packages.  ``ground``: through the 8
     default gateways; ``admission``: the AdmissionConfig keywords of both
     packages' configurations (with ``ground``, retries go to other
-    gateways)."""
+    gateways); ``batching`` and ``probes``: the BatchingConfig and
+    ProbeConfig keywords."""
     traffic, _ = ref
     (topo, act, plans), (ptopo, pact, pplans) = _worlds(n_experts)
     if schedule:
@@ -125,13 +126,23 @@ def _pair(ref, *, rate=2.0, horizon=40.0, n_experts=4, qkw=None,
                                       load_table("llama-moe-3.5b"))
         psvc = pc.ServiceModel.calibrated(pwl, pc.ComputeConfig(),
                                           pc.load_table("llama-moe-3.5b"))
+    extra, pextra = {}, {}
+    if batching is not None:
+        extra["batching"] = traffic.BatchingConfig(**batching)
+        pextra["batching"] = pt.BatchingConfig(**batching)
+    if probes is not None:
+        from repro.obs import ProbeConfig
+
+        from repro_torch.obs import ProbeConfig as PProbeConfig
+        extra["probes"] = ProbeConfig(**probes)
+        pextra["probes"] = PProbeConfig(**probes)
     sim = traffic.FleetSim(plans, topo, act, wl, ComputeConfig(), req,
                            np.random.default_rng(5),
                            qcfg=traffic.QueueConfig(**qkw),
-                           service_model=svc, ground=g)
+                           service_model=svc, ground=g, **extra)
     psim = pt.FleetSim(pplans, ptopo, pact, pwl, pc.ComputeConfig(), preq,
                        np.random.default_rng(5), qcfg=pt.QueueConfig(**pqkw),
-                       service_model=psvc, ground=pg, device="cpu")
+                       service_model=psvc, ground=pg, device="cpu", **pextra)
     return sim, psim
 
 
@@ -399,26 +410,36 @@ def test_station_waiting_times_match_reference(ref):
 
 @pytest.mark.parametrize("option", ["batching", "probes"])
 def test_unported_constructor_options_raise(option):
+    """``batching=`` and ``probes=`` are ported (``tests/test_torch_
+    batching.py``, ``tests/test_torch_obs.py``); what is not a
+    BatchingConfig or a ProbeConfig is refused."""
     (_, _, _), (ptopo, pact, pplans) = _worlds(4)
     preq = pt.sample_requests(np.random.default_rng(8), rate_rps=1.0,
                               horizon_s=5.0, **REQ_KW)
     kw = {"batching": dict(batching=object()),
           "probes": dict(probes=object())}[option]
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(TypeError, match=option):
         pt.FleetSim(pplans, ptopo, pact, pc.MoEWorkload.llama_moe_3p5b(),
                     pc.ComputeConfig(), preq, np.random.default_rng(5),
                     device="cpu", **kw)
 
 
 @pytest.mark.parametrize("call", ["run_replan", "run_many_replan",
-                                  "station_batching"])
+                                  "station_batching", "flight_log_replan"])
 def test_unported_run_options_raise(ref, call):
+    """The joint control plane is not ported; ``station_waiting_times``
+    takes a BatchingConfig and refuses anything else."""
+    from repro_torch.obs import build_flight_log
     _, psim = _pair(ref, rate=1.0, horizon=10.0)
+    if call == "station_batching":
+        with pytest.raises(TypeError, match="batching"):
+            pq.station_waiting_times(np.array([0.0, 1.0]), 0.01, 0.05,
+                                     batching=object(), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         if call == "run_replan":
             psim.run(replan=object())
         elif call == "run_many_replan":
             psim.run_many(replan=object())
         else:
-            pq.station_waiting_times(np.array([0.0, 1.0]), 0.01, 0.05,
-                                     batching=object(), device="cpu")
+            build_flight_log(psim, psim.run(), replan=object())

@@ -38,11 +38,14 @@ def test_port_files_were_found():
     assert len(PORT_FILES) > 10
     assert ROOT / "src" / "repro_torch" / "launch" / "serve.py" in PORT_FILES
     assert ROOT / "src" / "repro_torch" / "traffic" / "queueing.py" in PORT_FILES
+    for name in ("__init__", "probes", "recorder", "export", "schema"):
+        assert ROOT / "src" / "repro_torch" / "obs" / f"{name}.py" in PORT_FILES
+    assert ROOT / "src" / "repro_torch" / "traffic" / "batching.py" in PORT_FILES
 
 
 def test_serve_import_loads_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.convert, "
-            "repro_torch.traffic, repro_torch.core.engine; "
+            "repro_torch.traffic, repro_torch.core.engine, repro_torch.obs; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -627,3 +627,131 @@ def test_fleet_admission_runs_the_ctrl_kernel_and_matches_the_cpu(cuda_device):
         np.testing.assert_allclose(b.e2e_s, a.e2e_s, rtol=1e-5,
                                    equal_nan=True)
     assert any(p.shed.any() for p in res["cpu"].plans)
+
+
+def _small_fleet(device, batching=None, probes=None, admission=None,
+                 rate=12.0):
+    """``FleetSim`` on the 8 x 12 test world (4 layers, 4 experts top-2,
+    2 plans) on ``device``; with ``admission`` behind the 8 default
+    gateways."""
+    from repro_torch import core
+    from repro_torch.traffic import (FleetSim, QueueConfig,
+                                     build_ground_segment, sample_requests)
+    con = core.Constellation(core.ConstellationConfig.scaled(
+        8, 12, n_slots=10, survival_prob=1.0))
+    topo = core.sample_topology(con, core.LinkConfig(),
+                                np.random.default_rng(0))
+    act = core.ActivationModel.zipf(4, 4, 2, seed=1)
+    plans = [core.spacemoe_plan(con, topo, act),
+             core.rand_intra_cg_plan(con.cfg, 4, 4, np.random.default_rng(7))]
+    ground = None if admission is None else build_ground_segment(
+        con, core.LinkConfig(), min_elevation_deg=10.0)
+    n_stations = 1 if ground is None else ground.n_stations
+    req = sample_requests(np.random.default_rng(8), rate_rps=rate,
+                          horizon_s=40.0, n_stations=n_stations,
+                          prompt_median=4, prompt_max=16, decode_mean=4,
+                          decode_max=8)
+    qcfg = QueueConfig(dt_s=0.05, tail_s=30.0, admission=admission)
+    return FleetSim(plans, topo, act, core.MoEWorkload.llama_moe_3p5b(),
+                    core.ComputeConfig(), req, np.random.default_rng(5),
+                    qcfg=qcfg, ground=ground, batching=batching,
+                    probes=probes, device=device)
+
+
+def _same_results(a, b):
+    for pa, pb in zip(a.plans, b.plans, strict=True):
+        np.testing.assert_array_equal(pb.served, pa.served)
+        for name in ("ttft_s", "e2e_s", "token_total_s"):
+            np.testing.assert_array_equal(getattr(pb, name),
+                                          getattr(pa, name), err_msg=name)
+
+
+@pytest.mark.parametrize("window_s", [0.0, 0.15])
+def test_fleet_batching_on_the_card_matches_the_cpu(cuda_device, window_s):
+    """A batched run(): deposit launched three times per device iteration,
+    backlog_scan once per iteration; bitwise the CPU at a window of one
+    bin, within the fused-vs-legacy criterion over a wider one (the card's
+    cumsum sums in another order)."""
+    from repro_torch.kernels import ops
+    from repro_torch.traffic import BatchingConfig
+    cfg = BatchingConfig(b_max=8, window_s=window_s)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        sim = _small_fleet(dev, batching=cfg)
+        ops.reset_launch_counts()
+        res[dev] = sim.run()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            n = sim.qcfg.iterations
+            assert counts["deposit"] == 3 * (n - 1)
+            assert counts["backlog_scan"] == n
+    if window_s == 0.0:
+        _same_results(res["cpu"], res["cuda"])
+    for a, b in zip(res["cpu"].plans, res["cuda"].plans):
+        np.testing.assert_array_equal(b.served, a.served)
+        np.testing.assert_allclose(b.ttft_s, a.ttft_s, rtol=1e-5,
+                                   equal_nan=True)
+    assert any(p.served.any() for p in res["cuda"].plans)
+
+
+def test_deposit_kernel_is_bitwise_on_the_batching_tables(cuda_device):
+    """The decode-work and decode-visit channels of a fleet's chunk table
+    (iteration 1's bins, in the table's row grouping) through the kernel
+    and through the plain version."""
+    from repro_torch.kernels import deposit as dep
+    from repro_torch.traffic import BatchingConfig
+    sim = _small_fleet("cuda", batching=BatchingConfig(b_max=8))
+    masks = np.random.default_rng(3).random((3, sim.n_requests)) < 0.7
+    ct = sim.chunk_table(masks)
+    n, t_bins = ct["n"], sim.n_bins
+    cols = np.zeros(ct["fprow"].size, dtype=np.int64)
+    cols[:n] = ct["flat0"] % t_bins
+    rows = torch.from_numpy(ct["fprow"]).to(cuda_device)
+    cols = torch.from_numpy(cols).to(cuda_device)
+    row_ptr = torch.from_numpy(ct["row_ptr"]).to(cuda_device)
+    n_rows = masks.shape[0] * sim.n_rows
+    for name in ("wdec", "cntw", "work"):
+        vals = torch.from_numpy(ct[name]).to(cuda_device)
+        assert vals[:n].any()
+        got = dep.deposit(rows, cols, vals, n_rows, t_bins, row_ptr=row_ptr)
+        want = dep.deposit_plain(rows, cols, vals, n_rows, t_bins)
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("kind", ["plain", "batching", "aimd-batching"])
+def test_fleet_probes_on_the_card_match_the_cpu(cuda_device, kind):
+    """last_probes of a probed run() on the card equal the CPU's on every
+    channel, and a probes-off run() afterwards is what it was."""
+    from repro_torch.obs import ProbeConfig
+    from repro_torch.traffic import AdmissionConfig, BatchingConfig
+    kw = dict(probes=ProbeConfig(capacity=64))
+    if kind != "plain":
+        kw["batching"] = BatchingConfig(b_max=8)
+    if kind.startswith("aimd"):
+        kw.update(admission=AdmissionConfig(ttft_target_s=3.0), rate=6.0)
+    recs, runs = {}, {}
+    for dev in ("cuda", "cpu"):
+        sim = _small_fleet(dev, **kw)
+        runs[dev] = sim.run()
+        recs[dev] = sim.last_probes
+        if dev == "cuda":
+            sim.probes = None
+            _same_results(runs[dev], sim.run())
+    for name in ("bins", "backlog_s", "util_s", "drops_s", "batch_b",
+                 "qhat_s", "win_s", "admit", "gw_wait_s", "ex_wait_s"):
+        a, b = getattr(recs["cpu"], name), getattr(recs["cuda"], name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            np.testing.assert_array_equal(b, a, err_msg=name)
+    _same_results(runs["cpu"], runs["cuda"])
+
+
+def test_fleet_bmax1_is_bitwise_fifo_on_the_card(cuda_device):
+    from repro_torch.traffic import BatchingConfig
+    fifo = _small_fleet("cuda")
+    one = _small_fleet("cuda", batching=BatchingConfig(b_max=1))
+    masks = np.random.default_rng(2).random((3, fifo.n_requests)) < 0.6
+    _same_results(fifo.run(), one.run())
+    for a, b in zip(fifo.run_many(masks), one.run_many(masks)):
+        _same_results(a, b)

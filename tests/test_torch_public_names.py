@@ -267,3 +267,64 @@ def test_init_cache_matches_reference(dtype):
             assert str(lc[name].dtype).split(".")[-1] == \
                 str(ref_block[name].dtype)
             np.testing.assert_array_equal(lc[name].float().numpy(), r)
+
+
+# --------------------------------------------------------------------- #
+# batching and obs: the names the port exports
+# --------------------------------------------------------------------- #
+
+#: Reference names the port does not have yet (the replan slice).
+NOT_PORTED = {"replan_events", "joint_decision_events"}
+
+
+@pytest.mark.parametrize("module", ["obs", "traffic.batching"])
+def test_batching_and_obs_names_match_reference(ref, module):
+    """Every public name of ``repro.obs`` but the replan events, and every
+    batching name of ``repro.traffic``, is exported by the port."""
+    import repro.obs as robs
+    import repro_torch.obs as pobs
+    traffic, _ = ref
+    if module == "obs":
+        assert set(pobs.__all__) == set(robs.__all__) - NOT_PORTED
+        assert not NOT_PORTED & set(dir(pobs))
+    else:
+        names = {n for n in traffic.__all__
+                 if getattr(getattr(traffic, n), "__module__", None)
+                 == "repro.traffic.batching"}
+        assert names == {"BatchingConfig", "batched_effective_work",
+                         "effective_work_np", "windowed_counts"}
+        assert names <= set(pt.__all__)
+        for n in names:
+            assert callable(getattr(pt, n))
+
+
+def test_decision_trace_and_request_record_match_reference():
+    """The host dataclasses' derived properties, on the same numbers."""
+    from repro.obs import probes as rprobes
+    from repro.obs import recorder as rrec
+
+    from repro_torch.obs import probes as pprobes
+    from repro_torch.obs import recorder as prec
+    rng = np.random.default_rng(4)
+    kw = dict(period_s=300.0, boundaries=np.array([1, 2, 5]),
+              slots=np.array([1, 2, 5]), scores=rng.random((3, 4)),
+              chosen=np.array([0, 2, 2]),
+              switched=np.array([False, True, False]),
+              migration_bytes=np.array([0.0, 3e6, 0.0]))
+    a, b = rprobes.DecisionTrace(**kw), pprobes.DecisionTrace(**kw)
+    assert (b.n_decisions, b.n_switches) == (a.n_decisions, a.n_switches)
+    np.testing.assert_array_equal(b.t_s, a.t_s)
+    rec = dict(rid=3, station=1, arrival_s=2.5, prompt_len=7, decode_len=4,
+               active=True, served=True, shed=False, retries=1,
+               ingress_s=0.01, ttft_s=1.25, tpot_s=0.5, e2e_s=3.25,
+               layer_zero_s=rng.random(4), layer_gw_wait_s=rng.random(4),
+               layer_ex_wait_s=rng.random(4), batch_b=2.5)
+    ra, rb = rrec.RequestRecord(**rec), prec.RequestRecord(**rec)
+    assert (rb.prefill_span, rb.decode_span, rb.queue_wait_s) == \
+        (ra.prefill_span, ra.decode_span, ra.queue_wait_s)
+    log = dict(plan_names=["a"], plan=0, dt_s=0.05, n_bins=400, events=[],
+               probes=None)
+    la = rrec.FlightLog(requests=[ra], **log)
+    lb = prec.FlightLog(requests=[rb], **log)
+    assert lb.horizon_s == la.horizon_s
+    assert [r.rid for r in lb.served()] == [r.rid for r in la.served()]

@@ -81,7 +81,26 @@ Phases (any failure exits non-zero and prints no success line):
      with the port): FIFO and ``b_max=8``, each one ``run_many`` over 4
      thinning fractions, card against CPU, ``b_max=1`` bitwise FIFO, and
      batched goodput above FIFO at p99 TTFT <= 2.5 x the zero-load p99;
- 11. the ``kernels`` JSON line (all six kernels; launches counted over
+ 11. re-placement and the joint control plane: (a) phase 7's world
+     under ``ReplanConfig(mode="backlog", controller_iterations=2,
+     hysteresis=0)`` over cadences 1, 2 and 3 in one
+     ``run_many(replan=)`` (deposit 8, backlog_scan 9 launches), wall,
+     peak memory, the host's time and each stage's device time
+     itemized (``run_replan_grid(stage=)``), ``replan_traffic`` on the
+     card at each cadence with decisions equal bit for bit and results
+     at the fused-vs-legacy criterion, ``deposit`` bitwise on the gated
+     table the grid gave it (its zero share beside its time); (b) the
+     reference's ``benchmarks/bench_ctrl.py`` grid at its non-fast
+     setting (27 cells: 3 cadences x 3 migration prices x 3 AIMD TTFT
+     targets) in one ``run_replan_grid`` (deposit 5, backlog_scan,
+     admission_window and admission_ctrl 6 launches each), card against
+     CPU on every cell (decisions bit for bit; served, shed and retry
+     sets), the host loop cell by cell against it (decisions bit for
+     bit; its wall reported beside the grid's), both admission kernels
+     bitwise against their plain versions on the per-entry tables the
+     grid gave them; (c) that grid's cell 0 flight log with ``replan=``,
+     its decisions as trace instants, through ``validate_trace``;
+ 12. the ``kernels`` JSON line (all six kernels; launches counted over
      the serve run for gmm/decode_attention, over the fleet ``run()``
      for deposit/backlog_scan and over the AIMD ``run()`` for
      admission_window/admission_ctrl), the card line, then the result
@@ -1111,7 +1130,7 @@ def check_ctrl(torch, win, args, kw, what: str) -> dict:
     serial chain's bound."""
     from repro_torch.kernels import admission_ctrl
     n_ctrl, n_f, n_p = win.shape
-    n_g = args[0].shape[1]
+    n_g = args[0].shape[-1]
     cells = n_f * n_p * n_g
     coal = torch.empty((cells, admission_ctrl.LANES), dtype=torch.int32,
                        device="cuda")
@@ -1195,8 +1214,8 @@ def window_bound(wait, work_last, tables, n_ctrl: int, seg) -> tuple:
     maxima and their sum, and gateway + expert a (bin, f, p))."""
     n_bins, n_f, _ = wait.shape
     gw, ex = tables
-    n_s, n_p, n_l = gw.shape
-    n_i = ex.shape[2] // n_l
+    n_p, n_l = gw.shape[-2:]
+    n_i = ex.shape[-1] // n_l
     nbytes = 4 * (wait.numel() + work_last.numel() + gw.numel() + ex.numel()
                   + 2 * n_bins + n_ctrl * n_f * n_p)
     bins = int((seg < n_ctrl).sum())
@@ -1223,13 +1242,14 @@ def check_window(torch, args, what: str) -> dict:
     plain_ms = event_ms(torch, plain, iters=1, warm=False)
     b_ms, b_by = window_bound(wait, work_last, args[4:6], n_ctrl, seg)
     t, f, c = wait.shape
+    n_p, n_l = args[4].shape[-2:]
     return {"name": "admission_window",
             "shape": f"wait ({t}, {f}, {c}) f32, stations "
                      f"{tuple(args[5].shape)} -> win ({n_ctrl}, {f}, "
-                     f"{args[4].shape[1]}), {what}",
+                     f"{n_p}), {what}",
             "tile": admission_window.window_tile(
-                f, c, *args[4].shape[1:], args[5].shape[2]
-                // args[4].shape[2])[0],
+                f, c, n_p, n_l, args[5].shape[-1] // n_l,
+                f if args[4].dim() == 4 else 1)[0],
             "max_abs_err": float((got - want).abs().max()), "tol": 0.0,
             "ok": bool(torch.equal(got, want)), "bound_ms": b_ms,
             "bound_by": b_by, "ms": ms, "wall_ms": wall_ms, "hidden": hidden,
@@ -1836,6 +1856,434 @@ def phase_fleet_batching(torch, world, adm_sims) -> None:
     phase_batching_bench(torch)
 
 
+# --------------------------------------------------------------------- #
+# Phase 11: re-placement and the joint control plane
+# --------------------------------------------------------------------- #
+
+#: Phase 11 (a): the paper's world under backlog re-placement.
+REPLAN_CADENCES = (1, 2, 3)
+#: Phase 11 (b): the reference's benchmarks/bench_ctrl.py grid, cadence-major.
+CTRL_CADENCES = (1, 2, 3)
+CTRL_MIG_WEIGHTS = (0.0, 0.01, 0.1)
+CTRL_TTFT_TARGETS = (30.0, 60.0, 90.0)
+
+
+def same_decisions(a, b, what) -> None:
+    """Identical decision trajectories of two ``ReplanOutcome``s (the
+    reference bench's ``_compare_cell``): slot plans, boundaries, slots,
+    chosen, switched, scores and migration bytes, bit for bit."""
+    import numpy as np
+    ra, rb = a.report, b.report
+    problems = []
+    if not np.array_equal(ra.schedule.slot_plan, rb.schedule.slot_plan):
+        problems.append(f"slot plans {ra.schedule.slot_plan.tolist()} vs "
+                        f"{rb.schedule.slot_plan.tolist()}")
+    if len(ra.decisions) != len(rb.decisions):
+        problems.append(f"{len(ra.decisions)} vs {len(rb.decisions)} "
+                        "decisions")
+    for da, db in zip(ra.decisions, rb.decisions):
+        if (da.boundary, da.slot, da.chosen, da.switched) != \
+                (db.boundary, db.slot, db.chosen, db.switched) \
+                or not np.array_equal(da.scores, db.scores) \
+                or da.migration_bytes != db.migration_bytes:
+            problems.append(f"k={da.boundary}: {(da.chosen, da.switched)} "
+                            f"vs {(db.chosen, db.switched)}, scores "
+                            f"{da.scores.tolist()} vs {db.scores.tolist()}")
+    if problems:
+        raise SmokeFailure(f"{what}: decisions differ: {problems[:3]}")
+
+
+def grid_stages(torch, call, profiled=False) -> tuple[dict, list, object]:
+    """One controller-grid call through ``run_replan_grid``'s stage hook:
+    per stage, host-clock ms with a synchronize at each boundary; or with
+    ``profiled``, under ``torch.profiler`` with each stage a
+    ``record_function`` range, the device time of the kernels each stage
+    launched and the copies it made (ms; ``busy`` their sum, ``wall`` the
+    call's, ``launches`` the device events).  Returns (ms per stage, summed over rounds; the
+    profiled kernels as ``device_times`` gives them, or []; the
+    outcomes)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    times: dict[str, float] = {}
+    if not profiled:
+        last = [0.0]
+
+        def stage(name):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            times[name] = times.get(name, 0.0) + (now - last[0]) * 1e3
+            last[0] = now
+        torch.cuda.synchronize()
+        last[0] = time.perf_counter()
+        return times, [], call(stage)
+    names: list[str] = []
+    rng: list = []
+
+    def stage(name):
+        rng[0].__exit__(None, None, None)
+        names.append(name)
+        rng[0] = record_function(f"replan_stage_{len(names)}")
+        rng[0].__enter__()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rng.append(record_function("replan_stage_0"))
+        rng[0].__enter__()
+        out = call(stage)
+        rng[0].__exit__(None, None, None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # The profiler puts each range on the device's timeline too (from its
+    # first kernel to its last): a device event inside a stage's span is
+    # that stage's.
+    from torch.autograd import DeviceType
+    spans, device = [], []
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        if evt.name.startswith("replan_stage_"):
+            k = int(evt.name.rsplit("_", 1)[1])
+            spans.append((evt.time_range.start, evt.time_range.end,
+                          names[k] if k < len(names) else "after"))
+        else:
+            device.append(evt)
+    for evt in device:
+        t = evt.time_range.start
+        name = next((n for lo, hi, n in spans if lo <= t <= hi), "between")
+        times[name] = times.get(name, 0.0) \
+            + evt.time_range.elapsed_us() / 1e3
+    kernels = [k for k in device_times(prof, 1)
+               if not k[2].startswith("replan_stage_")]
+    times["busy"] = sum(k[0] for k in kernels)
+    times["wall"] = wall * 1e3
+    times["launches"] = sum(k[1] for k in kernels)
+    return times, kernels, out
+
+
+def replan_paper(torch, world) -> dict:
+    """Phase 11 (a): phase 7's world, FIFO, backlog re-placement over
+    cadences 1, 2 and 3 in one ``run_many(replan=)``."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import core
+    from repro_torch.kernels import ops
+    from repro_torch.traffic import (QueueConfig, ReplanConfig, queueing,
+                                     replan_base_scores, replan_traffic)
+    topo, act, plans, req, _ = world
+    wl, comp = core.MoEWorkload.llama_moe_3p5b(), core.ComputeConfig()
+    qcfg = QueueConfig()
+    rcfg = ReplanConfig(mode="backlog", controller_iterations=2,
+                        hysteresis=0.0)
+    # replan_traffic's seed discipline: one draw seeds the fleet, the
+    # next integer seeds the base scores' draws.
+    seed = int(np.random.default_rng(4).integers(0, 2**31 - 1))
+    sim, t_build = build_fleet(world, "cuda", seed=seed, qcfg=qcfg)
+    t0 = time.perf_counter()
+    scores = replan_base_scores(plans, topo, act, wl, comp,
+                                np.random.default_rng(seed + 1), rcfg,
+                                device="cuda")
+    t_scores = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim._ctrl_tables()
+    t_tables = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim._ctrl_device()
+    torch_sync()
+    t_upload = time.perf_counter() - t0
+    ct = sim._ctrl_tables()
+    F = len(REPLAN_CADENCES)
+    log(f"replan (a) paper world: T={sim.n_bins} bins, {sim.n_rows} probe "
+        f"rows, {ct['n_rows_sched']} schedule rows, {ct['n_bounds'] + 1} "
+        f"decision boundaries, {ct['ch_work'].size} gated chunks an entry "
+        f"(F={F}: {F * ct['ch_work'].size} triples), built {t_build:.1f}s; "
+        f"replan_base_scores ({topo.n_slots} slots of evaluate_plans) "
+        f"{t_scores:.2f}s, _ctrl_tables {t_tables:.2f}s, upload "
+        f"{t_upload:.2f}s")
+
+    def grid(stage=None):
+        return sim.run_many(replan=rcfg, base_scores=scores,
+                            cadences=REPLAN_CADENCES) if stage is None \
+            else sim.run_replan_grid(rcfg, base_scores=scores,
+                                     cadences=REPLAN_CADENCES, stage=stage)
+    captured = []
+    real_deposit = queueing.deposit
+
+    def deposit_rec(rows, cols, vals, n_rows, n_cols, row_ptr):
+        if n_rows == F * ct["n_rows_sched"] and not captured:
+            captured.append((rows.clone(), cols.clone(), vals.clone(),
+                             n_rows, n_cols, row_ptr.clone()))
+        return real_deposit(rows, cols, vals, n_rows, n_cols,
+                            row_ptr=row_ptr)
+    queueing.deposit = deposit_rec
+    try:
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        fused = grid()
+        torch_sync()
+        t_first = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base_mem
+    finally:
+        queueing.deposit = real_deposit
+    n, rounds = qcfg.iterations, rcfg.controller_iterations
+    want = {"deposit": (n - 1) + rounds * n, "backlog_scan": n + rounds * n,
+            "admission_window": 0, "admission_ctrl": 0}
+    log(f"replan (a) run_many(replan=) over cadences {REPLAN_CADENCES}: "
+        f"{t_first:.2f}s wall (first call), launch counts "
+        f"{json.dumps(counts)} (expected {json.dumps(want)}: the probe's "
+        f"{n} iterations, then per round an iteration-1 deposit on the "
+        f"card and {n} iterations); peak device memory above the "
+        f"simulator's {peak / 2**30:.2f} GiB")
+    if {k: counts[k] for k in want} != want:
+        raise SmokeFailure(f"replan (a) launch counts {counts} != {want}")
+    host_ms, _, again = grid_stages(torch, grid)
+    dev_ms, kernels, _ = grid_stages(torch, grid, profiled=True)
+    for a, b in zip(fused, again):
+        same_decisions(a, b, "replan (a) grid vs grid")
+        assert_parity(a.result, b.result, "replan (a) grid vs grid",
+                      rtol=0.0)
+    log(f"replan (a) itemized, host clock with a synchronize at each "
+        f"stage (ms): {json.dumps({k: round(v, 2) for k, v in host_ms.items()})}"
+        f"; under the profiler, device time of each stage's kernels (ms): "
+        f"{json.dumps({k: round(v, 3) for k, v in dev_ms.items()})} -> "
+        f"device busy {dev_ms['busy'] / dev_ms['wall']:.1%} of the wall")
+    for ms, calls, name in sorted(kernels, reverse=True)[:8]:
+        log(f"replan (a) profile: {ms:9.3f} ms {calls:6.0f} calls  "
+            f"{name[:80]}")
+
+    # The host loop on the card, cadence by cadence: its decisions must be
+    # the grid's bit for bit, its results the grid's at the fused-vs-
+    # legacy criterion.
+    t_host = 0.0
+    for cad, out in zip(REPLAN_CADENCES, fused):
+        t0 = time.perf_counter()
+        host = replan_traffic(plans, topo, act, wl, comp, req,
+                              np.random.default_rng(4),
+                              dataclasses.replace(rcfg, period_slots=cad),
+                              qcfg, device="cuda")
+        torch_sync()
+        t_host += time.perf_counter() - t0
+        same_decisions(host, out, f"replan (a) cadence {cad}: host loop vs "
+                       "grid")
+        n_served = assert_parity(host.result, out.result,
+                                 f"replan (a) cadence {cad}: host loop vs "
+                                 "grid")
+        rep = out.report
+        log(f"replan (a) cadence {cad}: slot plan "
+            f"{np.bincount(rep.schedule.slot_plan, minlength=len(plans)).tolist()}"
+            f" slots per plan, {len(rep.decisions)} decisions, "
+            f"{rep.n_switches} switches, {rep.total_migration_bytes:.0f} "
+            f"bytes moved; host loop equal bit for bit; {n_served} requests "
+            f"served over the {len(out.result.plans)} rows")
+    log(f"replan (a) host loop over the 3 cadences {t_host:.1f}s vs the "
+        f"grid's {t_first:.2f}s (first call)")
+    dep = check_deposit(torch, captured.pop(), f"the schedule row's gated "
+                        f"table (F={F}), iteration 1")
+    log("kernel " + json.dumps(dep))
+    if not dep["ok"]:
+        raise SmokeFailure("deposit disagrees with its plain version on the "
+                           "gated table")
+    return dict(deposit=dep, host_ms=host_ms, dev_ms=dev_ms)
+
+
+def ctrl_world(device):
+    """``benchmarks/bench_ctrl.py``'s world at its non-fast setting: 8 x 12
+    satellites, 10 slots, Zipf 4 experts top-2 over 4 layers, 3 plans,
+    40 requests/s for 120 s over 2 gateways, AIMD at a 60 s TTFT target,
+    6 s buffers, 10 s slots; the simulator seeded as replan_traffic seeds
+    it, and the base scores."""
+    import numpy as np
+
+    from repro_torch import core
+    from repro_torch.traffic import (AdmissionConfig, FleetSim, QueueConfig,
+                                     ReplanConfig, replan_base_scores,
+                                     sample_requests)
+    con = core.Constellation(core.ConstellationConfig.scaled(
+        8, 12, n_slots=10, survival_prob=1.0))
+    topo = core.sample_topology(con, core.LinkConfig(),
+                                np.random.default_rng(0))
+    act = core.ActivationModel.zipf(4, 4, 2, seed=1)
+    plans = [core.rand_intra_cg_plan(con.cfg, 4, 4, np.random.default_rng(7)),
+             core.spacemoe_plan(con, topo, act),
+             core.rand_intra_cg_plan(con.cfg, 4, 4,
+                                     np.random.default_rng(11))]
+    req = sample_requests(np.random.default_rng(2), rate_rps=40.0,
+                          horizon_s=120.0, n_stations=2, prompt_median=8,
+                          prompt_max=32, decode_mean=8, decode_max=16)
+    qcfg = QueueConfig(dt_s=0.05, tail_s=30.0, slot_period_s=10.0,
+                       buffer_s=6.0,
+                       admission=AdmissionConfig(policy="aimd",
+                                                 ttft_target_s=60.0))
+    rcfg = ReplanConfig(mode="backlog", controller_iterations=1,
+                        bytes_per_expert=qcfg.migration_bytes_per_expert)
+    seed = int(np.random.default_rng(4).integers(0, 2**31 - 1))
+    wl, comp = core.MoEWorkload.llama_moe_3p5b(), core.ComputeConfig()
+    sim = FleetSim(plans, topo, act, wl, comp, req,
+                   np.random.default_rng(seed), qcfg=qcfg, device=device)
+    scores = replan_base_scores(plans, topo, act, wl, comp,
+                                np.random.default_rng(seed + 1), rcfg,
+                                device=device)
+    return sim, scores, rcfg, (plans, topo, act, wl, comp, req, qcfg)
+
+
+def replan_bench_grid(torch) -> dict:
+    """Phase 11 (b): the reference bench's 27-cell grid in one
+    ``run_replan_grid`` on the card, against the CPU and against the host
+    loop cell by cell; the admission kernels on the per-entry tables it
+    gave them.  (c): one cell's flight log with ``replan=``."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.obs import (build_flight_log, chrome_trace,
+                                 count_events, validate_trace)
+    from repro_torch.traffic import admission, replan_traffic
+    t0 = time.perf_counter()
+    sim, scores, rcfg, (plans, topo, act, wl, comp, req, qcfg) = \
+        ctrl_world("cuda")
+    torch_sync()
+    grid = dict(base_scores=scores, cadences=list(CTRL_CADENCES),
+                mig_weights=list(CTRL_MIG_WEIGHTS),
+                ttft_targets=list(CTRL_TTFT_TARGETS))
+    F = len(CTRL_CADENCES) * len(CTRL_MIG_WEIGHTS) * len(CTRL_TTFT_TARGETS)
+    log(f"replan (b) bench_ctrl world: R={sim.n_requests} requests, "
+        f"T={sim.n_bins} bins, {sim.n_rows} probe rows, built with its base "
+        f"scores in {time.perf_counter() - t0:.1f}s; {F} cells")
+    windows, cells = [], []
+    real_window, real_ctrl = admission.admission_window, admission.admission_ctrl
+
+    def window_rec(*args):
+        if args[4].dim() == 4:                       # per-entry tables
+            windows.append(tuple(a.clone() if torch.is_tensor(a) else a
+                                 for a in args))
+        return real_window(*args)
+
+    def ctrl_rec(win, *args, **kw):
+        if args[0].dim() == 3:                       # per-entry anchors
+            cells.append((win.clone(), args, kw))
+        return real_ctrl(win, *args, **kw)
+    admission.admission_window, admission.admission_ctrl = window_rec, ctrl_rec
+    try:
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        fused = sim.run_replan_grid(rcfg, **grid)
+        torch_sync()
+        t_first = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base_mem
+    finally:
+        admission.admission_window, admission.admission_ctrl = \
+            real_window, real_ctrl
+    n = qcfg.iterations
+    want = {"deposit": (n - 1) + n, "backlog_scan": 2 * n,
+            "admission_window": 2 * n, "admission_ctrl": 2 * n}
+    t0 = time.perf_counter()
+    again = sim.run_replan_grid(rcfg, **grid)
+    torch_sync()
+    t_steady = time.perf_counter() - t0
+    log(f"replan (b) run_replan_grid: {t_first:.2f}s wall (first call), "
+        f"{t_steady:.2f}s (second); launch counts {json.dumps(counts)} "
+        f"(expected {json.dumps(want)}); peak device memory above the "
+        f"simulator's {peak / 2**30:.2f} GiB")
+    if {k: counts[k] for k in want} != want:
+        raise SmokeFailure(f"replan (b) launch counts {counts} != {want}")
+    if len(windows) != n or len(cells) != n:
+        raise SmokeFailure(f"replan (b): {len(windows)} admission_window and "
+                           f"{len(cells)} admission_ctrl calls on per-entry "
+                           f"tables, expected {n} each")
+    for a, b in zip(fused, again):
+        same_decisions(a, b, "replan (b) grid vs grid")
+
+    cpu_sim, cpu_scores, _, _ = ctrl_world("cpu")
+    if not np.array_equal(cpu_scores, scores):
+        raise SmokeFailure("replan (b): base scores differ card vs CPU")
+    t0 = time.perf_counter()
+    cpu = cpu_sim.run_replan_grid(rcfg, **dict(grid, base_scores=cpu_scores))
+    t_cpu = time.perf_counter() - t0
+    served = 0
+    for f, (a, b) in enumerate(zip(cpu, fused)):
+        same_decisions(a, b, f"replan (b) cell {f}: card vs CPU")
+        served += assert_parity(a.result, b.result,
+                                f"replan (b) cell {f}: card vs CPU")
+        same_admission(a.result, b.result, f"replan (b) cell {f}: card vs CPU")
+    log(f"replan (b) card vs CPU: decisions bit for bit, identical served, "
+        f"shed and retry sets, latencies at the fused-vs-legacy criterion "
+        f"on all {F} cells ({served} requests served over the cells' rows; "
+        f"CPU grid {t_cpu:.1f}s)")
+
+    t0 = time.perf_counter()
+    cells_cfg = [(c, w, tt) for c in CTRL_CADENCES for w in CTRL_MIG_WEIGHTS
+                 for tt in CTRL_TTFT_TARGETS]
+    switches = 0
+    for f, ((cad, w, tt), out) in enumerate(zip(cells_cfg, fused)):
+        qc = dataclasses.replace(qcfg, admission=dataclasses.replace(
+            qcfg.admission, ttft_target_s=tt))
+        rc = dataclasses.replace(rcfg, period_slots=cad,
+                                 migration_weight_s_per_mb=w,
+                                 bytes_per_expert=None)
+        host = replan_traffic(plans, topo, act, wl, comp, req,
+                              np.random.default_rng(4), rc, qc,
+                              device="cuda")
+        same_decisions(host, out, f"replan (b) cell {f} {(cad, w, tt)}: "
+                       "host loop vs grid")
+        switches += out.report.n_switches
+    torch_sync()
+    t_host = time.perf_counter() - t0
+    log(f"replan (b) host loop, cell by cell on the card: {t_host:.1f}s for "
+        f"{F} cells, decisions equal to the grid's bit for bit on all; the "
+        f"one-call grid {t_steady:.2f}s: {t_host / t_steady:.1f}x "
+        f"(reported, not gated); {switches} switches over the cells")
+    if switches == 0:
+        raise SmokeFailure("replan (b): no cell switched plans")
+
+    wins = [check_window(torch, args, f"bench_ctrl grid's schedule row "
+                         f"(F={F}, per-entry station maps), iteration "
+                         f"{i + 1}") for i, args in enumerate(windows)]
+    recs = [check_ctrl(torch, win, args, kw, f"bench_ctrl grid's schedule "
+                       f"row (F={F}, per-entry anchors), iteration {i + 1}")
+            for i, (win, args, kw) in enumerate(cells)]
+    for rec in wins + recs:
+        log("kernel " + json.dumps(rec))
+    bad = [r["shape"] for r in wins + recs if not r["ok"]]
+    if bad:
+        raise SmokeFailure(f"admission kernels disagree with their plain "
+                           f"versions on the per-entry tables: {bad}")
+
+    # (c) one cell's flight log, its decisions as trace instants.
+    out = fused[0]
+    flight = build_flight_log(out.sim, out.result, replan=out.report,
+                              scenario="bench_ctrl cell 0")
+    trace = chrome_trace(flight)
+    problems = validate_trace(json.loads(json.dumps(trace)))
+    n_dec = len(out.report.decisions)
+    got = {k: count_events(trace, k, "i") for k in ("replan", "joint")}
+    log(f"replan (c) flight log of cell 0 with replan=: "
+        f"{len(flight.requests)} request records, "
+        f"{count_events(trace, '', 'X')} spans, instants {json.dumps(got)} "
+        f"for {n_dec} decisions; validate_trace: "
+        f"{problems[:3] if problems else 'no problems'}")
+    if problems or got != {"replan": n_dec, "joint": n_dec}:
+        raise SmokeFailure(f"replan (c): flight-log trace {problems[:3]}, "
+                           f"instants {got} for {n_dec} decisions")
+    return dict(window=wins[-1], ctrl=recs[-1])
+
+
+def phase_replan(torch, world) -> dict:
+    """Phase 11: re-placement and the joint control plane, (a) on the
+    paper's world at full width, (b) on the reference bench's controller
+    grid, (c) the flight log."""
+    out = replan_paper(torch, world)
+    out.update(replan_bench_grid(torch))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1883,6 +2331,7 @@ def main() -> int:
         "fleet_admission", phase_fleet_admission, torch, world)
     timed("fleet_batching", phase_fleet_batching, torch, world, adm_sims)
     del adm_sims
+    timed("replan", phase_replan, torch, world)
     main_cases["admission_window"] = win_rec
     main_cases["admission_ctrl"] = ctrl_rec
     mixed = [name for name, rec in main_cases.items() if not rec["hidden"]]

@@ -7,7 +7,9 @@ estimate qhat that bin k closes, the cell of ``repro.traffic.admission``
 
 * AIMD: ``admit * decrease`` (floored at ``admit_min``) when
   ``ttft0[p, g] + w > ttft_target[f]`` or ``tpot0[p] + w >
-  tpot_target[f]``, else ``admit + increase`` (capped at 1);
+  tpot_target[f]``, else ``admit + increase`` (capped at 1) (the anchors
+  may also be per entry, ``ttft0[f, p, g]`` and ``tpot0[f, p]``: the joint
+  control plane's schedule row);
 * PID: the normalized headroom ``err`` (an infinite target drops its
   term), the integral clamped at +-``_PID_WINDUP``, ``delta = kp * err +
   ki * integ + kd * (err - prev)``, ``admit + gain[p] * delta`` clamped
@@ -69,6 +71,8 @@ def admission_ctrl_plain(win, ttft0, tpot0, admit0, ttft_target,
 
     tt = ttft_target[:, None, None]                          # (F, 1, 1)
     tp = tpot_target[:, None]                                # (F, 1)
+    if ttft0.dim() == 2:                                     # shared anchors
+        ttft0, tpot0 = ttft0[None], tpot0[None]
     one, inf = scalar(1.0), scalar(float("inf"))
     amin = scalar(admit_min)
     admit = admit0.clone()
@@ -85,14 +89,14 @@ def admission_ctrl_plain(win, ttft0, tpot0, admit0, ttft_target,
     for k in range(win.shape[0]):
         w = win[k]                                           # (F, P)
         if pid is None:
-            over = ((ttft0[None] + w[..., None]) > tt) \
-                | ((tpot0[None] + w) > tp)[..., None]
+            over = ((ttft0 + w[..., None]) > tt) \
+                | ((tpot0 + w) > tp)[..., None]
             admit = torch.where(over, torch.maximum(admit * dec, amin),
                                 torch.minimum(admit + inc, one))
         else:
-            h_t = torch.where(tt_fin, (tt - (ttft0[None] + w[..., None])) / tt,
+            h_t = torch.where(tt_fin, (tt - (ttft0 + w[..., None])) / tt,
                               inf)
-            h_p = torch.where(tp_fin, (tp - (tpot0[None] + w)) / tp,
+            h_p = torch.where(tp_fin, (tp - (tpot0 + w)) / tp,
                               inf)[..., None]
             err = torch.minimum(h_t, h_p)
             integ = torch.minimum(torch.maximum(integ + err, -windup), windup)
@@ -115,7 +119,7 @@ def _library():
     lib = build.load("admission_ctrl")
     if lib.repro_admission_ctrl.argtypes is None:
         lib.repro_admission_ctrl.argtypes = [ctypes.c_void_p] * 9 + [
-            ctypes.c_int64] * 7 + [ctypes.c_int] + [ctypes.c_float] * 6 + [
+            ctypes.c_int64] * 9 + [ctypes.c_int] + [ctypes.c_float] * 6 + [
             ctypes.c_void_p]
         lib.repro_admission_ctrl.restype = ctypes.c_int
     return lib
@@ -136,8 +140,9 @@ def admission_ctrl(win: torch.Tensor, ttft0: torch.Tensor,
 
     Args (all float32 tensors on one device):
         win: (n_ctrl, F, P) windowed maximum of qhat per control bin.
-        ttft0: (P, G) zero-load TTFT anchors per (plan, gateway).
-        tpot0: (P,) zero-load TPOT anchors.
+        ttft0: (P, G) zero-load TTFT anchors per (plan, gateway), or
+            (F, P, G) per entry.
+        tpot0: (P,) zero-load TPOT anchors, or (F, P) per entry.
         admit0: (F, P, G) admission probabilities before the first bin.
         ttft_target, tpot_target: (F,) margin-scaled targets (+inf
             disables a term).
@@ -158,8 +163,10 @@ def admission_ctrl(win: torch.Tensor, ttft0: torch.Tensor,
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("admission_ctrl: every tensor must be float32")
     n_ctrl, n_f, n_p = win.shape
-    n_g = ttft0.shape[1]
-    if ttft0.shape != (n_p, n_g) or tpot0.shape != (n_p,) \
+    n_g = ttft0.shape[-1]
+    per_entry = ttft0.dim() == 3
+    lead = (n_f, n_p) if per_entry else (n_p,)
+    if ttft0.shape != lead + (n_g,) or tpot0.shape != lead \
             or admit0.shape != (n_f, n_p, n_g) \
             or ttft_target.shape != (n_f,) or tpot_target.shape != (n_f,) \
             or (pid is not None and pid["gain"].shape != (n_p,)):
@@ -200,7 +207,9 @@ def admission_ctrl(win: torch.Tensor, ttft0: torch.Tensor,
         err = lib.repro_admission_ctrl(
             *(t.data_ptr() for t in tensors[:6]), gain, out.data_ptr(),
             coalescence.data_ptr() if coalescence is not None else None,
-            n_ctrl, n_f, n_p, n_g, *win.stride(), ctrl_chunk(n_ctrl),
+            n_ctrl, n_f, n_p, n_g, *win.stride(),
+            n_p * n_g if per_entry else 0, n_p if per_entry else 0,
+            ctrl_chunk(n_ctrl),
             _f32(increase),
             _f32(decrease), _f32(admit_min), _f32(p.get("kp", 0.0)),
             _f32(p.get("ki", 0.0)), _f32(p.get("kd", 0.0)),

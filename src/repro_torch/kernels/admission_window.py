@@ -9,7 +9,9 @@ the controller reads after bin t is
 with ``after[t]`` the backlog after bin t (the wait of bin t + 1; after
 the last bin one more step of the recursion, ``max(min(wait + work, cap)
 - dt, 0)`` in float32 in that order), ``s`` the bin's topology slot and
-each sum over layers in index order.  ``win[k, f, p]`` is the maximum of
+each sum over layers in index order.  The station tables are shared by
+the entries (``gw[s, p, l]``) or per entry (``gw[s, f, p, l]``: the joint
+control plane's schedule row, whose decided plan differs by entry).  ``win[k, f, p]`` is the maximum of
 qhat over control window k: the bins with ``seg[t] == k``, ``seg =
 cumsum(ctrl) - ctrl`` (:func:`control_segments`); bins after the last
 control bin belong to no window.  This is the qhat/window half of the
@@ -65,8 +67,10 @@ def qhat_trace(wait: torch.Tensor, work_last: torch.Tensor, cap: torch.Tensor,
         wait: (T, F, C) float32 wait trace (the backlog before each bin).
         work_last: (F, C) float32 work of the last bin.
         cap, dt: float32 scalar tensors, the scan's cap and bin width.
-        gw_rows: (NB, P, L) int64 column of each plan's gateway per layer.
-        exp_rows: (NB, P, L * I) int64 column of each (layer, expert).
+        gw_rows: (NB, P, L) int64 column of each plan's gateway per
+            layer, or (NB, F, P, L) per entry.
+        exp_rows: (NB, P, L * I) int64 column of each (layer, expert), or
+            (NB, F, P, L * I).
         bin_map: (T,) int64 row of ``gw_rows``/``exp_rows`` per bin.
 
     The gateway chain is summed over layers in index order; the expert
@@ -75,7 +79,7 @@ def qhat_trace(wait: torch.Tensor, work_last: torch.Tensor, cap: torch.Tensor,
     """
     n_bins, n_f, _ = wait.shape
     last = torch.clamp_min(torch.minimum(wait[-1] + work_last, cap) - dt, 0.0)
-    n_p, n_li = exp_rows.shape[1], exp_rows.shape[2]
+    n_p, n_li = exp_rows.shape[-2], exp_rows.shape[-1]
     out = torch.empty((n_bins, n_f, n_p), dtype=torch.float32,
                       device=wait.device)
     step = max(1, QHAT_CHUNK_ELEMS // max(1, n_f * n_p * n_li))
@@ -93,13 +97,16 @@ def qhat_of(after: torch.Tensor, gw_rows: torch.Tensor,
             exp_rows: torch.Tensor) -> torch.Tensor:
     """(n, F, P) qhat of n bins from the backlog after each, ``after``
     (n, F, C), and each bin's gateway columns (n, P, L) and (layer,
-    expert) columns (n, P, L * I), as :func:`qhat_trace` sums them."""
+    expert) columns (n, P, L * I), or per entry (n, F, P, L) and (n, F,
+    P, L * I), as :func:`qhat_trace` sums them."""
     n, n_f, _ = after.shape
-    n_p, n_layers = gw_rows.shape[1], gw_rows.shape[2]
+    n_p, n_layers = gw_rows.shape[-2], gw_rows.shape[-1]
+    if gw_rows.dim() == 3:
+        gw_rows, exp_rows = gw_rows[:, None], exp_rows[:, None]
     t_idx = torch.arange(n, device=after.device)[:, None, None, None]
     f_idx = torch.arange(n_f, device=after.device)[None, :, None, None]
-    gw = after[t_idx, f_idx, gw_rows[:, None]]                 # (n,F,P,L)
-    ex = after[t_idx, f_idx, exp_rows[:, None]]                # (n,F,P,LI)
+    gw = after[t_idx, f_idx, gw_rows]                          # (n,F,P,L)
+    ex = after[t_idx, f_idx, exp_rows]                         # (n,F,P,LI)
     ex = ex.reshape(n, n_f, n_p, n_layers, -1).amax(dim=4)
     return _seq_sum(gw) + _seq_sum(ex)
 
@@ -130,18 +137,19 @@ def admission_window_plain(wait, work_last, cap: float, dt: float, gw_rows,
 
 
 def window_tile(n_f: int, n_c: int, n_p: int, n_l: int,
-                n_i: int) -> tuple[int, int]:
+                n_i: int, n_e: int = 1) -> tuple[int, int]:
     """(bins a block, row stride in floats) of the kernel for a (T, F, C)
     plane and P plans of L layers x I experts: rows of whole 16-byte
     words padded by one (copied 16 bytes at a time), others to an odd
     stride (the lanes of a warp read one column of consecutive rows); a
     bin also holds its F * P * L gateway terms and expert maxima, its slot
-    and its window; a block holds one slot's P * L * (1 + I) stations.  As
-    many bins as fit TILE_BYTES."""
+    and its window; a block holds one slot's n_e * P * L * (1 + I)
+    stations (n_e: 1 for shared station tables, F for per-entry ones).
+    As many bins as fit TILE_BYTES."""
     n_fc = n_f * n_c
     stride = n_fc + 4 if n_fc % 4 == 0 else n_fc | 1
     per_bin = 4 * (stride + 2 * n_f * n_p * n_l + 2)
-    fixed = 4 * n_p * n_l * (1 + n_i)
+    fixed = 4 * n_e * n_p * n_l * (1 + n_i)
     tile = max(1, (TILE_BYTES - fixed) // per_bin)
     if tile * per_bin + fixed > SMEM_MAX:
         raise ValueError(f"admission_window: a bin of {n_f} x {n_c} backlog "
@@ -154,7 +162,7 @@ def _library():
     lib = build.load("admission_window")
     if lib.repro_admission_window.argtypes is None:
         lib.repro_admission_window.argtypes = [ctypes.c_void_p] * 7 + [
-            ctypes.c_int64] * 3 + [ctypes.c_int] * 8 + [
+            ctypes.c_int64] * 3 + [ctypes.c_int] * 9 + [
             ctypes.c_float] * 2 + [ctypes.c_void_p]
         lib.repro_admission_window.restype = ctypes.c_int
     return lib
@@ -171,8 +179,9 @@ def admission_window(wait: torch.Tensor, work_last: torch.Tensor, cap: float,
         work_last: (F, C) float32 work of the last bin (any strides).
         cap, dt: the scan's cap and bin width (rounded to float32).
         gw_rows: (NS, P, L) integer column of each plan's gateway per
-            layer, per slot.
-        exp_rows: (NS, P, L * I) integer column of each (layer, expert).
+            layer, per slot; or (NS, F, P, L), per slot and entry.
+        exp_rows: (NS, P, L * I) integer column of each (layer, expert),
+            or (NS, F, P, L * I).
         bin_map: (T,) integer slot of each bin (row of the tables).
         seg: (T,) integer window of each bin, ``n_ctrl`` for none
             (:func:`control_segments`).
@@ -190,10 +199,14 @@ def admission_window(wait: torch.Tensor, work_last: torch.Tensor, cap: float,
         raise TypeError("admission_window: wait (T, F, C) and work_last "
                         "must be float32")
     n_bins, n_f, n_c = wait.shape
-    n_s, n_p, n_l = gw_rows.shape
-    if work_last.shape != (n_f, n_c) or exp_rows.shape[:2] != (n_s, n_p) \
-            or n_l == 0 or exp_rows.shape[2] % n_l \
-            or exp_rows.shape[2] == 0 or bin_map.shape != (n_bins,) \
+    per_entry = gw_rows.dim() == 4
+    n_e = n_f if per_entry else 1
+    n_s, n_p, n_l = gw_rows.shape[0], gw_rows.shape[-2], gw_rows.shape[-1]
+    lead = (n_s, n_e, n_p) if per_entry else (n_s, n_p)
+    if work_last.shape != (n_f, n_c) or gw_rows.shape[:-1] != lead \
+            or exp_rows.shape[:-1] != lead \
+            or n_l == 0 or exp_rows.shape[-1] % n_l \
+            or exp_rows.shape[-1] == 0 or bin_map.shape != (n_bins,) \
             or seg.shape != (n_bins,):
         raise ValueError("admission_window: shapes do not agree with wait "
                          f"{tuple(wait.shape)}")
@@ -210,8 +223,8 @@ def admission_window(wait: torch.Tensor, work_last: torch.Tensor, cap: float,
                       device=wait.device)
     if win.numel() == 0:
         return win.permute(2, 0, 1)
-    n_i = exp_rows.shape[2] // n_l
-    tile, stride = window_tile(n_f, n_c, n_p, n_l, n_i)
+    n_i = exp_rows.shape[-1] // n_l
+    tile, stride = window_tile(n_f, n_c, n_p, n_l, n_i, n_e)
     wait = wait.contiguous()
     ints = [t.to(torch.int32).contiguous()
             for t in (gw_rows, exp_rows, bin_map, seg)]
@@ -221,7 +234,7 @@ def admission_window(wait: torch.Tensor, work_last: torch.Tensor, cap: float,
             wait.data_ptr(), work_last.data_ptr(),
             *(t.data_ptr() for t in ints), win.data_ptr(), n_bins,
             work_last.stride(0), work_last.stride(1), n_f, n_c, n_p, n_l,
-            n_i, n_ctrl, tile, stride, float(np.float32(cap)),
+            n_i, n_e, n_ctrl, tile, stride, float(np.float32(cap)),
             float(np.float32(dt)), torch.cuda.current_stream().cuda_stream)
     build.check(err, "admission_window")
     launches += 1

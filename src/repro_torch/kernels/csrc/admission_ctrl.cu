@@ -7,7 +7,8 @@
 // kernel).  In the port the backlog half of that scan is backlog_scan and
 // the window maxima of qhat are admission_window.  What is left is the cell:
 // for each (f, p, g), over the n_ctrl control bins k in order, with
-// w = win[k, f, p],
+// w = win[k, f, p] (ttft0 and tpot0 shared by the entries, or per entry,
+// ttft0[f, p, g] and tpot0[f, p]: the joint control plane's schedule row),
 //
 //   AIMD: over  = (ttft0[p, g] + w > tt[f]) | (tpot0[p] + w > tp[f])
 //         admit = over ? max(admit * decrease, admit_min)
@@ -81,15 +82,15 @@ constexpr float kPidWindup = 10.0f;
 
 struct Args {
   const float* win;     // (n_ctrl, F, P), element (k, f, p) at k * sk + f * sf + p * sp
-  const float* ttft0;   // (P, G)
-  const float* tpot0;   // (P,)
+  const float* ttft0;   // (P, G), element (f, p, g) at f * st0 + p * G + g
+  const float* tpot0;   // (P,), element (f, p) at f * sp0 + p
   const float* admit0;  // (F, P, G)
   const float* tt;      // (F,) margin-scaled TTFT targets
   const float* tp;      // (F,) margin-scaled TPOT targets
   const float* gain;    // (P,) PID per-plan gain, or null (AIMD)
   float* out;           // (F, P, G, n_ctrl): each cell's control bins contiguous
   int* coal;            // (F * P * G, kLanes) bins to the runs' meeting, -1: never; or null
-  int64_t n_ctrl, n_f, n_p, n_g, sk, sf, sp;
+  int64_t n_ctrl, n_f, n_p, n_g, sk, sf, sp, st0, sp0;
   int chunk;
   float increase, decrease, admit_min, kp, ki, kd;
 };
@@ -205,8 +206,8 @@ admission_ctrl_kernel(const Args a) {
   const int64_t fp = cell / a.n_g;
   const int64_t p = fp % a.n_p, f = fp / a.n_p;
   Cell c;
-  c.ttft0 = a.ttft0[p * a.n_g + cell % a.n_g];
-  c.tpot0 = a.tpot0[p];
+  c.ttft0 = a.ttft0[f * a.st0 + p * a.n_g + cell % a.n_g];
+  c.tpot0 = a.tpot0[f * a.sp0 + p];
   c.tt = a.tt[f];
   c.tp = a.tp[f];
   c.tt_fin = isfinite(c.tt);
@@ -343,7 +344,9 @@ admission_ctrl_kernel(const Args a) {
 
 // out (F, P, G, n_ctrl) f32 (contiguous) from win (n_ctrl, F, P), element
 // (k, f, p) at k * sk + f * sf + p * sp, and the cell's parameters (f32,
-// contiguous), in chunks of `chunk` control bins,
+// contiguous; the anchors ttft0 (P, G) and tpot0 (P,) with entry strides
+// st0 and sp0: 0 when the entries share them, P * G and P when each entry
+// has its own), in chunks of `chunk` control bins,
 // chunk * 32 >= n_ctrl.  gain: (P,) for PID, null for AIMD.  coal: null, or
 // F * P * G * 32 ints that receive each (cell, chunk)'s bins to the runs'
 // meeting (-1: they never met).  Takes 0 < decrease < 1, increase > 0 and
@@ -355,7 +358,8 @@ extern "C" int repro_admission_ctrl(const void* win, const void* ttft0,
                                     const void* gain, void* out, void* coal,
                                     int64_t n_ctrl, int64_t n_f, int64_t n_p,
                                     int64_t n_g, int64_t sk, int64_t sf,
-                                    int64_t sp, int chunk, float increase,
+                                    int64_t sp, int64_t st0, int64_t sp0,
+                                    int chunk, float increase,
                                     float decrease, float admit_min, float kp,
                                     float ki, float kd, void* stream) {
   const int64_t n_cells = n_f * n_p * n_g;
@@ -366,7 +370,8 @@ extern "C" int repro_admission_ctrl(const void* win, const void* ttft0,
                static_cast<const float*>(tpot0), static_cast<const float*>(admit0),
                static_cast<const float*>(tt), static_cast<const float*>(tp),
                static_cast<const float*>(gain), static_cast<float*>(out),
-               static_cast<int*>(coal), n_ctrl, n_f, n_p, n_g, sk, sf, sp, chunk,
+               static_cast<int*>(coal), n_ctrl, n_f, n_p, n_g, sk, sf, sp, st0, sp0,
+               chunk,
                increase, decrease, admit_min, kp, ki, kd};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (gain != nullptr)

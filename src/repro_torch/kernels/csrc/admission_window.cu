@@ -14,7 +14,9 @@
 //                 + sum_l max_i after[t, f, ex[s, p, l * I + i]],  s = slot[t]
 //
 // (each sum over layers in index order, starting from layer 0's term, then
-// gateway + expert), and win[k, f, p] = the maximum of qhat over the bins of
+// gateway + expert; the station tables are shared by the entries, n_e = 1,
+// or the entry's own, n_e = F: gw[s, f, p, l], the joint control plane's
+// schedule row), and win[k, f, p] = the maximum of qhat over the bins of
 // window k (seg[t] == k; bins with seg[t] == n_ctrl belong to no window),
 // stored k-contiguous: win[f, p, k].
 // Every add is __fadd_rn in that order and max is exact, so the result is
@@ -62,13 +64,13 @@ constexpr int kThreads = 256;
 struct Args {
   const float* wait;       // (n_bins, n_f * n_c) contiguous
   const float* work_last;  // element (f, c) at f * slf + c * slc
-  const int* gw;           // (n_slots, P, L) columns of the gateway chain
-  const int* ex;           // (n_slots, P, L * I) columns of the experts
+  const int* gw;           // (n_slots, n_e, P, L) columns of the gateway chain
+  const int* ex;           // (n_slots, n_e, P, L * I) columns of the experts
   const int* slot;         // (n_bins,) row of gw / ex per bin
   const int* seg;          // (n_bins,) window of each bin; n_ctrl: none
   int* win;                // (F, P, n_ctrl) f32 bit patterns, zero on entry
   int64_t n_bins, slf, slc;
-  int n_f, n_c, n_p, n_l, n_i, n_ctrl, tile, stride;
+  int n_f, n_c, n_p, n_l, n_i, n_e, n_ctrl, tile, stride;
   float cap, dt;
 };
 
@@ -86,8 +88,9 @@ admission_window_kernel(const Args a) {
   float* s_emax = s_gsum + a.tile * n_fp * a.n_l;             // (f*P+p, l, b)
   int* s_slot = reinterpret_cast<int*>(s_emax + a.tile * n_fp * a.n_l);
   int* s_seg = s_slot + a.tile;
-  int* s_gw = s_seg + a.tile;                                 // P x L
-  int* s_ex = s_gw + a.n_p * a.n_l;                           // P x L * I
+  const int n_epl = a.n_e * a.n_p * a.n_l;                    // a slot's gateways
+  int* s_gw = s_seg + a.tile;                                 // n_e x P x L
+  int* s_ex = s_gw + n_epl;                                   // n_e x P x L * I
 
   // The rows after the tile's bins, rows t0 + 1 .. of the plane.
   const int copy_rows = (int)min((int64_t)rows, a.n_bins - 1 - t0);
@@ -124,10 +127,10 @@ admission_window_kernel(const Args a) {
     s_slot[i] = a.slot[t0 + i];
     s_seg[i] = a.seg[t0 + i];
   }
-  for (int i = tid; i < a.n_p * a.n_l; i += kThreads)
-    s_gw[i] = a.gw[(int64_t)s0 * a.n_p * a.n_l + i];
-  for (int i = tid; i < a.n_p * n_li; i += kThreads)
-    s_ex[i] = a.ex[(int64_t)s0 * a.n_p * n_li + i];
+  for (int i = tid; i < n_epl; i += kThreads)
+    s_gw[i] = a.gw[(int64_t)s0 * n_epl + i];
+  for (int i = tid; i < n_epl * a.n_i; i += kThreads)
+    s_ex[i] = a.ex[(int64_t)s0 * n_epl * a.n_i + i];
   if (copy_rows < rows) {      // the tile holds bin T - 1: one more step
     const float* last = a.wait + (a.n_bins - 1) * n_fc;
     float* dst = plane + copy_rows * a.stride;
@@ -150,9 +153,10 @@ admission_window_kernel(const Args a) {
     const int b = t % rows, fp = t / rows;
     if (s_seg[b] >= a.n_ctrl) continue;          // after the last window
     const int f = fp / a.n_p, p = fp % a.n_p;
+    const int ep = (a.n_e == 1 ? 0 : f) * a.n_p + p;          // row of the tables
     const int s = s_slot[b];
-    const int* gw = (s == s0 ? s_gw : a.gw + (int64_t)s * a.n_p * a.n_l) + p * a.n_l;
-    const int* ex = (s == s0 ? s_ex : a.ex + (int64_t)s * a.n_p * n_li) + p * n_li;
+    const int* gw = (s == s0 ? s_gw : a.gw + (int64_t)s * n_epl) + ep * a.n_l;
+    const int* ex = (s == s0 ? s_ex : a.ex + (int64_t)s * n_epl * a.n_i) + ep * n_li;
     const float* row = plane + b * a.stride + f * a.n_c;
     float* g_out = s_gsum + fp * a.n_l * rows + b;
     float* e_out = s_emax + fp * a.n_l * rows + b;
@@ -205,8 +209,9 @@ admission_window_kernel(const Args a) {
 // win (F, P, n_ctrl) f32 (each (f, p)'s windows contiguous, as
 // admission_ctrl reads them) from wait (n_bins, F * C) f32 (contiguous),
 // work_last (F, C) f32 with element strides slf, slc, the int32 station
-// tables gw (n_slots, P, L) and ex (n_slots, P, L * I) (contiguous, columns
-// in [0, C)), slot (n_bins,) in [0, n_slots) and seg (n_bins,) in
+// tables gw (n_slots, n_e, P, L) and ex (n_slots, n_e, P, L * I)
+// (contiguous, columns in [0, C); n_e is 1, tables shared by the entries,
+// or F, each entry's own), slot (n_bins,) in [0, n_slots) and seg (n_bins,) in
 // [0, n_ctrl], `tile` bins a block with rows `stride` floats apart
 // (stride >= F * C; window_tile in kernels/admission_window.py).  Zeroes
 // win first.  Returns the launch's error: 0 when
@@ -216,14 +221,14 @@ extern "C" int repro_admission_window(const void* wait, const void* work_last,
                                       const void* slot, const void* seg, void* win,
                                       int64_t n_bins, int64_t slf, int64_t slc,
                                       int n_f, int n_c, int n_p, int n_l, int n_i,
-                                      int n_ctrl, int tile, int stride, float cap,
+                                      int n_e, int n_ctrl, int tile, int stride, float cap,
                                       float dt, void* stream) {
   if (n_bins <= 0 || n_ctrl <= 0 || n_f <= 0 || n_c <= 0 || n_p <= 0 || n_l <= 0 ||
-      n_i <= 0 || tile <= 0 || stride < n_f * n_c ||
+      n_i <= 0 || (n_e != 1 && n_e != n_f) || tile <= 0 || stride < n_f * n_c ||
       (int64_t)n_ctrl * n_f * n_p >= ((int64_t)1 << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = ((size_t)tile * (stride + 2 * n_f * n_p * n_l + 2) +
-                       (size_t)n_p * n_l * (1 + n_i)) * 4;
+                       (size_t)n_e * n_p * n_l * (1 + n_i)) * 4;
   cudaError_t err = cudaFuncSetAttribute(
       admission_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -234,7 +239,7 @@ extern "C" int repro_admission_window(const void* wait, const void* work_last,
                static_cast<const int*>(gw), static_cast<const int*>(ex),
                static_cast<const int*>(slot), static_cast<const int*>(seg),
                static_cast<int*>(win), n_bins, slf, slc, n_f, n_c, n_p, n_l, n_i,
-               n_ctrl, tile, stride, cap, dt};
+               n_e, n_ctrl, tile, stride, cap, dt};
   const unsigned grid = (unsigned)((n_bins + tile - 1) / tile);
   admission_window_kernel<<<grid, kThreads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());

@@ -16,21 +16,20 @@ Typical use::
     res = sim.run()
     log = build_flight_log(sim, res, scenario="smoke")
     write_trace("out.json", log)          # open in ui.perfetto.dev
-
-Not ported yet: the re-placement controller's events
-(``replan_events``, ``joint_decision_events``).
 """
 from .export import chrome_trace, write_trace
 from .probes import DecisionTrace, ProbeConfig, ProbeRecord, ring_bins
 from .recorder import (ControlEvent, FlightLog, RequestRecord, aimd_events,
-                       build_flight_log, eq43_breakdown, summarize_timeseries)
+                       build_flight_log, eq43_breakdown,
+                       joint_decision_events, replan_events,
+                       summarize_timeseries)
 from .schema import SCHEMA_VERSION, count_events, validate_trace
 
 __all__ = [
     "DecisionTrace", "ProbeConfig", "ProbeRecord", "ring_bins",
     "ControlEvent", "FlightLog", "RequestRecord",
     "aimd_events", "build_flight_log", "eq43_breakdown",
-    "summarize_timeseries",
+    "joint_decision_events", "replan_events", "summarize_timeseries",
     "chrome_trace", "write_trace",
     "SCHEMA_VERSION", "count_events", "validate_trace",
 ]

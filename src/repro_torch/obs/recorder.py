@@ -9,13 +9,9 @@ the launch outputs digested into :class:`~repro_torch.traffic.metrics
 are joined into one :class:`FlightLog` — per-request records with
 prefill/decode spans and a per-layer latency breakdown (zero-load hop
 terms + the final iteration's queueing waits), plus the control-plane
-event stream (AIMD admit changes read off the probe ring).
-
-Not ported yet: the re-placement controller's events
-(``replan_events``, ``joint_decision_events``), which read a
-``ReplanReport``; they come with the replan slice of the port, and
-``build_flight_log(replan=...)`` raises ``NotImplementedError`` until
-then.
+event stream (AIMD admit changes read off the probe ring, re-placement
+decisions read off the controller's ``ReplanReport``: its decisions and,
+from the joint control plane, its ``DecisionTrace``).
 """
 from __future__ import annotations
 
@@ -29,6 +25,7 @@ from .probes import ProbeRecord
 if typing.TYPE_CHECKING:                              # pragma: no cover
     from ..traffic.metrics import TrafficResult
     from ..traffic.queueing import FleetSim
+    from ..traffic.replan import ReplanReport
 
 
 @dataclasses.dataclass
@@ -172,6 +169,66 @@ def aimd_events(probes: ProbeRecord, plan_names: list[str],
     return events
 
 
+def replan_events(report: "ReplanReport",
+                  slot_period_s: float) -> list[ControlEvent]:
+    """The re-placement controller's decision trajectory as instants
+    (every decision; switches carry their migration byte flow)."""
+    if report is None:
+        return []
+    names = [getattr(c, "name", f"cand{i}")
+             for i, c in enumerate(report.candidates)]
+    events: list[ControlEvent] = []
+    for d in report.decisions:
+        label = "replan switch" if d.switched else "replan hold"
+        events.append(ControlEvent(
+            t_s=d.t_s(slot_period_s), kind="replan",
+            name=label, plan=report.schedule.name,
+            args={
+                "boundary": int(d.boundary),
+                "slot": int(d.slot),
+                "chosen": names[int(d.chosen)],
+                "switched": bool(d.switched),
+                "migration_bytes": float(d.migration_bytes),
+                "best_score_s": round(float(np.min(d.scores)), 6),
+            }))
+    return events
+
+
+def joint_decision_events(report: "ReplanReport") -> list[ControlEvent]:
+    """The joint control plane's decision-event channel as instants.
+
+    Emitted only for reports carrying a
+    :class:`~repro_torch.obs.probes.DecisionTrace` (the fused grid path):
+    one ``joint`` instant per decide boundary, with the full
+    per-candidate score vector the on-device decide loop compared —
+    the host controller's ``replan`` instants only carry the winner.
+    """
+    trace = getattr(report, "trace", None)
+    if trace is None:
+        return []
+    names = [getattr(c, "name", f"cand{i}")
+             for i, c in enumerate(report.candidates)]
+    events: list[ControlEvent] = []
+    t = trace.t_s
+    for d in range(trace.n_decisions):
+        switched = bool(trace.switched[d])
+        events.append(ControlEvent(
+            t_s=float(t[d]),
+            kind="joint",
+            name="joint switch" if switched else "joint decide",
+            plan=report.schedule.name,
+            args={
+                "boundary": int(trace.boundaries[d]),
+                "slot": int(trace.slots[d]),
+                "chosen": names[int(trace.chosen[d])],
+                "switched": switched,
+                "migration_bytes": float(trace.migration_bytes[d]),
+                "scores_s": [round(float(s), 6)
+                             for s in trace.scores[d]],
+            }))
+    return events
+
+
 def build_flight_log(
     sim: "FleetSim",
     result: "TrafficResult",
@@ -187,28 +244,31 @@ def build_flight_log(
             and — when built with ``probes=`` — its ``last_probes``).
         result: The run's :class:`~repro_torch.traffic.metrics.TrafficResult`.
         plan: Plan row the request records follow; ``None`` picks the
-            last row.
-        replan: The re-placement controller's report; not ported yet
-            (anything but None raises ``NotImplementedError``).
+            last row (the replan schedule when one rode the sweep).
+        replan: Optional controller report for the decision instants.
         scenario: Scenario name stamped into the log.
         sweep: Probe sweep entry to read (F axis; ``run`` has F = 1).
 
     Returns:
         The :class:`FlightLog` (requests, control events, probe ring).
     """
-    if replan is not None:
-        raise NotImplementedError(
-            "build_flight_log(replan=...) is not ported to repro_torch yet "
-            "(it comes with the replan slice of the port); use the "
-            "reference repro.obs")
     p = (len(result.plans) - 1) if plan is None else int(plan)
     pt = result.plans[p]
     req = sim.requests
     probes = getattr(sim, "last_probes", None)
+    # Per-request row into the simulator's per-plan tables.  A joint
+    # control plane outcome stitches the decided schedule's row onto the
+    # probe simulator's result, so that row has no row of its own there:
+    # its per-request values are the decided candidate's.
     n_sim_rows = np.asarray(sim.ingress_extra).shape[0]
+    row_of_req = np.full(req.n_requests, p, dtype=np.int64)
     if p >= n_sim_rows:
-        raise ValueError(
-            f"plan row {p} not in the simulator ({n_sim_rows} rows)")
+        if replan is None:
+            raise ValueError(
+                f"plan row {p} not in the simulator ({n_sim_rows} rows) "
+                "and no replan report to resolve it from")
+        row_of_req = np.asarray(replan.schedule.slot_plan)[
+            np.asarray(sim.slots)[:req.n_requests]]
     retries = pt.retries if pt.retries is not None \
         else np.zeros(req.n_requests, dtype=np.int64)
     shed = pt.shed if pt.shed is not None \
@@ -217,8 +277,8 @@ def build_flight_log(
     records: list[RequestRecord] = []
     batching_on = probes is not None and probes.batch_b is not None
     probe_t = probes.t_s if probes is not None else None
-    pr = p
     for r in range(req.n_requests):
+        pr = int(row_of_req[r])
         gw_wait = ex_wait = None
         if probes is not None and probes.gw_wait_s is not None:
             gw_wait = probes.gw_wait_s[sweep, pr, r]
@@ -257,6 +317,9 @@ def build_flight_log(
 
     names = [q.plan_name for q in result.plans]
     events = aimd_events(probes, names, sweep=sweep)
+    if replan is not None:
+        events += replan_events(replan, sim.qcfg.slot_period_s)
+        events += joint_decision_events(replan)
     events.sort(key=lambda e: e.t_s)
     return FlightLog(plan_names=names, plan=p, dt_s=result.dt_s,
                      n_bins=result.n_bins, requests=records,

@@ -4,8 +4,9 @@ Counterpart of ``repro.traffic`` for the fleet fast path: request traces
 (:mod:`.requests`), the ground segment (:mod:`.ground`), the
 per-satellite fleet queue and its fused fixed point (:mod:`.queueing`),
 continuous decode batching for it (:mod:`.batching`), latency-target
-admission control with gateway retry (:mod:`.admission`) and serving
-metrics (:mod:`.metrics`).  Not ported yet: re-placement, scenarios and
+admission control with gateway retry (:mod:`.admission`), serving
+metrics (:mod:`.metrics`) and continuous re-placement with the joint
+control plane (:mod:`.replan`).  Not ported yet: scenarios and
 federation.
 
 Shape conventions: ``P`` plan/schedule rows, ``R`` requests, ``N``
@@ -25,6 +26,10 @@ from .metrics import (SLO, PlanTraffic, SaturationResult, TrafficResult,
                       format_table, saturation_sweep)
 from .queueing import (FleetSim, QueueConfig, simulate_traffic,
                        station_waiting_times)
+from .replan import (ReplanConfig, ReplanDecision, ReplanOutcome,
+                     ReplanReport, backlog_penalty_s, build_replan_schedule,
+                     replan_base_scores, replan_traffic,
+                     replan_traffic_fused)
 from .requests import (RequestBatch, diurnal_rate, hotspot_rate,
                        poisson_arrivals, sample_decode_lens,
                        sample_prompt_lens, sample_requests, stream_arrivals,
@@ -40,6 +45,9 @@ __all__ = [
     "SLO", "PlanTraffic", "SaturationResult", "TrafficResult",
     "format_table", "saturation_sweep",
     "FleetSim", "QueueConfig", "simulate_traffic", "station_waiting_times",
+    "ReplanConfig", "ReplanDecision", "ReplanOutcome", "ReplanReport",
+    "backlog_penalty_s", "build_replan_schedule", "replan_base_scores",
+    "replan_traffic", "replan_traffic_fused",
     "RequestBatch", "diurnal_rate", "hotspot_rate", "poisson_arrivals",
     "sample_decode_lens", "sample_prompt_lens", "sample_requests",
     "stream_arrivals", "stream_requests", "thinned_arrivals",

@@ -42,8 +42,12 @@ reference writes its probe ring from inside its scans, bin by bin; here
 the final iteration's channels are gathered after its scan at the bins
 the ring keeps.
 
-Not ported yet (raises ``NotImplementedError``): the joint re-placement
-control plane (``run(replan=...)``).  The reference's jit and
+The joint re-placement control plane (``run(replan=...)``,
+``run_many(replan=...)``, :meth:`FleetSim.run_replan_grid`) runs probe ->
+decide -> evaluate as one :func:`_ctrl_core` call on the simulator's
+device: the probe and the decided schedule's evaluation are fixed points
+(the latter over F-leading tables gathered by each cell's decided plan),
+the decide walk is tensor code between them.  The reference's jit and
 compile-cache machinery has no counterpart here: PyTorch runs eagerly.
 """
 from __future__ import annotations
@@ -59,12 +63,14 @@ from ..core.calibration import resolve_service_model
 from ..core.engine import (ScheduleBatch, evaluate_schedules,
                            schedule_ingress_offsets)
 from ..core.latency import ComputeConfig, TopologySample
-from ..core.schedule import as_schedule, slot_of_time
+from ..core.schedule import (PlanSchedule, as_schedule, migration_matrix,
+                             slot_of_time)
 from ..core.workload import MoEWorkload
 from ..kernels.admission_window import _seq_sum, qhat_of
 from ..kernels.backlog_scan import backlog_scan
 from ..kernels.deposit import deposit
-from ..obs.probes import ProbeConfig, ProbeRecord, make_buffers, ring_bins
+from ..obs.probes import (DecisionTrace, ProbeConfig, ProbeRecord,
+                          make_buffers, ring_bins)
 from .admission import (admission_queue_scan, control_bin_flags,
                         control_segments, controller_states, resolve_admission)
 from .batching import (BatchingConfig, batch_speedup_at,
@@ -73,12 +79,6 @@ from .batching import (BatchingConfig, batch_speedup_at,
 from .ground import GroundSegment
 from .metrics import PlanTraffic, TrafficResult
 from .requests import RequestBatch
-
-
-def _not_ported(what: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (it comes with the "
-        f"{slice_} slice of the port); use the reference repro.traffic")
 
 
 def _check_config(value, cls, name: str) -> None:
@@ -236,20 +236,25 @@ def _station_quantile(values: np.ndarray, ok: np.ndarray,
 _CHUNK_BLOCK = 8192
 
 
-def _resolve_attempts(q: dict, admit_floor: torch.Tensor):
+def _resolve_attempts(q: dict, admit_floor: torch.Tensor,
+                      per_entry: bool = False):
     """Per-request admission from the running-minimum admit trace
     ``admit_floor`` (T, F, P, G): each attempt's uniform draw against the
     probability in effect at its (bin, gateway), the first admitted
     feasible attempt winning (the reference's ``resolve_admission``,
-    batched over F).  Returns (shed (F, P, R) bool, retries (F, P, R),
-    ingress_extra (F, P, R) float64 of the attempt taken)."""
+    batched over F).  ``per_entry``: the attempt tables ``att_feasible``
+    and ``att_extra`` are (F, P, A, R), else (P, A, R) shared.  Returns
+    (shed (F, P, R) bool, retries (F, P, R), ingress_extra (F, P, R)
+    float64 of the attempt taken)."""
     F = admit_floor.shape[1]
     adm = admit_floor.permute(0, 3, 1, 2)[q["att_bin"], q["att_station"]]
     adm = adm.permute(2, 3, 0, 1)                             # (F, P, A, R)
-    ok = (q["adm_u"][None, None] < adm) & q["att_feasible"][None]
+    feasible = q["att_feasible"] if per_entry else q["att_feasible"][None]
+    ok = (q["adm_u"][None, None] < adm) & feasible
     shed = ~ok.any(dim=2)
     retries = torch.where(shed, 0, ok.to(torch.uint8).argmax(dim=2))
-    att_x = q["att_extra"][None].expand((F,) + q["att_extra"].shape)
+    att_x = q["att_extra"] if per_entry else \
+        q["att_extra"][None].expand((F,) + q["att_extra"].shape)
     ingress_extra = torch.gather(att_x, 2, retries[:, :, None, :])[:, :, 0]
     return shed, retries, ingress_extra
 
@@ -338,8 +343,8 @@ def _fleet_fixed_point(q: dict, chunks: dict, work0: torch.Tensor,
                        probe: dict | None = None) -> dict:
     """The fused fixed point of ``FleetSim.run``, over a sweep axis F.
 
-    The reference's ``_fleet_fixed_point`` (plan-leading tables): every
-    tensor lives on one device; schedules, bins and deposits in float64,
+    The reference's ``_fleet_fixed_point``: every tensor lives on one
+    device; schedules, bins and deposits in float64,
     the backlog scan in float32 over the time-major view of the (F, rows,
     T) work plane.  The first iteration is peeled: its zero-wait schedule
     is static, so its work plane ``work0`` (F, rows, T) float32 and
@@ -364,6 +369,15 @@ def _fleet_fixed_point(q: dict, chunks: dict, work0: torch.Tensor,
     With ``probe`` the final iteration's channels are taken at the
     recorded bins (:func:`_probe_channels`) into ``out["probe"]``, with
     that iteration's gathered waits (``probe_gw_wait``/``probe_ex_wait``).
+
+    The tables arrive plan-leading (``q["eff_layer"]`` (P, M, L), shared
+    by the sweep) on every path but one: the joint control plane's
+    schedule row (:func:`_ctrl_core`), whose tables are gathers by each
+    entry's decided plan, F-leading (``eff_layer`` (F, P, M, L), and so
+    ``tok_base``, ``ingress_extra0``, the gather rows and bins, the
+    admission anchors ``ttft0`` (F, P, G) and ``tpot0`` (F, P), the
+    station maps (NS, F, P, ...) and the attempt tables (F, P, A, R)),
+    with the migration background load as ``mig_dense_f`` (F, rows, T).
 
     Args:
         q: Device tables (:meth:`FleetSim._device_tables`).
@@ -403,7 +417,11 @@ def _fleet_fixed_point(q: dict, chunks: dict, work0: torch.Tensor,
     first_tok, tok_req = q["first_tok"], q["tok_req"]
     F = work0.shape[0]
     R = first_tok.shape[0]
-    P, M, L = q["eff_layer"].shape
+    fb = q["eff_layer"].dim() == 4            # F-leading tables
+    P, M, L = q["eff_layer"].shape[-3:]
+
+    def lead(x):
+        return x if fb else x[None]
     T, SR = n_bins, n_rows
     dt, cap = q["dt"], q["cap"]
     f64 = torch.float64
@@ -417,8 +435,9 @@ def _fleet_fixed_point(q: dict, chunks: dict, work0: torch.Tensor,
         return torch.where(finite, b, 0), finite
 
     def schedule(gw_wait, ex_max, start_pref):
-        lay_cost = q["eff_layer"][None] + gw_wait + ex_max
-        tok_total = q["tok_base"][None] + _seq_sum(gw_wait) + _seq_sum(ex_max)
+        lay_cost = lead(q["eff_layer"]) + gw_wait + ex_max
+        tok_total = lead(q["tok_base"]) + _seq_sum(gw_wait) \
+            + _seq_sum(ex_max)
         dec = tok_total[:, :, R:]
         cs = torch.cumsum(dec, dim=2)
         excl = cs - dec
@@ -451,6 +470,8 @@ def _fleet_fixed_point(q: dict, chunks: dict, work0: torch.Tensor,
         work = scat("work").reshape(F, SR, T)
         if "mig_dense" in q:
             work = work + q["mig_dense"][None]
+        elif "mig_dense_f" in q:
+            work = work + q["mig_dense_f"]
         work_sum = work.sum(dim=2)
         if batch is None:
             return work.to(torch.float32), work_sum, None
@@ -465,7 +486,7 @@ def _fleet_fixed_point(q: dict, chunks: dict, work0: torch.Tensor,
 
     def gather(wait_t, work32, gw_b, gw_fin, ex_b, ex_fin):
         f_idx = torch.arange(F, device=dev)[:, None, None, None]
-        gw_rows, ex_rows = q["gw_rows"][None], q["ex_rows"][None]
+        gw_rows, ex_rows = lead(q["gw_rows"]), lead(q["ex_rows"])
         w_g = wait_t[gw_b, f_idx, gw_rows]
         gw_wait = torch.where(gw_fin, w_g, 0.0).to(f64)
         gw_over = gw_fin & ((w_g + work32[f_idx, gw_rows, gw_b]) > cap)
@@ -488,13 +509,12 @@ def _fleet_fixed_point(q: dict, chunks: dict, work0: torch.Tensor,
                 wait_t, work32[:, :, -1], q["cap32"], q["dt32"],
                 q["gw_rows_slot"], q["exp_rows_slot"], q["slot_of_bin"],
                 q["seg"], q["n_ctrl"], q["ttft0"], q["tpot0"],
-                torch.ones((F,) + q["ttft0"].shape, dtype=torch.float32,
-                           device=dev),
+                torch.ones(adm_shape, dtype=torch.float32, device=dev),
                 ttft_target, tpot_target, **q["adm_kw"])
             nxt["admit_floor"] = torch.minimum(c["admit_floor"],
                                                states[q["seg"]])
             nxt["shed"], nxt["retries"], nxt["ingress_extra"] = \
-                _resolve_attempts(q, nxt["admit_floor"])
+                _resolve_attempts(q, nxt["admit_floor"], fb)
         nxt.update(zip(("gw_wait", "ex_max", "gw_over", "ex_over"), gather(
             wait_t, work32, gw_b, gw_fin, ex_b, ex_fin)))
         if record:
@@ -504,12 +524,15 @@ def _fleet_fixed_point(q: dict, chunks: dict, work0: torch.Tensor,
 
     c = dict(shed=torch.zeros((F, P, R), dtype=torch.bool, device=dev),
              retries=torch.zeros((F, P, R), dtype=torch.int64, device=dev),
-             ingress_extra=q["ingress_extra0"][None].expand(F, P, R))
+             ingress_extra=q["ingress_extra0"] if fb
+             else q["ingress_extra0"][None].expand(F, P, R))
     if adm_on:
-        c["admit_floor"] = torch.ones(
-            (T, F) + q["ttft0"].shape, dtype=torch.float32, device=dev)
-    c = finish_iter(work0, work0_sum, q["gw_b0"][None], q["gw_fin0"][None],
-                    q["ex_b0"][None], q["ex_fin0"][None], c,
+        # The controller's state per (entry, plan, gateway).
+        adm_shape = q["ttft0"].shape if fb else (F,) + q["ttft0"].shape
+        c["admit_floor"] = torch.ones((T,) + adm_shape, dtype=torch.float32,
+                                      device=dev)
+    c = finish_iter(work0, work0_sum, lead(q["gw_b0"]), lead(q["gw_fin0"]),
+                    lead(q["ex_b0"]), lead(q["ex_fin0"]), c,
                     record=probe is not None and n_iter == 1,
                     beff_at=None if batch is None else batch.get("beff0_at"))
     for i in range(n_iter - 1):
@@ -539,6 +562,338 @@ def _fleet_fixed_point(q: dict, chunks: dict, work0: torch.Tensor,
         out.update(probe=c["probe"], probe_gw_wait=c["gw_wait"],
                    probe_ex_wait=c["ex_max"])
     return out
+
+
+# --------------------------------------------------------------------- #
+# The joint control plane
+# --------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass(frozen=True)
+class _CtrlMeta:
+    """Scalars of one joint-control-plane call (:func:`_ctrl_core`)."""
+
+    n_iter: int          #: schedule<->queue fixed-point iterations
+    n_bins: int          #: T, time bins
+    n_rows: int          #: compact (plan, satellite) rows of the probe
+    n_rows_sched: int    #: compact satellite rows of the schedule row
+    n_cand: int          #: C, candidate-pool size
+    n_slots: int         #: N_T, topology slots
+    n_bounds: int        #: last decision boundary index (see replan.py)
+    n_rounds: int        #: controller decide + evaluate rounds
+    adm_on: bool         #: admission regime active
+    mode_backlog: bool   #: backlog-inflated scoring (vs base scores only)
+    hysteresis: float    #: relative switching threshold
+    ref_q: float         #: admission reference quantile (0 if off)
+    decide_bins: tuple   #: per-boundary backlog observation bin
+    n_mig_chunks: int    #: dt-chunks one migration transfer spans
+    mig_bounds: tuple    #: (prev_slot, cur_slot, first_bin) per boundary
+
+
+def np_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in numpy's pairwise order, as ``np.sum``
+    adds a contiguous 1-d array: below 8 elements in index order from 0;
+    up to 128 eight running sums (element j, j + 8, ...) combined as
+    ``((r0 + r1) + (r2 + r3)) + ((r4 + r5) + (r6 + r7))``, then the
+    remainder in order; above 128 the two halves (the first a multiple of
+    8 long) each summed so, then added.  The re-placement score adds
+    float32 backlogs with ``np.sum`` on the host
+    (``replan.backlog_penalty_s``), and a decision on a near tie turns on
+    the last bit of it."""
+    def pair(y, n):
+        if n < 8:
+            res = torch.zeros(y.shape[:-1], dtype=y.dtype, device=y.device)
+            for i in range(n):
+                res = res + y[..., i]
+            return res
+        if n <= 128:
+            r = [y[..., j] for j in range(8)]
+            i = 8
+            while i + 8 <= n:
+                for j in range(8):
+                    r[j] = r[j] + y[..., i + j]
+                i += 8
+            res = ((r[0] + r[1]) + (r[2] + r[3])) \
+                + ((r[4] + r[5]) + (r[6] + r[7]))
+            while i < n:
+                res = res + y[..., i]
+                i += 1
+            return res
+        n2 = (n // 2) - ((n // 2) % 8)
+        return pair(y[..., :n2], n2) + pair(y[..., n2:], n - n2)
+    return pair(x, x.shape[-1])
+
+
+def masked_quantile(vals: torch.Tensor, mask: torch.Tensor,
+                    q: float) -> torch.Tensor:
+    """``np.quantile(vals[mask], q)`` (linear interpolation) over the last
+    axis, batched over the others, in float64; 0 where the mask is empty.
+    Numpy's interpolation is kept with its asymmetry about t = 0.5 (``b -
+    d * (1 - t)`` from t = 0.5 on, ``a + d * t`` below, each product and
+    sum its own operation): the admission anchors need it bit for bit."""
+    n = vals.shape[-1]
+    s = torch.sort(torch.where(mask, vals, torch.inf), dim=-1).values
+    nv = mask.sum(dim=-1)
+    vi = q * (nv - 1).to(torch.float64)
+    lo = torch.clamp_min(torch.floor(vi), 0.0)
+    t = vi - lo
+    lo_i = lo.to(torch.int64)
+    hi_i = torch.minimum(lo_i + 1, torch.clamp_min(nv - 1, 0))
+    a = torch.gather(s, -1, lo_i.clamp(0, n - 1)[..., None])[..., 0]
+    b = torch.gather(s, -1, hi_i.clamp(0, n - 1)[..., None])[..., 0]
+    d = b - a
+    out = torch.where(t >= 0.5, b - d * (1.0 - t), a + d * t)
+    return torch.where(nv > 0, out, 0.0)
+
+
+#: Outputs of a fixed point that the control plane hands back.
+_CTRL_KEEP = ("ttft", "e2e", "tok_total", "tok_over", "shed", "retries",
+              "work_sum")
+
+
+def _ctrl_core(q: dict, chunks: dict, work0: torch.Tensor,
+               work0_sum: torch.Tensor, ttft_target, tpot_target, cc: dict,
+               meta: _CtrlMeta, stage=None) -> dict:
+    """The joint control plane: probe -> decide -> evaluate, over a
+    leading controller-grid axis F (cadence x migration price x admission
+    target cells), on the simulator's device.
+
+    1. **probe**: the candidate pool's fleet fixed point (what ``run``
+       computes), at the deduplicated admission-target width F_u of
+       ``work0`` and gathered back to F (``cc["probe_gather"]``): the
+       controller's observation;
+    2. **decide**: the re-placement law of ``replan.build_replan_schedule``
+       (backlog-inflated scores, hysteresis and migration-cost gates) as
+       tensor ops over that observation, a Python loop over at most
+       ``n_bounds + 1`` boundaries with a per-cell cadence mask;
+    3. **evaluate**: a second fixed point over the decided schedule row,
+       whose tables are gathers of the candidates' by each entry's
+       decided plan per slot (the F-leading branch of
+       :func:`_fleet_fixed_point`), with the migration background load of
+       the decided switches; iteration 1's plane is deposited on the
+       device from the gated chunk table.
+
+    In backlog mode rounds 2..``n_rounds`` re-decide against the
+    evaluation's own backlog and re-evaluate.  Each step replicates the
+    host controller's arithmetic: the penalty sums in numpy's pairwise
+    order (:func:`np_sum`), the anchors interpolate as ``np.quantile``
+    (:func:`masked_quantile`), and the gated table sums each (row, bin)
+    cell in a host evaluation's order.
+
+    Args:
+        q: The simulator's device tables (plan-leading).
+        chunks: The probe's all-active chunk table at width F_u
+            (``FleetSim.chunk_table``).
+        work0, work0_sum: The probe's iteration-1 plane and row sums.
+        ttft_target, tpot_target: (F,) float32 margin-scaled admission
+            targets of the cells (None without admission).
+        cc: Controller tables on the device (``FleetSim._ctrl_device``
+            plus the grid's base scores, decide mask, migration prices,
+            byte matrix, probe targets and gather).
+        meta: :class:`_CtrlMeta`.
+        stage: Optional callable, called with a stage's name as each of
+            ``probe``, ``decide``, ``eval_consts`` and ``eval`` ends (an
+            instrumentation hook: a timer there synchronizes the device).
+
+    Returns:
+        ``slot_plan`` (F, N_T) int64, ``telem`` (``scores`` (F, K, C),
+        ``chosen``, ``switched``, ``mig_bytes`` (F, K) over the
+        boundaries k < K = n_bounds + 1), and ``probe`` and ``sched``,
+        the kept outputs (``_CTRL_KEEP``) of the probe's and the last
+        evaluation's fixed points, each with a leading F axis.
+    """
+    def mark(name):
+        if stage is not None:
+            stage(name)
+
+    C, T, SRs = meta.n_cand, meta.n_bins, meta.n_rows_sched
+    _, M, L = q["eff_layer"].shape
+    R = q["first_tok"].shape[0]
+    dev = work0.device
+    f32, f64 = torch.float32, torch.float64
+    F = cc["decide_mask"].shape[0]
+    f_i = torch.arange(F, device=dev)
+    dbins = torch.tensor(meta.decide_bins, dtype=torch.int64, device=dev)
+
+    probe = _fleet_fixed_point(
+        q, chunks, work0, work0_sum, meta.n_iter, T, meta.n_rows, True,
+        cc.get("probe_ttft"), cc.get("probe_tpot"))
+    pg = cc["probe_gather"]
+    probe_wait = probe.pop("wait")[dbins][:, pg]              # (K, F, SR)
+    probe = {k: probe[k][pg] for k in _CTRL_KEEP}
+    mark("probe")
+
+    zero_col = torch.zeros((F, 1), dtype=f32, device=dev)
+
+    def penalty(wait_b, rows_gw, rows_ex):
+        # replan.backlog_penalty_s off one backlog snapshot: the gateway
+        # chain's sum plus each layer's worst expert, summed.  Row index
+        # n_rows reads the appended zero column (a satellite the
+        # compaction dropped carries no backlog).
+        w = torch.cat([wait_b, zero_col], dim=1)
+        g = w[f_i[:, None, None], rows_gw]                   # (F, C, L)
+        e = w[f_i[:, None, None, None], rows_ex]             # (F, C, L, I)
+        return (np_sum(g) + np_sum(e.amax(dim=3))).to(f64)
+
+    def decide(wait_dec, rows_gw_of, rows_ex_of):
+        cur = torch.zeros(F, dtype=torch.int64, device=dev)
+        no = torch.zeros(F, dtype=torch.bool, device=dev)
+        t_sc, t_cur, t_sw, t_mb = [], [], [], []
+        for k in range(meta.n_bounds + 1):
+            scores = cc["base_scores"][k][None].expand(F, C)
+            if meta.mode_backlog and k > 0:
+                scores = scores + penalty(wait_dec[k], rows_gw_of(cur),
+                                          rows_ex_of(cur))
+            best = torch.argmin(scores, dim=1)
+            if k == 0:
+                # The initial placement is free: no gates.
+                nxt, switched = best, no
+                mb = torch.zeros(F, dtype=f64, device=dev)
+            else:
+                sc_cur = scores[f_i, cur]
+                gain = sc_cur - scores[f_i, best]
+                moved = cc["bytes_mat"][cur, best]
+                gate = meta.hysteresis * sc_cur + moved * cc["mig_w"] / 1e6
+                switched = (best != cur) & (gain > gate)
+                nxt = torch.where(switched, best, cur)
+                mb = torch.where(switched, moved, 0.0)
+            dk = cc["decide_mask"][:, k]
+            cur = torch.where(dk, nxt, cur)
+            t_sc.append(scores)
+            t_cur.append(cur)
+            t_sw.append(switched & dk)
+            t_mb.append(torch.where(dk, mb, 0.0))
+        # Slots past the walk keep the last decision.
+        cols = t_cur + [cur] * (meta.n_slots - (meta.n_bounds + 1))
+        telem = dict(scores=torch.stack(t_sc, dim=1),
+                     chosen=torch.stack(t_cur, dim=1),
+                     switched=torch.stack(t_sw, dim=1),
+                     mig_bytes=torch.stack(t_mb, dim=1))
+        mark("decide")
+        return torch.stack(cols, dim=1), telem
+
+    mi = torch.arange(M, device=dev)[None]
+    ri = torch.arange(R, device=dev)[None]
+
+    def eval_consts(sp):
+        # The schedule row's tables: per token and per request, the
+        # candidate tables gathered by the decided plan of the token's
+        # slot (P = 1, F-leading).
+        pt = sp[:, cc["slot_tok"]]                           # (F, M)
+        pr = pt[:, :R]
+        eq = {k: q[k] for k in ("dt", "cap", "cap32", "dt32", "gw_service",
+                                "arrival_s", "first_tok", "tok_req",
+                                "last_tok")}
+        eq.update(eff_layer=q["eff_layer"][pt, mi][:, None],
+                  tok_base=q["tok_base"][pt, mi][:, None],
+                  ingress_extra0=q["ingress_extra0"][pr, ri][:, None],
+                  gw_rows=cc["gw_srow"][pt, mi][:, None],
+                  ex_rows=cc["ex_srow"][pt, mi][:, None],
+                  gw_b0=q["gw_b0"][pt, mi][:, None],
+                  gw_fin0=q["gw_fin0"][pt, mi][:, None],
+                  ex_b0=q["ex_b0"][pt, mi][:, None],
+                  ex_fin0=q["ex_fin0"][pt, mi][:, None])
+        if meta.n_mig_chunks and meta.mig_bounds:
+            # The decided switches' migration background load: each
+            # (incumbent, successor) pair's sequential-sum table at the
+            # boundary's bins, in boundary order.
+            plane = torch.zeros((F, SRs, T), dtype=f64, device=dev)
+            for prev_s, cur_s, b0 in meta.mig_bounds:
+                pv = cc["mig_plane"][:, sp[:, prev_s], sp[:, cur_s]]
+                for j in range(meta.n_mig_chunks):
+                    col = min(b0 + j, T - 1)
+                    plane[:, :, col] = plane[:, :, col] + pv[j]
+            eq["mig_dense_f"] = plane
+        if meta.adm_on:
+            # The schedule row's admission anchors, re-derived from the
+            # decided plan of each request (_build_admission_tables'
+            # quantiles), and its station maps per (slot, entry).
+            G = q["ttft0"].shape[-1]
+            ok = cc["adm_ok0"][pr, ri]                       # (F, R)
+            bt = cc["adm_base_ttft"][pr, ri]
+            overall = masked_quantile(bt, ok, meta.ref_q)
+            selg = ok[:, None, :] & (
+                cc["adm_station"][None, None, :]
+                == torch.arange(G, device=dev)[None, :, None])
+            per_g = masked_quantile(bt[:, None].expand(F, G, R), selg,
+                                    meta.ref_q)
+            ttft0 = torch.where(selg.any(dim=2), per_g, overall[:, None])
+            pd = pt[:, R:]
+            ni = torch.arange(M - R, device=dev)[None]
+            tpot0 = masked_quantile(cc["adm_dec_vals"][pd, ni],
+                                    cc["adm_dec_ok"][pd, ni], meta.ref_q)
+            n_slots = cc["gw_srow_slot"].shape[1]
+            si = torch.arange(n_slots, device=dev)[:, None]
+            idx = q["gw_rows_slot"].dtype
+            kw = dict(q["adm_kw"])
+            if kw["pid"] is not None:
+                # Per-plan gains are refused on this path: unit gain.
+                kw["pid"] = dict(kw["pid"], gain=torch.ones(
+                    1, dtype=f32, device=dev))
+            eq.update(
+                ttft0=ttft0[:, None].to(f32), tpot0=tpot0[:, None].to(f32),
+                ctrl=q["ctrl"], seg=q["seg"], n_ctrl=q["n_ctrl"],
+                slot_of_bin=q["slot_of_bin"],
+                gw_rows_slot=cc["gw_srow_slot"][sp.T, si][:, :, None]
+                .to(idx),
+                exp_rows_slot=cc["ex_srow_slot"][sp.T, si][:, :, None]
+                .to(idx),
+                att_bin=q["att_bin"], att_station=q["att_station"],
+                adm_u=q["adm_u"], adm_kw=kw,
+                att_feasible=q["att_feasible"].permute(0, 2, 1)[pr, ri]
+                .permute(0, 2, 1)[:, None],
+                att_extra=q["att_extra"].permute(0, 2, 1)[pr, ri]
+                .permute(0, 2, 1)[:, None])
+        mark("eval_consts")
+        return eq
+
+    # The gated table of every entry: the event-major chunk table of the
+    # candidates, regrouped by schedule row (stably, so each cell keeps
+    # its event order), one copy an entry, F-major.
+    n_gate = cc["ch_work"].shape[0]
+    fcol = f_i[:, None]
+    ech = dict(src=(fcol * (2 * M * L) + cc["ch_local"][None]).reshape(-1),
+               offs=cc["ch_offs"].repeat(F),
+               fprow=(fcol * SRs + cc["ch_srow"][None]).reshape(-1),
+               row_ptr=torch.cat([
+                   (fcol * n_gate + cc["ch_row_ptr"][None, :-1]).reshape(-1),
+                   torch.full((1,), F * n_gate, dtype=torch.int64,
+                              device=dev)]))
+    if meta.adm_on:
+        ech["fpr"] = (fcol * R + cc["ch_req"][None]).reshape(-1)
+    bins0 = cc["ch_bins0"].repeat(F)
+    work_fin0 = cc["ch_work"] * cc["ch_fin0"]
+
+    def eval_launch(sp):
+        # Each chunk deposits iff its plan is the decided plan of its
+        # request's slot: the 0/1 gate multiplies its value (the zeros
+        # add nothing to an f64 sum that starts at +0.0).
+        eq = eval_consts(sp)
+        gate = (sp[:, cc["ch_slot"]] == cc["ch_plan"][None]).to(f64)
+        ech["work"] = (cc["ch_work"][None] * gate).reshape(-1)
+        v0 = (work_fin0[None] * gate).reshape(-1)
+        plane0 = deposit(ech["fprow"], bins0, v0, F * SRs, T,
+                         row_ptr=ech["row_ptr"]).reshape(F, SRs, T)
+        if "mig_dense_f" in eq:
+            plane0 = plane0 + eq["mig_dense_f"]
+        ev = _fleet_fixed_point(
+            eq, ech, plane0.to(f32), plane0.sum(dim=2), meta.n_iter, T,
+            SRs, True, ttft_target, tpot_target)
+        wait_dec = ev.pop("wait")[dbins]                      # (K, F, SRs)
+        mark("eval")
+        return ev, wait_dec
+
+    # Round 1 decides on the probe's backlog, each cell reading its
+    # incumbent's rows; later rounds on the schedule row's own backlog.
+    sp, telem = decide(probe_wait, lambda cur: cc["pen1_gw"][cur],
+                       lambda cur: cc["pen1_ex"][cur])
+    ev, ev_wait = eval_launch(sp)
+    for _ in range(meta.n_rounds - 1):
+        sp, telem = decide(ev_wait, lambda cur: cc["pen2_gw"][None],
+                           lambda cur: cc["pen2_ex"][None])
+        ev, ev_wait = eval_launch(sp)
+    return dict(slot_plan=sp, telem=telem, probe=probe,
+                sched={k: ev[k] for k in _CTRL_KEEP})
 
 
 # --------------------------------------------------------------------- #
@@ -835,6 +1190,8 @@ class FleetSim:
                 self.ev_chunk_work / np.where(wf > 0.0, wf, 1.0),
                 0.0) * dec_ch
         self._dev: dict | None = None
+        self._ctrl: dict | None = None       # _ctrl_tables, built lazily
+        self._ctrl_dev: dict | None = None   # their device copies
 
         # --- time bins ----------------------------------------------------
         start_dec0, _, c00 = self._chain(self.tok_base, self.start_pref)
@@ -992,6 +1349,13 @@ class FleetSim:
             np.quantile(self.tok_base[i, R:][dec_ok[i]],
                         acfg.reference_quantile)
             if dec_ok[i].any() else 0.0 for i in range(P)])        # (P,)
+        # The joint control plane re-derives the schedule row's anchors
+        # on the device from these masked tables (gathered per decided
+        # plan).
+        self._adm_station = station
+        self._adm_ok0 = ok
+        self._adm_base_ttft = base_ttft
+        self._adm_dec_ok = dec_ok
 
         # Per time bin, the bin's topology slot selects each plan's
         # gateway chain and expert satellites (qhat follows the schedule).
@@ -1062,6 +1426,9 @@ class FleetSim:
         self._ex_b0, self._ex_fin0 = self._to_bins(exp0)
         base0, fin0 = self._to_bins(self._event_times(layer0, exp0))
         bins0 = np.minimum(base0[self._rep] + self._offs, self.n_bins - 1)
+        # In event order too: the joint control plane's gated table.
+        self._chunk_bins0 = bins0
+        self._chunk_fin0 = fin0[self._rep]
         perm = np.argsort(self._chunk_rowc, kind="stable")
         self._f_src = self._chunk_src[perm]
         self._f_offs = self._offs[perm]
@@ -1206,10 +1573,14 @@ class FleetSim:
 
     def satellite_backlog(self, plan: int, t_s: float) -> np.ndarray:
         """(V,) seconds of backlog per satellite that plan row ``plan``
-        observed at wall-clock ``t_s`` in the last ``run``."""
+        observed at wall-clock ``t_s`` in the last ``run`` (read from the
+        device's compact rows when ``last_wait`` has not been expanded)."""
+        b = min(int(t_s / self.qcfg.dt_s), self.n_bins - 1)
+        if self._last_wait is None and self._last_wait_rows is not None:
+            row = self._last_wait_rows[b].cpu().numpy()
+            return self._expand_rows(row)[plan]
         if self.last_wait is None:
             return np.zeros(self.n_stations)
-        b = min(int(t_s / self.qcfg.dt_s), self.n_bins - 1)
         return self.last_wait[plan, :, b]
 
     # ----------------------------------------------------------------- #
@@ -1335,6 +1706,164 @@ class FleetSim:
                 + self._f_pr[cid]
             out["fpr"] = fpr
         return out
+
+    def _ctrl_tables(self) -> dict:
+        """Host precompute of the joint control plane (lazy, cached; the
+        reference's, plus the gated table's row grouping).
+
+        Independent of the controller's configuration: the schedule row's
+        compact station universe, the gated chunk table, the decide walk's
+        penalty row maps, the decision bins, the migration tables and
+        under admission the anchors' inputs and per-slot station maps.
+        """
+        if self._ctrl is not None:
+            return self._ctrl
+        qcfg = self.qcfg
+        C, S, T = self.n_plans, self.n_stations, self.n_bins
+        M, L, R = self.n_tokens, self.n_layers, self.n_requests
+        N = self.n_decode_tokens
+        K = self.activation.top_k
+        dt, period = qcfg.dt_s, qcfg.slot_period_s
+        n_slots = self.n_topo_slots
+
+        # The schedule row's station universe: every satellite it can
+        # deposit on, gather from, observe (admission maps, penalty) or
+        # receive weights at, over the whole pool; rows of it that take
+        # no work carry exactly zero, so the compaction is exact.
+        gw_all = np.stack([np.asarray(p.gateways) for p in self.plans])
+        ex_all = np.stack([np.asarray(p.expert_sats) for p in self.plans])
+        used = [self.ev_chunk_station.ravel(), self.gather_gw_station.ravel(),
+                self.gather_exp_station.ravel(), gw_all.ravel(),
+                ex_all.ravel()]
+        if self.admission_on:
+            slots = np.unique(self._adm_slot_of_bin)
+            used += [self.gateways_slot[:, slots].ravel(),
+                     self.expert_sats_slot[:, slots].ravel()]
+        srows = np.unique(np.concatenate(
+            [np.asarray(u, dtype=np.int64) for u in used]))
+        srow_inv = np.full(S, -1, dtype=np.int64)
+        srow_inv[srows] = np.arange(srows.size)
+        SRs = int(srows.size)
+
+        # The gated chunk table: the candidates' chunks in event order,
+        # plan within event (only the decided plan's chunks of an event
+        # deposit, so each (row, bin) cell sums in a host evaluation
+        # simulator's order), then grouped by schedule row with a stable
+        # sort, which keeps each cell's order: the grouping the CUDA
+        # deposit reads through row_ptr.
+        E = self._n_events // C
+        gw1 = np.arange(M)[:, None] * L + np.arange(L)[None, :]
+        exp1 = M * L + gw1
+        ev1 = np.concatenate([
+            gw1.ravel(),
+            np.broadcast_to(exp1[R:, :, None], (N, L, K)).ravel(),
+            np.broadcast_to(exp1[:R, :, None],
+                            (R, L, ex_all.shape[2])).ravel()])
+        ev_local = self._rep % E
+        perm = np.lexsort((self.ev_chunk_plan, ev_local))
+        srow_ev = srow_inv[self.ev_chunk_station[perm]]
+        perm = perm[np.argsort(srow_ev, kind="stable")]
+        ch_srow = srow_inv[self.ev_chunk_station[perm]]
+        ct = dict(
+            srows=srows, n_rows_sched=SRs,
+            ch_local=ev1[ev_local[perm]],
+            ch_work=self.ev_chunk_work[perm],
+            ch_offs=self._offs[perm],
+            ch_srow=ch_srow,
+            ch_row_ptr=np.searchsorted(ch_srow, np.arange(SRs + 1),
+                                       side="left"),
+            ch_plan=self.ev_chunk_plan[perm],
+            ch_slot=self.slots[self.ev_chunk_req[perm]],
+            ch_req=self.ev_chunk_req[perm],
+            ch_bins0=self._chunk_bins0[perm],
+            ch_fin0=self._chunk_fin0[perm].astype(np.float64),
+        )
+
+        # Penalty row maps.  Round 1 reads the probe's compact (plan,
+        # satellite) rows of each incumbent (a dropped row reads the
+        # appended zero column, index n_rows); later rounds read the
+        # schedule row's universe.
+        SR = self.n_rows
+        pen1_gw = np.empty((C, C, L), dtype=np.int64)
+        pen1_ex = np.empty((C, C) + ex_all.shape[1:], dtype=np.int64)
+        for cur in range(C):
+            rg = self._row_inv[cur * S + gw_all]
+            pen1_gw[cur] = np.where(rg >= 0, rg, SR)
+            re_ = self._row_inv[cur * S + ex_all]
+            pen1_ex[cur] = np.where(re_ >= 0, re_, SR)
+        ct.update(pen1_gw=pen1_gw, pen1_ex=pen1_ex,
+                  pen2_gw=srow_inv[gw_all], pen2_ex=srow_inv[ex_all],
+                  gw_srow=srow_inv[self.gather_gw_station],
+                  ex_srow=srow_inv[self.gather_exp_station])
+
+        # The decision walk's boundaries and observation bins (as
+        # replan.build_replan_schedule walks them).
+        horizon = T * dt
+        n_bounds = min(int(np.floor(max(horizon, 0.0) / period)),
+                       n_slots - 1)
+        ct["n_bounds"] = n_bounds
+        ct["decide_bins"] = tuple(
+            min(int((k * period) / dt), T - 1) for k in range(n_bounds + 1))
+
+        # Migration: all-pairs switch counts (the decide gate's prices)
+        # and the background-load table, *sequential* repeated sums of a
+        # chunk's occupancy (n experts landing on one satellite deposit w
+        # n times, as the host bincount adds them).
+        n_moved, dest = migration_matrix(self.plans, 1.0, S)
+        ct["n_moved"] = n_moved
+        sec = (qcfg.migration_bytes_per_expert * 8.0
+               / (qcfg.migration_rate_gbps * 1e9))
+        if sec > 0.0:
+            n_chm = max(int(np.ceil(sec / dt)), 1)
+            w_prof = np.minimum(sec - np.arange(n_chm) * dt, dt)
+        else:
+            w_prof = np.zeros(0)
+        max_cnt = int(dest.max())
+        rep = np.zeros((len(w_prof), max_cnt + 1))
+        for j, w in enumerate(w_prof):
+            for n in range(1, max_cnt + 1):
+                rep[j, n] = rep[j, n - 1] + w
+        ct["n_mig_chunks"] = int(len(w_prof))
+        ct["mig_plane"] = rep[:, dest[:, :, srows].astype(np.int64)]
+        nbm = int(np.floor(horizon / period))
+        ct["mig_bounds"] = tuple(
+            (int((k - 1) % n_slots), int(k % n_slots),
+             int((k * period) / dt)) for k in range(1, nbm + 1))
+
+        if self.admission_on:
+            # The anchors' masked inputs and the station maps per slot
+            # (the reference's per-bin maps are these at each bin's slot).
+            ct.update(
+                adm_ok0=self._adm_ok0, adm_base_ttft=self._adm_base_ttft,
+                adm_station=self._adm_station, adm_dec_ok=self._adm_dec_ok,
+                adm_dec_vals=self.tok_base[:, R:],
+                gw_srow_slot=srow_inv[self.gateways_slot],
+                ex_srow_slot=srow_inv[self.expert_sats_slot].reshape(
+                    C, n_slots, -1))
+        self._ctrl = ct
+        return ct
+
+    def _ctrl_device(self) -> dict:
+        """The arrays of :meth:`_ctrl_tables` that the control plane reads,
+        on the simulator's device (built once)."""
+        if self._ctrl_dev is not None:
+            return self._ctrl_dev
+        ct = self._ctrl_tables()
+        names = ["ch_local", "ch_work", "ch_offs", "ch_srow", "ch_row_ptr",
+                 "ch_plan", "ch_slot", "ch_bins0", "ch_fin0", "pen1_gw",
+                 "pen1_ex", "pen2_gw", "pen2_ex", "gw_srow", "ex_srow"]
+        if ct["n_mig_chunks"] and ct["mig_bounds"]:
+            names.append("mig_plane")
+        if self.admission_on:
+            names += ["ch_req", "adm_ok0", "adm_base_ttft", "adm_station",
+                      "adm_dec_ok", "adm_dec_vals", "gw_srow_slot",
+                      "ex_srow_slot"]
+        self._ctrl_dev = {
+            k: torch.from_numpy(np.array(ct[k])).to(self.device)
+            for k in names}
+        self._ctrl_dev["slot_tok"] = torch.from_numpy(
+            np.array(self.slots)).to(self.device)
+        return self._ctrl_dev
 
     def _targets(self, n_f: int, ttft_targets, tpot_targets):
         """(F,) float32 margin-scaled TTFT and TPOT targets of one launch
@@ -1466,11 +1995,24 @@ class FleetSim:
 
         ``zero_load`` delegates to the host path (no queueing, no
         admission); ``kv_slots`` overrides the static cap (ignored under
-        the admission controller, which replaces it); ``replan`` (the
-        joint control plane) is not ported yet.
+        the admission controller, which replaces it).  ``replan`` (a
+        ``replan.ReplanConfig``) runs the joint control plane instead
+        (:meth:`run_replan_grid`, one cell) and returns its
+        ``ReplanOutcome``; ``replan_rng`` seeds the candidates' base
+        scores (default ``np.random.default_rng(0)``).  It composes with
+        no other option.
         """
         if replan is not None:
-            raise _not_ported("run(replan=...)", "replan")
+            if active is not None or zero_load or kv_slots is not None:
+                raise ValueError(
+                    "run(replan=...) composes with no other run() option")
+            from .replan import replan_base_scores
+            rng = (np.random.default_rng(0) if replan_rng is None
+                   else replan_rng)
+            scores = replan_base_scores(
+                self.plans, self.topo, self.activation, self.workload,
+                self.compute, rng, replan, device=self.device)
+            return self.run_replan_grid(replan, base_scores=scores)[0]
         if zero_load:
             return self.run_legacy(active, zero_load=True,
                                    kv_slots=kv_slots)
@@ -1500,13 +2042,34 @@ class FleetSim:
                 admission configuration's (AIMD/PID runs only).
             tpot_targets: Optional (F,) TPOT targets, same contract.
             kv_slots: Optional static-cap override.
-            replan, replan_rng, base_scores, cadences, mig_weights: The
-                joint control plane's grid (``replan`` is not ported yet;
-                the grid axes without it raise ``ValueError``, as in the
-                reference).
+            replan: Optional ``replan.ReplanConfig``: the sweep becomes a
+                controller grid (:meth:`run_replan_grid`) over
+                ``cadences`` x ``mig_weights`` x the admission targets,
+                all requests active, and returns one ``ReplanOutcome`` a
+                cell (cadence-major).
+            replan_rng: Seeds the base scores when ``base_scores`` is
+                None (default ``np.random.default_rng(0)``).
+            base_scores: Optional (n_slots, C) base score table
+                (``replan.replan_base_scores``).
+            cadences, mig_weights: The grid's cadence and migration-price
+                axes (they need ``replan``).
         """
         if replan is not None:
-            raise _not_ported("run_many(replan=...)", "replan")
+            if active is not None or kv_slots is not None:
+                raise ValueError(
+                    "run_many(replan=...) composes only with the "
+                    "target/cadence/migration grid axes")
+            if base_scores is None:
+                from .replan import replan_base_scores
+                rng = (np.random.default_rng(0) if replan_rng is None
+                       else replan_rng)
+                base_scores = replan_base_scores(
+                    self.plans, self.topo, self.activation, self.workload,
+                    self.compute, rng, replan, device=self.device)
+            return self.run_replan_grid(
+                replan, base_scores=base_scores, cadences=cadences,
+                mig_weights=mig_weights, ttft_targets=ttft_targets,
+                tpot_targets=tpot_targets)
         if cadences is not None or mig_weights is not None \
                 or base_scores is not None:
             raise ValueError("controller grid axes need replan=...")
@@ -1525,6 +2088,247 @@ class FleetSim:
         return [self._finalize(masks[f], {k: v[f] for k, v in out.items()},
                                self.admission_on, kv_slots)
                 for f in range(masks.shape[0])]
+
+    def run_replan_grid(self, rcfg, *, base_scores, cadences=None,
+                        mig_weights=None, ttft_targets=None,
+                        tpot_targets=None, stage=None) -> list:
+        """The joint control plane over a controller grid, in one call.
+
+        Probe, decide walk and schedule-row evaluation run as one
+        :func:`_ctrl_core` call on the simulator's device, batched over
+        the grid's cells: cadences x migration prices x admission targets,
+        cadence-major.  The host controller (``replan.replan_traffic``)
+        stays the semantic anchor; on the CPU this reproduces its
+        decisions and served/shed sets bit for bit.  Paths where the host
+        controller stays authoritative raise: continuous batching, probe
+        rings, calibrated per-satellite service (its decode-batch estimate
+        depends on the evaluated pool), candidate pools holding schedules
+        and per-plan PID gains.
+
+        Args:
+            rcfg: ``ReplanConfig`` (its ``period_slots`` and
+                ``migration_weight_s_per_mb`` are the grid axes when none
+                are given).
+            base_scores: (n_topo_slots, C) backlog-free candidate scores
+                per slot (``replan.replan_base_scores``); the decide law
+                adds the backlog penalty on the device.
+            cadences: Decision cadences in slots (>= 1).
+            mig_weights: Migration prices (s/MB, >= 0).
+            ttft_targets: Optional admission-target axis (raw seconds,
+                zipped with ``tpot_targets``; admission runs only).
+            tpot_targets: Optional TPOT targets.
+            stage: Optional instrumentation hook of :func:`_ctrl_core`.
+
+        Returns:
+            One ``ReplanOutcome`` per cell: the last round's decisions,
+            the candidates' rows with the schedule's stitched on, the
+            probe's result (backlog mode) and this simulator as ``sim``.
+        """
+        from .replan import (REPLAN_MODES, ReplanDecision, ReplanOutcome,
+                             ReplanReport)
+
+        qcfg = self.qcfg
+        acfg = qcfg.admission
+        if rcfg.mode not in REPLAN_MODES:
+            raise ValueError(f"unknown replan mode: {rcfg.mode!r}")
+        if self.batching is not None:
+            raise NotImplementedError(
+                "joint control plane: continuous batching stays on the "
+                "host controller (replan_traffic)")
+        if self.probes is not None:
+            raise NotImplementedError(
+                "joint control plane: probe rings are not recorded on "
+                "the control launch — use replan_traffic for probed "
+                "rounds")
+        if self.service_model.per_satellite:
+            raise NotImplementedError(
+                "joint control plane: calibrated per-satellite service "
+                "recomputes its decode-batch estimate per evaluated "
+                "plan pool — the host controller is authoritative")
+        if any(not s.is_constant for s in self.schedules):
+            raise ValueError(
+                "run_replan_grid needs a static candidate pool (plain "
+                "plans); schedules cannot be re-decided")
+        if (ttft_targets is not None or tpot_targets is not None) \
+                and not self.admission_on:
+            raise ValueError(
+                "admission-target axes need an admission config")
+        if self.admission_on and getattr(acfg, "gain_scale", None) \
+                is not None:
+            raise NotImplementedError(
+                "joint control plane: per-plan admission gains are "
+                "pool-indexed and do not transfer to the decided "
+                "schedule row")
+
+        C = self.n_plans
+        n_slots = self.n_topo_slots
+        T, R, M = self.n_bins, self.n_requests, self.n_tokens
+        bs = np.asarray(base_scores, dtype=np.float64)
+        if bs.shape != (n_slots, C):
+            raise ValueError(f"base_scores must be ({n_slots}, {C})")
+        cads = ([int(rcfg.period_slots)] if cadences is None
+                else [int(c) for c in cadences])
+        migw = ([float(rcfg.migration_weight_s_per_mb)]
+                if mig_weights is None
+                else [float(w) for w in mig_weights])
+        if any(c < 1 for c in cads):
+            raise ValueError("cadences must be >= 1")
+        if any(w < 0 for w in migw):
+            raise ValueError("migration weights must be >= 0")
+        tts = [None] if ttft_targets is None else list(ttft_targets)
+        tps = [None] * len(tts) if tpot_targets is None \
+            else list(tpot_targets)
+        if len(tps) != len(tts):
+            raise ValueError("ttft_targets and tpot_targets must zip")
+        cells = [(c, w, i) for c in cads for w in migw
+                 for i in range(len(tts))]
+        F = len(cells)
+
+        if self.admission_on:
+            m = acfg.target_margin
+            tt = np.array([m * (acfg.ttft_target_s if tts[i] is None
+                                else tts[i]) for _, _, i in cells])
+            tp = np.array([m * (acfg.tpot_target_s if tps[i] is None
+                                else tps[i]) for _, _, i in cells])
+        else:
+            tt, tp = np.zeros(F), np.zeros(F)
+
+        ct = self._ctrl_tables()
+        K1 = ct["n_bounds"] + 1
+        dmask = np.zeros((F, K1), dtype=bool)
+        for f, (cad, _w, _i) in enumerate(cells):
+            for k in range(K1):
+                dmask[f, k] = (k == 0) or (rcfg.mode != "off"
+                                           and k % cad == 0)
+        bpe = (qcfg.migration_bytes_per_expert
+               if rcfg.bytes_per_expert is None else rcfg.bytes_per_expert)
+        dev = self.device
+
+        def put(a):
+            return torch.from_numpy(np.array(a)).to(dev)
+        cc = dict(self._ctrl_device(),
+                  base_scores=put(bs[np.arange(K1) % n_slots]),
+                  decide_mask=put(dmask),
+                  mig_w=put(np.array([w for _, w, _ in cells])),
+                  bytes_mat=put(ct["n_moved"] * bpe))
+        n_rounds = (max(1, int(rcfg.controller_iterations))
+                    if rcfg.mode == "backlog" else 1)
+        meta = _CtrlMeta(
+            n_iter=max(1, qcfg.iterations), n_bins=T, n_rows=self.n_rows,
+            n_rows_sched=ct["n_rows_sched"], n_cand=C, n_slots=n_slots,
+            n_bounds=ct["n_bounds"], n_rounds=n_rounds,
+            adm_on=self.admission_on,
+            mode_backlog=(rcfg.mode == "backlog"),
+            hysteresis=float(rcfg.hysteresis),
+            ref_q=(float(acfg.reference_quantile)
+                   if self.admission_on else 0.0),
+            decide_bins=ct["decide_bins"],
+            n_mig_chunks=ct["n_mig_chunks"], mig_bounds=ct["mig_bounds"])
+
+        # The probe depends on the admission (TTFT, TPOT) target alone,
+        # so it runs at the deduplicated width F_u and is gathered back
+        # to F: a grid with one admission target probes once.
+        uniq, inv = np.unique(np.stack([tt, tp], axis=1), axis=0,
+                              return_inverse=True)
+        Fu = uniq.shape[0]
+        cc["probe_gather"] = put(inv.astype(np.int64).reshape(F))
+        targets = (None, None)
+        if self.admission_on:
+            cc["probe_ttft"] = put(uniq[:, 0].astype(np.float32))
+            cc["probe_tpot"] = put(uniq[:, 1].astype(np.float32))
+            targets = (put(tt.astype(np.float32)),
+                       put(tp.astype(np.float32)))
+        # The probe's chunk table: every cell offers the whole trace.
+        pct = self.chunk_table(np.ones((Fu, R), dtype=bool))
+        plane0 = np.bincount(pct["flat0"], weights=pct["work0"],
+                             minlength=Fu * self.n_rows * T).reshape(
+            Fu, self.n_rows, T).astype(np.float64, copy=False)
+        if self._mig_rm is not None:
+            plane0 += self._mig_rm[None]
+        chunks = {k: put(pct[k])
+                  for k in ("src", "offs", "work", "fprow", "row_ptr", "fpr")
+                  if k in pct}
+        work0, work0_sum = put(plane0.astype(np.float32)), \
+            put(plane0.sum(axis=2))
+        q = self._device_tables()
+        if stage is not None:
+            stage("probe_table")
+        out = _ctrl_core(q, chunks, work0, work0_sum, *targets, cc, meta,
+                         stage=stage)
+
+        def host(tree):
+            return {k: v.cpu().numpy() for k, v in tree.items()}
+        sp_all = out["slot_plan"].cpu().numpy()
+        telem, probe_o, sched_o = (host(out[k])
+                                   for k in ("telem", "probe", "sched"))
+        srows = ct["srows"]
+
+        def expand_srows(a):
+            full = np.zeros(a.shape[:-1] + (self.n_stations,), a.dtype)
+            full[..., srows] = a
+            return full
+
+        names = list(self.batch.names)
+        outcomes = []
+        for f in range(F):
+            schedule = PlanSchedule(plans=self.plans, slot_plan=sp_all[f],
+                                    name=f"replan/{rcfg.mode}")
+            decisions = [
+                ReplanDecision(
+                    boundary=k, slot=k % n_slots,
+                    chosen=int(telem["chosen"][f, k]),
+                    switched=bool(telem["switched"][f, k]),
+                    scores=telem["scores"][f, k].copy(),
+                    migration_bytes=float(telem["mig_bytes"][f, k]))
+                for k in range(K1) if dmask[f, k]]
+            # The decision-event channel: the decide walk's telemetry at
+            # this cell's decide boundaries.
+            dk = np.flatnonzero(dmask[f])
+            trace = DecisionTrace(
+                period_s=float(qcfg.slot_period_s),
+                boundaries=dk.astype(np.int64),
+                slots=(dk % n_slots).astype(np.int64),
+                scores=telem["scores"][f, dk].astype(np.float64),
+                chosen=telem["chosen"][f, dk].astype(np.int64),
+                switched=telem["switched"][f, dk].astype(bool),
+                migration_bytes=telem["mig_bytes"][f, dk]
+                .astype(np.float64))
+            report = ReplanReport(schedule=schedule, decisions=decisions,
+                                  candidates=list(self.plans), trace=trace)
+            probe_res = None
+            if rcfg.mode == "backlog":
+                po = {k2: v[f] for k2, v in probe_o.items()}
+                po["work_sum"] = self._expand_rows(po["work_sum"])
+                probe_res = self._finalize(np.ones(R, dtype=bool), po,
+                                           self.admission_on)
+            stitched = {
+                k2: np.concatenate([probe_o[k2][f], sched_o[k2][f]],
+                                   axis=0)
+                for k2 in ("ttft", "e2e", "tok_total", "tok_over",
+                           "shed", "retries")}
+            stitched["work_sum"] = np.concatenate(
+                [self._expand_rows(probe_o["work_sum"][f]),
+                 expand_srows(sched_o["work_sum"][f])[None]], axis=0)
+            plan_tok = sp_all[f][self.slots]
+            billed = float(sum(
+                mg.bytes_moved for _, mg in schedule.migrations_over(
+                    T * qcfg.dt_s, qcfg.slot_period_s,
+                    qcfg.migration_bytes_per_expert)))
+            res = self._finalize(
+                np.ones(R, dtype=bool), stitched, self.admission_on,
+                names=names + [schedule.name],
+                nan_tok=np.concatenate(
+                    [self.nan_tok,
+                     self.nan_tok[plan_tok, np.arange(M)][None]]),
+                fail_ingress=np.concatenate(
+                    [self.fail_ingress,
+                     self.fail_ingress[plan_tok[:R], np.arange(R)][None]]),
+                migration_bytes=np.append(self.migration_bytes, billed))
+            outcomes.append(ReplanOutcome(report=report, result=res,
+                                          probe=probe_res, sim=self))
+        if stage is not None:
+            stage("finalize")
+        return outcomes
 
     def run_legacy(self, active: np.ndarray | None = None,
                    zero_load: bool = False,
@@ -1636,19 +2440,33 @@ class FleetSim:
         return self._finalize(active, out, adm_on, kv_slots)
 
     def _finalize(self, active: np.ndarray, out: dict, adm_on: bool,
-                  kv_slots: int | None = None) -> TrafficResult:
+                  kv_slots: int | None = None, *,
+                  names: list | None = None,
+                  nan_tok: np.ndarray | None = None,
+                  fail_ingress: np.ndarray | None = None,
+                  migration_bytes: np.ndarray | None = None
+                  ) -> TrafficResult:
         """Host post-processing shared by every execution path: delivery
         failure aggregation (shed requests apart under admission), the
         static KV admission cap (off under admission), spans, utilization
-        and the latency quantiles' NaN masking."""
+        and the latency quantiles' NaN masking.  The plan axis comes from
+        ``out`` (the joint control plane stitches the decided schedule's
+        row onto the candidates'); the keywords give that row's per-plan
+        tables, by default the simulator's own."""
         qcfg, req = self.qcfg, self.requests
         R = self.n_requests
         P = out["ttft"].shape[0]
+        names = self.batch.names if names is None else names
+        nan_tok = self.nan_tok if nan_tok is None else nan_tok
+        fail_ingress = (self.fail_ingress if fail_ingress is None
+                        else fail_ingress)
+        migration_bytes = (self.migration_bytes if migration_bytes is None
+                           else migration_bytes)
         kv = qcfg.kv_slots if kv_slots is None else kv_slots
         ttft, e2e, tok_total = out["ttft"], out["e2e"], out["tok_total"]
         shed, retries = out["shed"], out["retries"]
 
-        fail_tok = self.nan_tok | out["tok_over"]
+        fail_tok = nan_tok | out["tok_over"]
         failed = fail_tok[:, :R] \
             | _segment_any(fail_tok[:, R:], self.tok_req, R)      # (P, R)
         if adm_on:
@@ -1656,7 +2474,7 @@ class FleetSim:
             # admitted requests entered through a feasible attempt.
             failed = failed | shed
         else:
-            failed = failed | self.fail_ingress
+            failed = failed | fail_ingress
 
         # KV admission cap: reject arrivals that would exceed the
         # in-flight budget (in-flight counted over all offered requests).
@@ -1690,7 +2508,7 @@ class FleetSim:
             with np.errstate(invalid="ignore"):
                 tpot = (e2e[p] - ttft[p]) / req.decode_len
             plans_out.append(PlanTraffic(
-                plan_name=self.batch.names[p],
+                plan_name=names[p],
                 active=active.copy(),
                 served=served[p],
                 ttft_s=np.where(served[p], ttft[p], np.nan),
@@ -1703,7 +2521,7 @@ class FleetSim:
                 shed=(shed[p] & active) if adm_on else None,
                 retries=np.where(served[p], retries[p], 0)
                 if adm_on else None,
-                migration_bytes=float(self.migration_bytes[p]),
+                migration_bytes=float(migration_bytes[p]),
             ))
         return TrafficResult(plans=plans_out, requests=req,
                              slots=self.slots, n_bins=self.n_bins,

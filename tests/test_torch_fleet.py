@@ -424,22 +424,11 @@ def test_unported_constructor_options_raise(option):
                     device="cpu", **kw)
 
 
-@pytest.mark.parametrize("call", ["run_replan", "run_many_replan",
-                                  "station_batching", "flight_log_replan"])
+@pytest.mark.parametrize("call", ["station_batching"])
 def test_unported_run_options_raise(ref, call):
-    """The joint control plane is not ported; ``station_waiting_times``
-    takes a BatchingConfig and refuses anything else."""
-    from repro_torch.obs import build_flight_log
-    _, psim = _pair(ref, rate=1.0, horizon=10.0)
-    if call == "station_batching":
-        with pytest.raises(TypeError, match="batching"):
-            pq.station_waiting_times(np.array([0.0, 1.0]), 0.01, 0.05,
-                                     batching=object(), device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        if call == "run_replan":
-            psim.run(replan=object())
-        elif call == "run_many_replan":
-            psim.run_many(replan=object())
-        else:
-            build_flight_log(psim, psim.run(), replan=object())
+    """``station_waiting_times`` takes a BatchingConfig and refuses
+    anything else.  (The joint control plane is ported: its refusals are
+    ``tests/test_torch_replan.py``'s.)"""
+    with pytest.raises(TypeError, match="batching"):
+        pq.station_waiting_times(np.array([0.0, 1.0]), 0.01, 0.05,
+                                 batching=object(), device="cpu")

@@ -41,6 +41,7 @@ def test_port_files_were_found():
     for name in ("__init__", "probes", "recorder", "export", "schema"):
         assert ROOT / "src" / "repro_torch" / "obs" / f"{name}.py" in PORT_FILES
     assert ROOT / "src" / "repro_torch" / "traffic" / "batching.py" in PORT_FILES
+    assert ROOT / "src" / "repro_torch" / "traffic" / "replan.py" in PORT_FILES
 
 
 def test_serve_import_loads_no_jax():

@@ -755,3 +755,188 @@ def test_fleet_bmax1_is_bitwise_fifo_on_the_card(cuda_device):
     _same_results(fifo.run(), one.run())
     for a, b in zip(fifo.run_many(masks), one.run_many(masks)):
         _same_results(a, b)
+
+
+# --------------------------------------------------------------------- #
+# The joint control plane: per-entry admission tables, the gated deposit
+# --------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("t,f,c,p,n_layers,n_exp,n_slots,every", [
+    (6_005, 3, 600, 1, 32, 8, 3, 10),     # the paper's schedule row, F = 3
+    (2_400, 27, 96, 1, 4, 4, 10, 10),     # bench_ctrl's grid, 27 cells
+    (157, 4, 13, 3, 4, 3, 4, 7),          # several plans an entry
+])
+def test_admission_window_kernel_per_entry_tables(cuda_device, t, f, c, p,
+                                                  n_layers, n_exp, n_slots,
+                                                  every):
+    """Station maps per (slot, entry), (NS, F, P, ...), bitwise the plain
+    version; maps that repeat one entry's give the shared-table call."""
+    from repro_torch.kernels import admission_window
+    args = list(_window_case(cuda_device, t, f, c, 1, n_layers, n_exp,
+                             n_slots, every, False))
+    rng = np.random.default_rng(4)
+    args[4] = torch.from_numpy(rng.integers(
+        0, c, (n_slots, f, p, n_layers))).to(cuda_device)
+    args[5] = torch.from_numpy(rng.integers(
+        0, c, (n_slots, f, p, n_layers * n_exp))).to(cuda_device)
+    before = admission_window.launches
+    got = admission_window.admission_window(*args)
+    torch.cuda.synchronize()
+    assert admission_window.launches == before + 1
+    want = admission_window.admission_window_plain(*args)
+    assert got.shape == (args[-1], f, p)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    shared = list(args)
+    shared[4], shared[5] = args[4][:, 0], args[5][:, 0]
+    rep = list(args)
+    rep[4] = args[4][:, :1].expand_as(args[4]).contiguous()
+    rep[5] = args[5][:, :1].expand_as(args[5]).contiguous()
+    np.testing.assert_array_equal(
+        admission_window.admission_window(*rep).cpu().numpy(),
+        admission_window.admission_window(*shared).cpu().numpy())
+
+
+@pytest.mark.parametrize("policy", ["aimd", "pid"])
+@pytest.mark.parametrize("n_ctrl,f,p,g", [(4096, 3, 1, 1), (480, 27, 1, 2),
+                                          (333, 5, 7, 3)])
+def test_admission_ctrl_kernel_per_entry_anchors(cuda_device, policy, n_ctrl,
+                                                 f, p, g):
+    """Anchors per entry, ttft0 (F, P, G) and tpot0 (F, P), bitwise the
+    plain loop; anchors repeated over the entries (entry stride 0 against
+    P * G) give the shared-anchor call."""
+    from repro_torch.kernels import admission_ctrl
+    args = list(_ctrl_inputs(cuda_device, n_ctrl, f, p, g, 4.0, 1.5))
+    rng = np.random.default_rng(5)
+    args[1] = torch.from_numpy((rng.random((f, p, g)) * 2.0)
+                               .astype(np.float32)).to(cuda_device)
+    args[2] = torch.from_numpy((rng.random((f, p)) * 0.5)
+                               .astype(np.float32)).to(cuda_device)
+    kw = dict(increase=0.1, decrease=0.6, admit_min=0.05, pid=None)
+    if policy == "pid":
+        kw["pid"] = dict(kp=0.4, ki=0.05, kd=0.02,
+                         gain=torch.ones(p, device=cuda_device))
+    before = admission_ctrl.launches
+    got = admission_ctrl.admission_ctrl(*args, **kw)
+    torch.cuda.synchronize()
+    assert admission_ctrl.launches == before + 1
+    want = admission_ctrl.admission_ctrl_plain(*args, **kw)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    rep = list(args)
+    rep[1] = args[1][:1].expand_as(args[1]).contiguous()
+    rep[2] = args[2][:1].expand_as(args[2]).contiguous()
+    shared = list(args)
+    shared[1], shared[2] = args[1][0], args[2][0]
+    np.testing.assert_array_equal(
+        admission_ctrl.admission_ctrl(*rep, **kw).cpu().numpy(),
+        admission_ctrl.admission_ctrl(*shared, **kw).cpu().numpy())
+
+
+def _ctrl_world(device, admission=None):
+    """bench_ctrl's world at a quarter of its trace (8 x 12, 3 plans)."""
+    from repro_torch import core
+    from repro_torch.traffic import FleetSim, QueueConfig, sample_requests
+    con = core.Constellation(core.ConstellationConfig.scaled(
+        8, 12, n_slots=10, survival_prob=1.0))
+    topo = core.sample_topology(con, core.LinkConfig(),
+                                np.random.default_rng(0))
+    act = core.ActivationModel.zipf(4, 4, 2, seed=1)
+    plans = [core.rand_intra_cg_plan(con.cfg, 4, 4, np.random.default_rng(7)),
+             core.spacemoe_plan(con, topo, act),
+             core.rand_intra_cg_plan(con.cfg, 4, 4,
+                                     np.random.default_rng(11))]
+    req = sample_requests(np.random.default_rng(2), rate_rps=20.0,
+                          horizon_s=60.0, n_stations=2, prompt_median=8,
+                          prompt_max=32, decode_mean=8, decode_max=16)
+    qcfg = QueueConfig(dt_s=0.05, tail_s=30.0, slot_period_s=10.0,
+                       buffer_s=6.0 if admission else 3.0,
+                       admission=admission)
+    return FleetSim(plans, topo, act, core.MoEWorkload.llama_moe_3p5b(),
+                    core.ComputeConfig(), req, np.random.default_rng(5),
+                    qcfg=qcfg, device=device)
+
+
+def test_deposit_kernel_on_the_gated_table(cuda_device):
+    """Iteration 1's deposit of the schedule row, three entries gated by
+    three slot plans: the kernel on the row-grouped table (each row's
+    entries in event order) bitwise the plain deposit of the event-major
+    table."""
+    from repro_torch.kernels import deposit as dep
+    sim = _ctrl_world(cuda_device)
+    ct = sim._ctrl_tables()
+    n_rows, t_bins = ct["n_rows_sched"], sim.n_bins
+    sp = np.random.default_rng(6).integers(0, sim.n_plans,
+                                           (3, sim.n_topo_slots))
+    gate = sp[:, ct["ch_slot"]] == ct["ch_plan"][None]
+    vals = (ct["ch_work"] * ct["ch_fin0"])[None] * gate
+    n_gate = ct["ch_work"].size
+    rows = (np.arange(3)[:, None] * n_rows + ct["ch_srow"][None]).ravel()
+    row_ptr = np.concatenate([(np.arange(3)[:, None] * n_gate
+                               + ct["ch_row_ptr"][None, :-1]).ravel(),
+                              [3 * n_gate]])
+    cols = np.tile(ct["ch_bins0"], 3)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+    before = dep.launches
+    got = dep.deposit(t(rows), t(cols), t(vals.ravel()), 3 * n_rows, t_bins,
+                      row_ptr=t(row_ptr))
+    torch.cuda.synchronize()
+    assert dep.launches == before + 1
+    srow_of = np.searchsorted(ct["srows"], sim.ev_chunk_station)
+    em = np.lexsort((sim.ev_chunk_plan,
+                     sim._rep % (sim._n_events // sim.n_plans)))
+    gate_em = sp[:, sim.slots[sim.ev_chunk_req[em]]] \
+        == sim.ev_chunk_plan[em][None]
+    want = dep.deposit_plain(
+        t((np.arange(3)[:, None] * n_rows + srow_of[em][None]).ravel()),
+        t(np.tile(sim._chunk_bins0[em], 3)),
+        t(((sim.ev_chunk_work * sim._chunk_fin0)[em][None]
+           * gate_em).ravel()), 3 * n_rows, t_bins)
+    assert torch.equal(got, want)
+
+
+def test_replan_grid_on_the_card_matches_the_cpu(cuda_device):
+    """A 2 x 1 x 2 controller grid under AIMD through ``run_many(replan=)``
+    on the card: deposit, backlog_scan, admission_window and
+    admission_ctrl each launched the count the configuration implies
+    (the probe's 3 iterations, then per round an on-card iteration-1
+    deposit and 3 iterations), decisions bitwise the CPU's, served, shed
+    and retry sets equal, latencies within the fused-vs-legacy rtol."""
+    from repro_torch.kernels import ops
+    from repro_torch.traffic import AdmissionConfig, ReplanConfig
+    adm = AdmissionConfig(policy="aimd", ttft_target_s=60.0)
+    rcfg = ReplanConfig(mode="backlog", hysteresis=0.0,
+                        migration_weight_s_per_mb=0.0)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        sim = _ctrl_world(dev, adm)
+        ops.reset_launch_counts()
+        outs[dev] = sim.run_many(replan=rcfg, cadences=[1, 2],
+                                 ttft_targets=[30.0, 90.0],
+                                 replan_rng=np.random.default_rng(4))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            n, rounds = sim.qcfg.iterations, rcfg.controller_iterations
+            want = dict(deposit=(n - 1) + rounds * n,
+                        backlog_scan=n + rounds * n,
+                        admission_window=n + rounds * n,
+                        admission_ctrl=n + rounds * n)
+            assert {k: counts[k] for k in want} == want
+    for a, b in zip(outs["cpu"], outs["cuda"], strict=True):
+        assert np.array_equal(a.report.schedule.slot_plan,
+                              b.report.schedule.slot_plan)
+        for da, db in zip(a.report.decisions, b.report.decisions,
+                          strict=True):
+            assert (da.boundary, da.chosen, da.switched) \
+                == (db.boundary, db.chosen, db.switched)
+            np.testing.assert_array_equal(da.scores, db.scores)
+            assert da.migration_bytes == db.migration_bytes
+        for pa, pb in zip(a.result.plans, b.result.plans, strict=True):
+            for name in ("served", "shed", "retries"):
+                np.testing.assert_array_equal(getattr(pb, name),
+                                              getattr(pa, name))
+            np.testing.assert_allclose(pb.ttft_s, pa.ttft_s, rtol=1e-5,
+                                       equal_nan=True)
+    assert any(o.report.n_switches for o in outs["cuda"])

@@ -273,29 +273,39 @@ def test_init_cache_matches_reference(dtype):
 # batching and obs: the names the port exports
 # --------------------------------------------------------------------- #
 
-#: Reference names the port does not have yet (the replan slice).
-NOT_PORTED = {"replan_events", "joint_decision_events"}
+#: The names of ``repro.traffic`` that each module of it exports.
+TRAFFIC_NAMES = {
+    "batching": {"BatchingConfig", "batched_effective_work",
+                 "effective_work_np", "windowed_counts"},
+    "replan": {"ReplanConfig", "ReplanDecision", "ReplanOutcome",
+               "ReplanReport", "backlog_penalty_s", "build_replan_schedule",
+               "replan_base_scores", "replan_traffic",
+               "replan_traffic_fused"},
+}
 
 
-@pytest.mark.parametrize("module", ["obs", "traffic.batching"])
+@pytest.mark.parametrize("module", ["obs", "traffic.batching",
+                                    "traffic.replan"])
 def test_batching_and_obs_names_match_reference(ref, module):
-    """Every public name of ``repro.obs`` but the replan events, and every
-    batching name of ``repro.traffic``, is exported by the port."""
+    """Every public name of ``repro.obs``, and every batching and replan
+    name of ``repro.traffic``, is exported by the port."""
     import repro.obs as robs
     import repro_torch.obs as pobs
     traffic, _ = ref
     if module == "obs":
-        assert set(pobs.__all__) == set(robs.__all__) - NOT_PORTED
-        assert not NOT_PORTED & set(dir(pobs))
+        assert set(pobs.__all__) == set(robs.__all__)
+        for n in pobs.__all__:
+            assert hasattr(pobs, n)
     else:
+        sub = module.split(".")[1]
         names = {n for n in traffic.__all__
                  if getattr(getattr(traffic, n), "__module__", None)
-                 == "repro.traffic.batching"}
-        assert names == {"BatchingConfig", "batched_effective_work",
-                         "effective_work_np", "windowed_counts"}
+                 == f"repro.traffic.{sub}"}
+        assert names == TRAFFIC_NAMES[sub]
         assert names <= set(pt.__all__)
         for n in names:
             assert callable(getattr(pt, n))
+            assert getattr(pt, n).__module__ == f"repro_torch.traffic.{sub}"
 
 
 def test_decision_trace_and_request_record_match_reference():

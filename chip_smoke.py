@@ -100,7 +100,36 @@ Phases (any failure exits non-zero and prints no success line):
      bitwise against their plain versions on the per-entry tables the
      grid gave them; (c) that grid's cell 0 flight log with ``replan=``,
      its decisions as trace instants, through ``validate_trace``;
- 12. the ``kernels`` JSON line (all six kernels; launches counted over
+ 12. the traffic scenarios and the federation: (a) the reference's
+     ``benchmarks/bench_replan.py`` at its non-fast setting rebuilt with
+     the port (12 x 16 satellites, 12 slots, the 7 ``baseline_plans``
+     candidates, both ``*-replan`` scenarios at 180 s and rate x 9, the
+     storm split at 90 s; per phase one ``replan_traffic_fused`` over
+     cadences 1, 2, 4 x migration prices 0, 0.01, 0.1 and the periodic
+     control point; launches, wall, peak memory, switches and megabytes
+     per grid), failing unless backlog re-placement beats the best static
+     plan's goodput at matched p99 TTFT in both scenarios; its fast
+     regional-hotspot grid on the card and on the CPU (decisions bit for
+     bit, identical served sets), printed beside the committed
+     ``BENCH_replan.json``; (b) all nine registry scenarios through
+     ``run_scenario`` on that world (the re-placement ones with the joint
+     control plane, regional-hotspot-replan also with the host loop,
+     decisions bit for bit); (c) the reference's
+     ``benchmarks/bench_federation.py``: the hotspot stage (K = 3, F = 6
+     lanes, overflow off bitwise each member's own run, overflow on at
+     least 1.3 x the goodput at p99 TTFT at most 1.05 x, card against
+     CPU, one fixed point and its launches per overflow round) and the
+     million-user stage at its full setting (1.01e6 users, K = 2: stream,
+     build, host prep and device wall, memory; ``deposit``,
+     ``backlog_scan``, ``admission_window`` and ``admission_ctrl``
+     bitwise against their plain versions on its lane-stacked tables,
+     timed beside their bounds); (d) ``python -m
+     repro_torch.launch.serve`` for llama-moe-3.5b at full width with
+     ``--traffic regional-hotspot-replan --ctrl fused --admission aimd
+     --federation 2 --fail-device 3 --trace``: its lines, its trace
+     through ``validate_trace``, gmm and decode_attention launch counts
+     as phase 5;
+ 13. the ``kernels`` JSON line (all six kernels; launches counted over
      the serve run for gmm/decode_attention, over the fleet ``run()``
      for deposit/backlog_scan and over the AIMD ``run()`` for
      admission_window/admission_ctrl), the card line, then the result
@@ -2284,6 +2313,704 @@ def phase_replan(torch, world) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# Phase 12: the traffic scenarios and the planet-scale federation
+# --------------------------------------------------------------------- #
+
+#: Phase 12 (a): benchmarks/bench_replan.py, non-fast grid and fast grid.
+BENCH_REPLAN_CADENCES = (1, 2, 4)
+BENCH_REPLAN_WEIGHTS = (0.0, 0.01, 0.1)
+BENCH_REPLAN_FAST_CADENCES = (1, 2)
+BENCH_REPLAN_FAST_WEIGHTS = (0.0, 0.05)
+BENCH_REPLAN_RATE_SCALE = 9.0
+BENCH_REPLAN_SCENARIOS = ("regional-hotspot-replan", "failure-storm-replan")
+#: Phase 12 (c): benchmarks/bench_federation.py's gates and budget.
+FED_GAIN_MIN = 1.3
+FED_P99_FACTOR = 1.05
+FED_RSS_BUDGET_MB = 8192
+FED_MILLION_USERS = 1.01e6
+
+
+def replan_bench_world():
+    """``benchmarks/bench_replan.py``'s world: 12 x 16 satellites, 12
+    slots, Zipf 8 experts top-2 over 4 layers, the 8 default gateways and
+    the 7 ``baseline_plans`` candidates (two random draws, rng 3)."""
+    import numpy as np
+
+    from repro_torch import core
+    from repro_torch.traffic import build_ground_segment
+    con = core.Constellation(core.ConstellationConfig.scaled(12, 16,
+                                                             n_slots=12))
+    link = core.LinkConfig()
+    topo = core.sample_topology(con, link, np.random.default_rng(0))
+    act = core.ActivationModel.zipf(4, 8, 2, seed=0)
+    ground = build_ground_segment(con, link, min_elevation_deg=10.0)
+    plans = core.baseline_plans(con, topo, act, np.random.default_rng(3),
+                                n_random_draws=2)
+    return dict(con=con, topo=topo, act=act, ground=ground, plans=plans,
+                wl=core.MoEWorkload.llama_moe_3p5b(),
+                comp=core.ComputeConfig())
+
+
+def replan_bench_phases(w, name: str, fast: bool):
+    """(queue config, [(phase tag, candidate pool, requests)], rng) of one
+    bench_replan scenario: the scenario cut as the bench cuts it, its
+    trace at rate x 9 from rng 11, split at the storm as run_scenario
+    splits it (requests first, then the storm, on one rng)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.traffic import apply_failure_storm, get_scenario
+    base = get_scenario(name)
+    horizon = 90.0 if fast else 180.0
+    sc = dataclasses.replace(
+        base, horizon_s=horizon, tail_s=60.0, slot_period_s=15.0,
+        buffer_s=3.0, decode_mean=8, decode_max=16, prompt_median=4,
+        prompt_max=16,
+        failure_at_s=horizon / 2.0 if base.failure_at_s is not None
+        else None)
+    slot_period = w["con"].cfg.orbital_period_s / w["topo"].n_slots
+    qcfg = dataclasses.replace(sc.queue_config(slot_period),
+                               migration_bytes_per_expert=1e6)
+    rng = np.random.default_rng(11)
+    req = sc.requests(rng, w["ground"].n_stations,
+                      rate_scale=BENCH_REPLAN_RATE_SCALE)
+    if sc.failure_at_s is None:
+        return qcfg, [("main", w["plans"], req)], rng
+    pre = req.subset(req.arrival_s < sc.failure_at_s)
+    post = req.subset(req.arrival_s >= sc.failure_at_s)
+    storm = apply_failure_storm(w["plans"], w["act"], rng,
+                                failure_frac=sc.failure_frac,
+                                bytes_per_expert=1e6)
+    phases = [("main", w["plans"], pre)]
+    if post.n_requests:
+        phases.append(("post", storm.degraded_plans, post))
+    return qcfg, phases, rng
+
+
+def replan_bench_rows(tag, res, rep, policy, knobs) -> list[dict]:
+    """The bench's frontier rows of one cell: the schedule's row and every
+    static candidate's."""
+    rows = []
+    for p in res.plans:
+        is_replan = p.plan_name.startswith("replan/")
+        rows.append({
+            "policy": policy if is_replan else "static",
+            **(knobs if is_replan else {k: None for k in knobs}),
+            "phase": tag, "plan": p.plan_name,
+            "goodput_tok_s": p.goodput_tok_s,
+            "ttft_p99_s": p.quantile("ttft", 0.99),
+            "span_s": p.span_s,
+            "switches": rep.n_switches if is_replan else 0})
+    return rows
+
+
+def replan_bench_headline(rows) -> dict:
+    """bench_replan's acceptance: the best backlog point's goodput over
+    the phases (token-weighted) against the best static candidate's, at
+    p99 TTFT (the worst phase's) no worse than that candidate's."""
+    import numpy as np
+
+    def combined(sel):
+        tok = sum(r["goodput_tok_s"] * r["span_s"] for r in sel)
+        span = sum(r["span_s"] for r in sel)
+        p99s = [r["ttft_p99_s"] for r in sel
+                if np.isfinite(r["ttft_p99_s"])]
+        return (tok / span if span else 0.0,
+                max(p99s) if p99s else float("nan"))
+
+    def by_knob(policy):
+        out: dict = {}
+        for r in rows:
+            if r["policy"] == policy:
+                out.setdefault((r["plan"], r["cadence"], r["mig_weight"]),
+                               []).append(r)
+        return {k: combined(v) for k, v in out.items()}
+    static: dict = {}
+    for (plan, _c, _w), gp in by_knob("static").items():
+        static.setdefault(plan, gp)
+    best_plan, (best_g, best_p99) = max(static.items(),
+                                        key=lambda kv: kv[1][0])
+    matched = {k: v for k, v in by_knob("backlog").items()
+               if not np.isfinite(best_p99)
+               or (np.isfinite(v[1]) and v[1] <= best_p99)}
+    best_key, best_replan = max(matched.items(), key=lambda kv: kv[1][0],
+                                default=(None, (0.0, float("nan"))))
+    return {"best_static_plan": best_plan, "best_static_goodput": best_g,
+            "best_static_ttft_p99_s": best_p99,
+            "best_replan": best_key,
+            "best_replan_goodput_at_matched_p99": best_replan[0],
+            "best_replan_ttft_p99_s": best_replan[1],
+            "replan_beats_static": bool(best_replan[0] > best_g)}
+
+
+def replan_bench_grid_calls(w, qcfg, phases, rng, device, cadences,
+                            weights, tag_log=None) -> tuple[list, list]:
+    """Each phase's backlog grid (one ``replan_traffic_fused`` over
+    cadences x weights) and its periodic control point, as the bench
+    calls them on one rng.  Returns (frontier rows, per-phase records:
+    outcomes, wall, launches, peak device memory)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.traffic import ReplanConfig, replan_traffic_fused
+    cuda = device == "cuda"
+    rows, recs = [], []
+    for tag, plans, req in phases:
+        for policy in ("backlog", "periodic"):
+            grid = policy == "backlog"
+            if cuda:
+                ops.reset_launch_counts()
+                torch.cuda.reset_peak_memory_stats()
+                base_mem = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out = replan_traffic_fused(
+                plans, w["topo"], w["act"], w["wl"], w["comp"], req, rng,
+                ReplanConfig(mode=policy), qcfg, ground=w["ground"],
+                device=device,
+                **(dict(cadences=list(cadences), mig_weights=list(weights))
+                   if grid else {}))
+            if cuda:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            cells = out if grid else [out]
+            knobs = ([(c, wt) for c in cadences for wt in weights] if grid
+                     else [(1, 0.01)])
+            for (c, wt), cell in zip(knobs, cells):
+                rows += replan_bench_rows(tag, cell.result, cell.report,
+                                          policy,
+                                          {"cadence": c, "mig_weight": wt})
+            sim = cells[0].sim
+            rec = dict(phase=tag, policy=policy, cells=cells, wall_s=wall,
+                       R=req.n_requests, T=sim.n_bins, rows=sim.n_rows,
+                       C=len(plans), chunks=sim._f_src.size)
+            if cuda:
+                rec["launches"] = ops.launch_counts()
+                rec["peak_gib"] = (torch.cuda.max_memory_allocated()
+                                   - base_mem) / 2**30
+            recs.append(rec)
+            if tag_log is not None:
+                sw = [c.report.n_switches for c in cells]
+                mb = [c.report.total_migration_bytes / 1e6 for c in cells]
+                tag_log(f"{tag} {policy}: R={rec['R']} requests, T={rec['T']}"
+                        f" bins, {rec['rows']} probe rows, C={rec['C']}, "
+                        f"{rec['chunks']} probe chunks, "
+                        f"{len(cells)} cell(s) in {wall:.2f}s wall"
+                        + (f", launches {json.dumps(rec['launches'])}, peak "
+                           f"{rec['peak_gib']:.2f} GiB" if cuda else "")
+                        + f"; switches {sw}, migrated MB "
+                        f"{[round(x, 1) for x in mb]}")
+    return rows, recs
+
+
+def scenario_replan_bench(torch) -> dict:
+    """Phase 12 (a): the reference's bench_replan at its non-fast setting,
+    rebuilt with the port, both scenarios on the card, the bench's gate;
+    then its fast regional-hotspot grid on the card and on the CPU
+    (decisions bit for bit, identical served, shed and retry sets), the
+    card's fast rows printed beside the committed baseline's.  Returns
+    the world."""
+    from repro_torch.traffic import ReplanConfig
+    t0 = time.perf_counter()
+    w = replan_bench_world()
+    log(f"scenarios (a) bench_replan world: {w['con'].cfg.n_sats} "
+        f"satellites, {w['topo'].n_slots} slots, {len(w['plans'])} "
+        f"candidates {[p.name for p in w['plans']]}, built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    heads = {}
+    for name in BENCH_REPLAN_SCENARIOS:
+        qcfg, phases, rng = replan_bench_phases(w, name, fast=False)
+        rows, recs = replan_bench_grid_calls(
+            w, qcfg, phases, rng, "cuda", BENCH_REPLAN_CADENCES,
+            BENCH_REPLAN_WEIGHTS,
+            tag_log=lambda m, n=name: log(f"scenarios (a) {n} {m}"))
+        for rec in recs:
+            n = qcfg.iterations
+            r = ReplanConfig().controller_iterations \
+                if rec["policy"] == "backlog" else 1
+            want = {"deposit": (n - 1) + r * n, "backlog_scan": n + r * n}
+            if {k: rec["launches"][k] for k in want} != want:
+                raise SmokeFailure(f"scenarios (a) {name} {rec['phase']} "
+                                   f"{rec['policy']}: launches "
+                                   f"{rec['launches']} != {want}")
+        h = replan_bench_headline(rows)
+        heads[name] = h
+        log(f"scenarios (a) {name}: best static {h['best_static_plan']} "
+            f"{h['best_static_goodput']:.3f} tok/s at p99 "
+            f"{h['best_static_ttft_p99_s']:.3f}s; best backlog point "
+            f"(cadence, weight) {h['best_replan'][1:] if h['best_replan'] else None}"
+            f" {h['best_replan_goodput_at_matched_p99']:.3f} tok/s at p99 "
+            f"{h['best_replan_ttft_p99_s']:.3f}s -> "
+            f"{'BEATS' if h['replan_beats_static'] else 'does not beat'}")
+    bad = [n for n, h in heads.items() if not h["replan_beats_static"]]
+    if bad:
+        raise SmokeFailure(f"scenarios (a): backlog re-placement does not "
+                           f"beat the best static plan at matched p99 in "
+                           f"{bad}")
+
+    # The fast setting's regional-hotspot grid: card against CPU.
+    name = BENCH_REPLAN_SCENARIOS[0]
+    got = {}
+    for device in ("cuda", "cpu"):
+        qcfg, phases, rng = replan_bench_phases(w, name, fast=True)
+        t0 = time.perf_counter()
+        got[device] = replan_bench_grid_calls(
+            w, qcfg, phases, rng, device, BENCH_REPLAN_FAST_CADENCES,
+            BENCH_REPLAN_FAST_WEIGHTS)
+        got[device + "_s"] = time.perf_counter() - t0
+    n_cells = 0
+    for rc, rp in zip(got["cuda"][1], got["cpu"][1]):
+        for a, b in zip(rc["cells"], rp["cells"]):
+            what = f"scenarios (a) fast {name} {rc['policy']} cell {n_cells}"
+            same_decisions(a, b, what + ": card vs CPU")
+            assert_parity(b.result, a.result, what + ": card vs CPU")
+            n_cells += 1
+    log(f"scenarios (a) fast {name} grid: card {got['cuda_s']:.1f}s, CPU "
+        f"{got['cpu_s']:.1f}s; card vs CPU on {n_cells} cells: decisions "
+        f"bit for bit, identical served sets, latencies at the "
+        f"fused-vs-legacy criterion")
+    base = ROOT / "benchmarks" / "baselines" / "BENCH_replan.json"
+    ref_rows = {}
+    if base.exists():
+        for r in json.loads(base.read_text())["replan"]["frontier"]:
+            if r["scenario"] == name:
+                ref_rows.setdefault((r["policy"], r["plan"], r["cadence"],
+                                     r["mig_weight"]), r)
+    seen = set()
+    for r in got["cuda"][0]:
+        key = (r["policy"], r["plan"], r["cadence"], r["mig_weight"])
+        if key in seen:
+            continue
+        seen.add(key)
+        ref = ref_rows.get(key)
+        log(f"scenarios (a) fast {name} {key}: card goodput "
+            f"{r['goodput_tok_s']:.3f} tok/s, p99 TTFT "
+            f"{r['ttft_p99_s']:.3f}s, {r['switches']} switches; "
+            f"BENCH_replan.json (jax 0.4.37, CPU; information only): "
+            + (f"{ref['goodput_tok_s']} tok/s, p99 {ref['ttft_p99_s']}s, "
+               f"{ref['switches']} switches" if ref else "no row"))
+    return w
+
+
+def scenario_registry(torch, w) -> None:
+    """Phase 12 (b): every registry scenario through ``run_scenario`` on
+    (a)'s world at its own horizon and rate, on the card; the re-placement
+    ones with the joint control plane, regional-hotspot-replan also with
+    the host loop (decisions bit for bit, results at the fused-vs-legacy
+    criterion)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from repro_torch.traffic import SCENARIOS, run_scenario
+
+    def run(name, ctrl):
+        t0 = time.perf_counter()
+        out = run_scenario(name, w["plans"], w["topo"], w["act"], w["wl"],
+                           w["comp"], np.random.default_rng(4),
+                           ground=w["ground"], constellation=w["con"],
+                           ctrl=ctrl, device="cuda")
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for name, sc in SCENARIOS.items():
+        ctrl = "fused" if sc.replan is not None else "host"
+        out, wall = run(name, ctrl)
+        parts = [("main", out.result)]
+        if out.post_failure is not None:
+            parts.append(("post", out.post_failure))
+        for tag, res in parts:
+            best = max(res.plans, key=lambda p: p.goodput_tok_s)
+            for p in res.plans:
+                ok = (not (p.served & ~p.active).any()
+                      and np.isfinite(p.ttft_s[p.served]).all()
+                      and (p.e2e_s[p.served] >= p.ttft_s[p.served]).all())
+                if not ok:
+                    raise SmokeFailure(f"scenarios (b) {name} {tag} "
+                                       f"{p.plan_name}: served outside the "
+                                       f"trace or non-finite latencies")
+            log(f"scenarios (b) {name} ({ctrl}) {tag}: R="
+                f"{int(res.plans[0].active.sum())}, T={res.n_bins}, "
+                f"{len(res.plans)} plan rows; served "
+                f"{[int(p.served.sum()) for p in res.plans]}, shed "
+                f"{[int(p.shed.sum()) if p.shed is not None else 0 for p in res.plans]}"
+                f"; best goodput {best.plan_name} {best.goodput_tok_s:.3f} "
+                f"tok/s; {wall:.2f}s wall")
+        for rep in (out.replan, out.post_replan):
+            if rep is not None:
+                log(f"scenarios (b) {name}: {rep.schedule.name} "
+                    f"{rep.n_switches} switches, "
+                    f"{rep.total_migration_bytes / 1e6:.1f} MB over "
+                    f"{len(rep.decisions)} decisions")
+        if out.storm is not None:
+            log(f"scenarios (b) {name}: storm moved "
+                f"{json.dumps(out.storm.moved_experts)} experts")
+        if name == "regional-hotspot-replan":
+            host, host_wall = run(name, "host")
+            same_decisions(SimpleNamespace(report=host.replan),
+                           SimpleNamespace(report=out.replan),
+                           f"scenarios (b) {name}: host loop vs fused")
+            assert_parity(host.result, out.result,
+                          f"scenarios (b) {name}: host loop vs fused")
+            log(f"scenarios (b) {name} (host): decisions equal to the "
+                f"joint control plane's bit for bit; {host_wall:.2f}s wall "
+                f"against {wall:.2f}s")
+
+
+def fed_member_factory(seed, cfg, req, qcfg, n_layers, n_experts, top_k,
+                       device):
+    """``benchmarks/bench_federation.py``'s deterministic member factory,
+    on ``device``."""
+    import numpy as np
+
+    from repro_torch import core
+    from repro_torch.traffic import FleetSim, build_ground_segment
+
+    def build(min_bins=0):
+        con = core.Constellation(cfg)
+        topo = core.sample_topology(con, core.LinkConfig(),
+                                    np.random.default_rng(seed))
+        act = core.ActivationModel.zipf(n_layers, n_experts, top_k, seed=1)
+        ground = build_ground_segment(con, core.LinkConfig(),
+                                      min_elevation_deg=10.0)
+        return FleetSim([core.spacemoe_plan(con, topo, act)], topo, act,
+                        core.MoEWorkload.llama_moe_3p5b(),
+                        core.ComputeConfig(), req,
+                        np.random.default_rng(5), qcfg=qcfg, ground=ground,
+                        min_bins=min_bins, device=device)
+    return build
+
+
+def same_federation(a, b, what) -> None:
+    """Card against CPU on one FederationResult: identical served, shed,
+    retry, hop and assignment sets and round counts; TTFT/E2E to rtol
+    1e-5; goodput to 1e-9; each member's rows at the fused-vs-legacy
+    criterion with identical shed and retry sets."""
+    import numpy as np
+    fa, fb = a.federated, b.federated
+    ok = (a.n_rounds == b.n_rounds and np.array_equal(a.hops, b.hops)
+          and np.array_equal(a.assigned, b.assigned)
+          and np.array_equal(a.offered, b.offered)
+          and np.array_equal(fa.served, fb.served)
+          and np.array_equal(fa.shed, fb.shed)
+          and np.array_equal(fa.retries, fb.retries)
+          and np.isclose(fa.goodput_tok_s, fb.goodput_tok_s, rtol=1e-9,
+                         atol=0.0))
+    for arr in ("ttft_s", "e2e_s"):
+        ok = ok and np.allclose(getattr(fa, arr), getattr(fb, arr),
+                                rtol=1e-5, atol=0.0, equal_nan=True)
+    if not ok:
+        raise SmokeFailure(f"{what}: the federated rows differ")
+    for k, (ma, mb) in enumerate(zip(a.members, b.members)):
+        assert_parity(ma, mb, f"{what} member {k}")
+        same_admission(ma, mb, f"{what} member {k}")
+
+
+def fed_hotspot(torch) -> None:
+    """Phase 12 (c), the hotspot stage: K = 3 on 8 x 12, every request
+    homed on member 0, AIMD at 10 s, a 2-entry nested sweep (F = 6 lanes);
+    overflow off bitwise each member's own run, overflow on at least 1.3x
+    the goodput at p99 TTFT at most 1.05x, card against CPU, one fixed
+    point and its kernel launches per overflow round."""
+    import numpy as np
+
+    from repro_torch import core
+    from repro_torch.kernels import ops
+    from repro_torch.traffic import (AdmissionConfig, FederationConfig,
+                                     QueueConfig, RequestBatch,
+                                     build_federation, federation,
+                                     poisson_arrivals, sample_decode_lens,
+                                     sample_prompt_lens)
+    rng = np.random.default_rng(8)
+    t = poisson_arrivals(5.0, 60.0, rng)
+    n = t.size
+    req = RequestBatch(
+        arrival_s=t,
+        prompt_len=sample_prompt_lens(n, rng, median=4, sigma=0.4,
+                                      max_len=16),
+        decode_len=sample_decode_lens(n, rng, mean=4, max_len=8),
+        station=rng.integers(0, 8, n))
+    cfg = core.ConstellationConfig.scaled(8, 12, n_slots=10,
+                                          survival_prob=1.0)
+    qcfg = QueueConfig(dt_s=0.05, tail_s=60.0,
+                       admission=AdmissionConfig(ttft_target_s=10.0))
+    home = np.zeros(req.n_requests, dtype=np.int64)
+    masks = np.stack([np.ones(req.n_requests, dtype=bool),
+                      np.random.default_rng(1).random(req.n_requests) < 0.7])
+    calls = [0]
+    real = federation._fleet_fixed_point
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return real(*args, **kw)
+    res = {}
+    federation._fleet_fixed_point = counted
+    try:
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            fed = build_federation(
+                [fed_member_factory(s, cfg, req, qcfg, 4, 4, 2, device)
+                 for s in (0, 1, 2)], FederationConfig(overflow=True),
+                home=home)
+            t_build = time.perf_counter() - t0
+            for route in (False, True):
+                calls[0] = 0
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                out = fed.run_many(masks, overflow=route)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                res[device, route] = dict(out=out, calls=calls[0],
+                                          wall=time.perf_counter() - t0,
+                                          launches=ops.launch_counts())
+            res[device] = fed
+            log(f"scenarios (c) hotspot federation on {device}: K=3, R="
+                f"{req.n_requests}, T={fed.n_bins}, rows_max {fed._sr_max},"
+                f" F={masks.shape[0] * 3} lanes, member chunks "
+                f"{[sim._f_src.size for sim in fed.sims]}, built in "
+                f"{t_build:.1f}s; "
+                f"overflow off {res[device, False]['wall']:.2f}s, on "
+                f"{res[device, True]['wall']:.2f}s")
+    finally:
+        federation._fleet_fixed_point = real
+    fed = res["cuda"]
+    n_it = qcfg.iterations
+    for route in (False, True):
+        r = res["cuda", route]
+        rounds = r["out"][0].n_rounds
+        want = {"deposit": rounds * (n_it - 1), "backlog_scan": rounds * n_it,
+                "admission_window": rounds * n_it,
+                "admission_ctrl": rounds * n_it}
+        log(f"scenarios (c) hotspot overflow {route}: {rounds} rounds, "
+            f"{r['calls']} fixed points, launches {json.dumps(r['launches'])}"
+            f" (expected {json.dumps(want)})")
+        if r["calls"] != rounds or {k: r["launches"][k] for k in want} \
+                != want:
+            raise SmokeFailure(f"scenarios (c) hotspot overflow {route}: "
+                               f"{r['calls']} fixed points and launches "
+                               f"{r['launches']} for {rounds} rounds")
+        for s, (a, b) in enumerate(zip(r["out"], res["cpu", route]["out"])):
+            same_federation(a, b, f"scenarios (c) hotspot overflow {route} "
+                            f"entry {s}: card vs CPU")
+    # Overflow off: each member bitwise its own FleetSim.run on its home
+    # slice (bench_federation._parity_problems).
+    fields = ("served", "shed", "retries", "ttft_s", "e2e_s", "tpot_s",
+              "station_util", "token_total_s")
+    for s, out in enumerate(res["cuda", False]["out"]):
+        for k, sim in enumerate(fed.sims):
+            alone = sim.run(masks[s] & (fed.home == k))
+            for pf, pa in zip(out.members[k].plans, alone.plans):
+                for f in fields:
+                    if not np.array_equal(getattr(pf, f), getattr(pa, f),
+                                          equal_nan=f.endswith("_s")):
+                        raise SmokeFailure(
+                            f"scenarios (c) hotspot entry {s} member {k}: "
+                            f"{f} differs from its standalone run")
+    gi = res["cuda", False]["out"][0].federated
+    gf = res["cuda", True]["out"][0].federated
+    gain = gf.goodput_tok_s / gi.goodput_tok_s if gi.goodput_tok_s else \
+        float("inf")
+    p99_i, p99_f = gi.quantile("ttft", 0.99), gf.quantile("ttft", 0.99)
+    on = res["cuda", True]["out"][0]
+    log(f"scenarios (c) hotspot: independent {gi.goodput_tok_s:.3f} tok/s "
+        f"(shed {int(gi.shed.sum())}), federated {gf.goodput_tok_s:.3f} "
+        f"tok/s (shed {int(gf.shed.sum())}, {int((on.hops > 0).sum())} "
+        f"re-routed in {on.n_rounds} rounds): {gain:.3f}x (gate >= "
+        f"{FED_GAIN_MIN}); p99 TTFT {p99_i:.3f} -> {p99_f:.3f}s (gate <= "
+        f"{FED_P99_FACTOR}x); overflow off bitwise each member's own run")
+    if not (gain >= FED_GAIN_MIN and p99_f <= FED_P99_FACTOR * p99_i):
+        raise SmokeFailure(f"scenarios (c) hotspot: goodput gain {gain:.3f}"
+                           f", p99 {p99_i:.3f} -> {p99_f:.3f}s")
+
+
+def rss_mb() -> float:
+    """This process's resident memory now (``VmRSS``), MB."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 1024.0
+    raise SmokeFailure("/proc/self/status has no VmRSS")
+
+
+def fed_million(torch) -> None:
+    """Phase 12 (c), the million-user stage at its full setting: 1.01e6
+    users streamed (``stream_requests``), K = 2 on 6 x 8, one launch;
+    stream, build, prep and device wall, peak device memory, resident
+    memory sampled after each step against the reference's peak-RSS
+    budget (the process's own peak includes the phases before), shed; the
+    four fleet kernels bitwise against their plain versions on the tables
+    this launch gave them, timed beside their bounds."""
+    import resource
+
+    import numpy as np
+
+    from repro_torch import core
+    from repro_torch.traffic import (AdmissionConfig, QueueConfig,
+                                     admission, build_federation, queueing,
+                                     stream_requests)
+    rss = [rss_mb()]
+    rate_max = 2500.0
+    t0 = time.perf_counter()
+    req, n_env = stream_requests(
+        np.random.default_rng(0), lambda t: np.full_like(t, 0.96 * rate_max),
+        rate_max, FED_MILLION_USERS / (0.96 * rate_max), n_stations=8,
+        shard_s=60.0, prompt_median=2, prompt_sigma=0.3, prompt_max=4,
+        decode_mean=1, decode_max=2)
+    t_stream = time.perf_counter() - t0
+    rss.append(rss_mb())
+    cfg = core.ConstellationConfig.scaled(6, 8, n_slots=8, survival_prob=1.0)
+    qcfg = QueueConfig(dt_s=0.5, tail_s=60.0,
+                       admission=AdmissionConfig(ttft_target_s=20.0))
+    t0 = time.perf_counter()
+    fed = build_federation([fed_member_factory(s, cfg, req, qcfg, 2, 2, 1,
+                                               "cuda") for s in (0, 1)])
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    rss.append(rss_mb())
+    K = len(fed.sims)
+    offered = np.stack([fed.home == k for k in range(K)])[None]
+    t0 = time.perf_counter()
+    prep = fed._prepare(offered)
+    t_prep = time.perf_counter() - t0
+    rss.append(rss_mb())
+
+    captured: dict = {}
+    real = (queueing.deposit, queueing.backlog_scan,
+            admission.admission_window, admission.admission_ctrl)
+
+    def dep(rows, cols, vals, n_rows, n_cols, row_ptr):
+        captured["deposit"] = (rows, cols, vals, n_rows, n_cols, row_ptr)
+        return real[0](rows, cols, vals, n_rows, n_cols, row_ptr=row_ptr)
+
+    def scan(work, cap, dt):
+        captured["backlog_scan"] = (work, cap, dt)
+        return real[1](work, cap, dt)
+
+    def window(*args):
+        captured["admission_window"] = args
+        return real[2](*args)
+
+    def ctrl(win, *args, **kw):
+        captured["admission_ctrl"] = (win, args, kw)
+        return real[3](win, *args, **kw)
+    queueing.deposit, queueing.backlog_scan = dep, scan
+    admission.admission_window, admission.admission_ctrl = window, ctrl
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        fed._execute(prep)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    finally:
+        (queueing.deposit, queueing.backlog_scan, admission.admission_window,
+         admission.admission_ctrl) = real
+    t0 = time.perf_counter()
+    out = fed._execute(prep)
+    torch.cuda.synchronize()
+    t_device = time.perf_counter() - t0
+    rss.append(rss_mb())
+    n_shed = int(sum((out["shed"][k, 0] & offered[0, k]).sum()
+                     for k in range(K)))
+    n_chunks = int(prep["chunks"]["row_ptr"][-1])
+    log(f"scenarios (c) million: {req.n_requests} users "
+        f"({n_env} envelope draws), K={K} on 6 x 8, T={fed.n_bins}, "
+        f"rows_max {fed._sr_max}, F={K} lanes, {n_chunks} chunks "
+        f"(+{prep['chunks']['src'].size - n_chunks} padding); stream "
+        f"{t_stream:.2f}s, build {t_build:.2f}s, host prep {t_prep:.2f}s, "
+        f"device call {t_device:.3f}s (first {t_first:.3f}s): host prep + "
+        f"stream {t_stream + t_prep:.2f}s vs device {t_device:.3f}s "
+        f"(reported, not gated); peak device memory {peak:.2f} GiB above "
+        f"the simulators; resident memory after start, stream, build, prep "
+        f"and launch {[round(x) for x in rss]} MB (process peak "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024:.0f} MB"
+        f" with the phases before; the reference's "
+        f"peak-RSS budget {FED_RSS_BUDGET_MB} MB); {n_shed} shed")
+
+    what = f"the million-user federation's lane-stacked tables (F={K})"
+    recs = [check_deposit(torch, captured["deposit"], what),
+            check_scan(torch, *captured["backlog_scan"], what),
+            check_window(torch, captured["admission_window"], what),
+            check_ctrl(torch, *captured["admission_ctrl"], what)]
+    for rec in recs:
+        log("kernel " + json.dumps(rec))
+    bad = [r["shape"] for r in recs if not r["ok"]]
+    if bad:
+        raise SmokeFailure(f"fleet kernels disagree with their plain "
+                           f"versions on the federation's tables: {bad}")
+
+
+def scenario_serve(torch) -> None:
+    """Phase 12 (d): ``python -m repro_torch.launch.serve`` for
+    llama-moe-3.5b at full width with the traffic, replan, federation,
+    elastic and trace flags, in a process that then prints the kernels'
+    launch counts (step 4 on a 12 x 32 constellation, one satellite a
+    layer in each plane); its lines, its trace through ``validate_trace``
+    and the gmm/decode_attention launch counts of phase 5."""
+    import os
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.obs import validate_trace
+    cfg = get_config(ARCH)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        trace = Path(tmp) / "serve_trace.json"
+        argv = ["--arch", ARCH, "--batch", str(BATCH), "--prompt-len",
+                str(PROMPT), "--decode-tokens", str(DECODE), "--traffic",
+                "regional-hotspot-replan", "--ctrl", "fused",
+                "--admission", "aimd", "--federation", "2",
+                "--fail-device", "3", "--trace", str(trace)]
+        code = ("import json, runpy, sys; sys.argv = ['serve'] + "
+                "sys.argv[1:]; from repro_torch.kernels import ops; "
+                "ops.reset_launch_counts(); "
+                "runpy.run_module('repro_torch.launch.serve', "
+                "run_name='__main__', alter_sys=True); "
+                "print('launch counts ' + json.dumps(ops.launch_counts()))")
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", code, *argv], cwd=ROOT,
+                             env=dict(os.environ,
+                                      PYTHONPATH=str(ROOT / "src")),
+                             capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        lines = res.stdout.splitlines()
+        for line in lines:
+            if not line.startswith("launch counts"):
+                log(f"scenarios (d) serve | {line}")
+        if res.returncode != 0:
+            raise SmokeFailure(f"scenarios (d): serve exited "
+                               f"{res.returncode}: {res.stderr[-2000:]}")
+        for tag in ("[traffic]", "[replan]", "[federation]", "[elastic]",
+                    "[trace]"):
+            if not any(line.startswith(tag) for line in lines):
+                raise SmokeFailure(f"scenarios (d): serve printed no {tag} "
+                                   "line")
+        problems = validate_trace(json.loads(trace.read_text()))
+        counts = json.loads(next(line for line in lines
+                                 if line.startswith("launch counts"))
+                            .split(" ", 2)[2])
+    want = {"gmm": 3 * cfg.n_layers * (2 + DECODE),
+            "decode_attention": cfg.n_layers * DECODE}
+    log(f"scenarios (d) serve at full width: {wall:.1f}s wall (process "
+        f"start included); validate_trace: "
+        f"{problems[:3] if problems else 'no problems'}; launch counts "
+        f"{json.dumps(counts)} (expected gmm and decode_attention "
+        f"{json.dumps(want)})")
+    if problems or {k: counts[k] for k in want} != want:
+        raise SmokeFailure(f"scenarios (d): trace {problems[:3]}, launch "
+                           f"counts {counts} != {want}")
+
+
+def phase_scenarios(torch) -> None:
+    """Phase 12: (a) bench_replan, (b) the scenario registry, (c)
+    bench_federation's two stages, (d) the serve entry point."""
+    scenario_registry(torch, scenario_replan_bench(torch))
+    fed_hotspot(torch)
+    fed_million(torch)
+    scenario_serve(torch)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2332,6 +3059,8 @@ def main() -> int:
     timed("fleet_batching", phase_fleet_batching, torch, world, adm_sims)
     del adm_sims
     timed("replan", phase_replan, torch, world)
+    del world
+    timed("scenarios", phase_scenarios, torch)
     main_cases["admission_window"] = win_rec
     main_cases["admission_ctrl"] = ctrl_rec
     mixed = [name for name, rec in main_cases.items() if not rec["hidden"]]

@@ -1,8 +1,9 @@
 """SpaceMoE core (counterpart of ``repro.core``): the constellation and
 its time-varying topology, the conditional-Poisson activation model, the
 two-level placement with the Theorem-1 rule, plan schedules, the
-service-time model and the batched plan-evaluation engine (PyTorch, on
-an explicit device), plus the serve path's expert->device placement.
+service-time model, the batched plan-evaluation engine (PyTorch, on
+an explicit device) and the token-generation simulator over it, plus the
+serve path's expert->device placement.
 """
 from .activation import (ActivationModel, activation_probs, esp,
                          esp_prefix_table, sample_topk, subset_pmf)
@@ -28,6 +29,8 @@ from .placement import (MultiExpertPlan, PlacementPlan, baseline_plans,
                         subnet_routing_sets, theorem1_assignment)
 from .schedule import (PlanSchedule, ScheduleMigration, as_schedule,
                        migration_between, migration_matrix, slot_of_time)
+from .simulator import (simulate_token_generation,
+                        simulate_token_generation_legacy)
 from .workload import MoEWorkload
 
 __all__ = [
@@ -51,5 +54,6 @@ __all__ = [
     "subnet_routing_sets", "theorem1_assignment",
     "PlanSchedule", "ScheduleMigration", "as_schedule", "migration_between",
     "migration_matrix", "slot_of_time",
+    "simulate_token_generation", "simulate_token_generation_legacy",
     "MoEWorkload",
 ]

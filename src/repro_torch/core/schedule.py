@@ -15,8 +15,8 @@ and must reproduce the static engine path bit-for-bit — that invariant
 is what lets every existing scenario become a re-placement testbed: the
 engine (`repro_torch.core.engine.evaluate_schedules`), the fleet simulator
 (`repro_torch.traffic.queueing.FleetSim`) and the re-placement controller
-(the reference's `traffic.replan`, not ported yet) all consume schedules; plain plans are wrapped
-by :func:`as_schedule` at the boundary.
+(`repro_torch.traffic.replan`) all consume schedules; plain plans are
+wrapped by :func:`as_schedule` at the boundary.
 
 A copy of ``repro.core.schedule`` (host numpy), held bitwise to it.
 """

@@ -1,27 +1,40 @@
 """Serving driver: batched autoregressive decode with SpaceMoE placement.
 
-Counterpart of ``repro.launch.serve``, steps 1-3:
+Counterpart of ``repro.launch.serve``:
 
   1. calibrate: one forward pass collecting per-layer expert-selection
      counts (the paper's activation statistics, Eq. 14 plug-in);
   2. plan: Theorem-1 expert->device placement per MoE layer on the EP
      ring (``repro_torch.core.device_placement``), applied as a weight
-     permutation (``repro_torch.models.moe.apply_placement``);
+     permutation (``repro_torch.models.moe.apply_placement``); with
+     ``--fail-device`` the elastic demo fails one EP device, re-plans on
+     the survivors and reports the migration bytes;
   3. serve: prefill a batch of prompts, greedy-decode N tokens per
-     request; report tokens/s.
+     request; report tokens/s;
+  4. account (``--space-sim``): the space-network latency of the same
+     token stream on a 12-plane constellation, SpaceMoE vs
+     RandIntra-CG in one batched ``evaluate_plans`` sweep;
+     ``--traffic <scenario>`` upgrades it to the request-level fleet
+     simulation of ``repro_torch.traffic`` (``run_scenario``) and prints
+     the SLO table, with the admission, re-placement (``--ctrl`` host
+     loop or joint control plane), batching, flight-recorder
+     (``--trace``) and federation (``--federation K``) options of the
+     reference.
 
 On a CUDA device the expert FFNs run through the hand-written ``gmm``
-kernel and decode attention through the ``decode_attention`` kernel.
-Step 4 (``--space-sim`` / ``--traffic``) and the elastic demo
-(``--fail-device``) are not yet ported and exit with an error.
+kernel and decode attention through the ``decode_attention`` kernel, and
+every fleet object of step 4 is built on ``--device``.
 
     python -m repro_torch.launch.serve --arch llama-moe-3.5b \
         --batch 4 --prompt-len 32 --decode-tokens 16
     python -m repro_torch.launch.serve --smoke --device cpu
+    python -m repro_torch.launch.serve --smoke --device cpu \
+        --traffic smoke --admission aimd --federation 2 --fail-device 0
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -29,8 +42,12 @@ import torch
 
 from .. import resolve_device
 from ..configs import get_config, smoke_config
-from ..core import (TorusSpec, expected_dispatch_cost, identity_plan,
-                    plan_expert_devices)
+from ..core import (ActivationModel, ComputeConfig, Constellation,
+                    ConstellationConfig, LinkConfig, MoEWorkload, TorusSpec,
+                    evaluate_plans, expected_dispatch_cost, identity_plan,
+                    plan_expert_devices, rand_intra_cg_plan, sample_topology,
+                    simulate_token_generation_legacy, spacemoe_plan)
+from ..distributed import migration, replan_on_failure
 from ..models import (cast_for_compute, forward, init_params, prefill,
                       random_batch)
 from ..models.moe import apply_placement
@@ -83,29 +100,67 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-placement", action="store_true",
                     help="A/B: skip the Theorem-1 placement")
     ap.add_argument("--space-sim", action="store_true",
-                    help="also simulate the constellation latency "
-                         "(not yet ported)")
+                    help="also simulate the constellation latency")
     ap.add_argument("--traffic", default=None, metavar="SCENARIO",
-                    help="request-level fleet simulation (not yet ported)")
+                    help="request-level fleet simulation under a named "
+                         "repro_torch.traffic scenario (implies "
+                         "--space-sim)")
+    ap.add_argument("--admission", default=None,
+                    choices=["static", "aimd", "pid"],
+                    help="admission policy for --traffic: 'static' forces "
+                         "the KV-slot cap (--kv-slots), 'aimd' switches to "
+                         "the latency-target controller with gateway retry, "
+                         "'pid' swaps in the PID cell on the same qhat "
+                         "signal")
+    ap.add_argument("--ttft-target", type=float, default=30.0,
+                    help="TTFT target (s) the aimd admission controller "
+                         "defends (with --admission aimd)")
+    ap.add_argument("--kv-slots", type=int, default=8,
+                    help="static KV-slot budget applied with "
+                         "--admission static (0 = uncapped)")
+    ap.add_argument("--replan", default=None,
+                    choices=["off", "periodic", "backlog"],
+                    help="continuous re-placement for --traffic: 'off' "
+                         "holds the plans for the whole horizon, "
+                         "'periodic' re-ranks the candidate pool every "
+                         "topology slot, 'backlog' additionally inflates "
+                         "scores with the live per-satellite backlog "
+                         "(adds a replan/<mode> row to the table)")
+    ap.add_argument("--ctrl", default="host", choices=["host", "fused"],
+                    help="controller implementation for --replan "
+                         "scenarios: 'host' walks the decide law round "
+                         "by round, 'fused' runs the joint control plane "
+                         "in one call on the device (same decisions; the "
+                         "exported trace gains the joint decision-event "
+                         "channel)")
+    ap.add_argument("--rate-scale", type=float, default=1.0,
+                    help="multiply the --traffic scenario's arrival "
+                         "rates (overload knob)")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="with --traffic: run the fleet simulation with "
+                         "probes and export the flight recorder as "
+                         "Chrome/Perfetto trace-event JSON; also prints "
+                         "the windowed fleet-telemetry table")
+    ap.add_argument("--batching", type=int, default=0, metavar="B_MAX",
+                    help="with --traffic: continuous decode batching in "
+                         "the fleet queues, up to B_MAX decode steps a "
+                         "bin at the service model's batch rate (0 = off)")
+    ap.add_argument("--federation", type=int, default=0, metavar="K",
+                    help="with --traffic: additionally serve the scenario "
+                         "over a K-member constellation federation; "
+                         "admission-shed requests overflow to the "
+                         "next-best member (needs --admission aimd/pid "
+                         "for overflow)")
     ap.add_argument("--fail-device", type=int, default=-1,
-                    help="elastic demo: fail this EP device and re-plan "
-                         "(not yet ported)")
+                    help="elastic demo: fail this EP device and re-plan")
     return ap
 
 
 def run(argv=None) -> tuple[dict, dict]:
-    """Steps 1-3.  Returns (out, state): ``out`` as the reference's serve
+    """Steps 1-4.  Returns (out, state): ``out`` as the reference's serve
     returns it; ``state`` holds the last logits and the generated tokens
     for callers that check them."""
-    ap = _parser()
-    args = ap.parse_args(argv)
-    for flag, given in (("--space-sim", args.space_sim),
-                        ("--traffic", args.traffic is not None),
-                        ("--fail-device", args.fail_device >= 0)):
-        if given:
-            ap.error(f"{flag} is not yet ported to repro_torch (serve steps "
-                     "1-3 only); run it with python -m repro.launch.serve")
-
+    args = _parser().parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda":
         # Full f32 matmuls, never TF32 (the reference's f32 is exact f32).
@@ -134,6 +189,18 @@ def _serve(cfg, params, args, device) -> tuple[dict, dict]:
             print(f"[placement] expected dispatch cost: theorem1="
                   f"{costs['theorem1']*1e6:.1f}us identity="
                   f"{costs['identity']*1e6:.1f}us  (-{red:.1f}%)")
+            if args.fail_device >= 0:
+                w = counts.sum(axis=0) + 1e-3
+                ring = TorusSpec(shape=(min(16, cfg.n_experts),), wrap=True)
+                plan0 = plan_expert_devices(w, cfg.top_k, ring)
+                plan1, survivors = replan_on_failure(
+                    w, cfg.top_k, ring, {args.fail_device})
+                bytes_per_expert = 3 * cfg.d_model * cfg.d_ff_expert * 2
+                mig = migration(plan0, plan1, bytes_per_expert, survivors)
+                out["migration_bytes"] = mig.bytes_moved
+                print(f"[elastic] device {args.fail_device} failed: "
+                      f"{len(mig.moved_experts)} experts move, "
+                      f"{mig.bytes_moved/1e6:.1f} MB")
 
     # ---- 3: serve ------------------------------------------------------
     batch = random_batch(cfg, args.batch, args.prompt_len, seed=args.seed,
@@ -162,7 +229,162 @@ def _serve(cfg, params, args, device) -> tuple[dict, dict]:
         else "cpu"
     print(f"[serve] {toks} tokens in {dt:.2f}s -> {out['tokens_per_s']:.1f} "
           f"tok/s ({where})")
+
+    # ---- 4: space-network latency accounting ---------------------------
+    if (args.space_sim or args.traffic) and cfg.has_moe:
+        _space_sim(cfg, counts, args, device, out)
     return out, {"logits": logits, "tokens": torch.cat(generated, dim=1)}
+
+
+def _space_sim(cfg, counts: np.ndarray, args, device, out: dict) -> None:
+    """Step 4: the space-network latency of the router statistics'
+    activation model on a 12-plane constellation, and with ``--traffic``
+    the request-level fleet simulation (and ``--federation``), every
+    simulator on ``device``; fills ``out`` with the reference's keys.
+
+    The reference's world is 12 x 16; SpaceMoE's placement needs a plane
+    of at least one satellite per MoE layer (``ring_subnets``), so models
+    deeper than 16 layers (llama-moe-3.5b's 32) get planes of one
+    satellite a layer, where the reference's serve raises."""
+    n_layers = counts.shape[0]
+    ccfg = ConstellationConfig.scaled(12, max(16, n_layers), n_slots=20)
+    con = Constellation(ccfg)
+    rng = np.random.default_rng(1)
+    topo = sample_topology(con, LinkConfig(token_dim=cfg.d_model), rng)
+    activ = ActivationModel.from_router_counts(counts, cfg.top_k)
+    wl = MoEWorkload(
+        d_model=cfg.d_model, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+        d_ff_expert=cfg.d_ff_expert, n_experts=cfg.n_experts,
+        top_k=cfg.top_k, vocab_size=cfg.vocab_size,
+    )
+    comp = ComputeConfig()
+    sweep = [
+        spacemoe_plan(con, topo, activ, wl, comp),
+        rand_intra_cg_plan(ccfg, n_layers, cfg.n_experts,
+                           np.random.default_rng(3)),
+    ]
+    # One batched sweep; both plans share the rng(2) token stream,
+    # exactly what the legacy per-plan path consumes.
+    sm, cg = evaluate_plans(sweep, topo, activ, wl, comp,
+                            np.random.default_rng(2), n_tokens=200,
+                            device=device)
+    if args.smoke:
+        for plan, res in zip(sweep, (sm, cg)):
+            ref = simulate_token_generation_legacy(
+                plan, topo, activ, wl, comp, np.random.default_rng(2),
+                n_tokens=200)
+            if abs(res.mean_s - ref.mean_s) / ref.mean_s >= 1e-5:
+                raise RuntimeError(
+                    f"engine/legacy divergence for {plan.name}")
+    out["space_latency_s"] = {"SpaceMoE": sm.mean_s,
+                              "RandIntra-CG": cg.mean_s}
+    print(f"[space-sim] s/token: SpaceMoE={sm.mean_s:.3f} "
+          f"RandIntra-CG={cg.mean_s:.3f} "
+          f"({cg.mean_s/sm.mean_s:.2f}x reduction)")
+    if not args.traffic:
+        return
+
+    # ---- --traffic: the named scenario through run_scenario --------------
+    from ..traffic import (AdmissionConfig, ReplanConfig,
+                           build_ground_segment, format_table, get_scenario,
+                           run_scenario)
+    sc = get_scenario(args.traffic)
+    if args.replan is not None:
+        # Re-placement needs slot boundaries inside the horizon; keep the
+        # scenario's own period when it pins one.
+        sc = dataclasses.replace(
+            sc,
+            replan=(None if args.replan == "off"
+                    else ReplanConfig(mode=args.replan)),
+            slot_period_s=sc.slot_period_s or 60.0)
+    if args.admission in ("aimd", "pid"):
+        sc = dataclasses.replace(
+            sc, kv_slots=0,
+            admission=AdmissionConfig(policy=args.admission,
+                                      ttft_target_s=args.ttft_target),
+            slo=dataclasses.replace(sc.slo, ttft_s=args.ttft_target))
+    elif args.admission == "static":
+        sc = dataclasses.replace(sc, admission=None, kv_slots=args.kv_slots)
+    if args.smoke:
+        horizon = min(sc.horizon_s, 60.0)
+        sc = dataclasses.replace(
+            sc, horizon_s=horizon, tail_s=60.0,
+            failure_at_s=(horizon / 2.0
+                          if sc.failure_at_s is not None else None))
+    ground = build_ground_segment(con, LinkConfig(token_dim=cfg.d_model),
+                                  min_elevation_deg=10.0)
+    sim_kwargs = {"device": device}
+    fused_replan = args.ctrl == "fused" and sc.replan is not None
+    if args.trace:
+        if fused_replan:
+            # The control plane records no probe rings; the exported
+            # trace carries the request spans plus the joint
+            # decision-event channel instead.
+            print("[trace] fused controller: probe rings off, joint "
+                  "decision channel on")
+        else:
+            from ..obs import ProbeConfig
+            sim_kwargs["probes"] = ProbeConfig()
+    if args.batching > 0:
+        from ..traffic import BatchingConfig
+        sim_kwargs["batching"] = BatchingConfig(b_max=args.batching)
+    res = run_scenario(sc, sweep, topo, activ, wl, comp,
+                       np.random.default_rng(4), ground=ground,
+                       constellation=con, rate_scale=args.rate_scale,
+                       ctrl=args.ctrl, **sim_kwargs)
+    rows = res.result.table(sc.slo, scenario=sc.name)
+    if res.post_failure is not None:
+        rows += res.post_failure.table(sc.slo, scenario=f"{sc.name}(post)")
+    print(format_table(rows, prefix="[traffic] "))
+    out["traffic"] = rows
+    for tag, rep in (("replan", res.replan),
+                     ("replan(post)", res.post_replan)):
+        if rep is None:
+            continue
+        print(f"[{tag}] {rep.schedule.name}: {rep.n_switches} switch(es), "
+              f"{rep.total_migration_bytes/1e6:.1f} MB migrated over "
+              f"{len(rep.decisions)} decision(s)")
+        out[tag] = {"switches": rep.n_switches,
+                    "migration_bytes": rep.total_migration_bytes}
+    if args.federation > 0:
+        from ..traffic import FederationConfig, make_federation
+        fed_sc = dataclasses.replace(sc, replan=None)
+        fed = make_federation(
+            fed_sc, args.federation, ccfg, wl, comp,
+            np.random.default_rng(6),
+            fed_cfg=FederationConfig(overflow=fed_sc.admission is not None),
+            rate_scale=args.rate_scale, n_layers=n_layers,
+            n_experts=cfg.n_experts, top_k=cfg.top_k, device=device)
+        fres = fed.run()
+        frow = fres.federated.row(fed_sc.slo)
+        frows = [{"scenario": f"{sc.name}(fed)", **frow}]
+        for k, mem in enumerate(fres.members):
+            mrow = mem.plans[fed.serve_plan].row(fed_sc.slo)
+            mrow["plan"] = f"member{k}/{mrow['plan']}"
+            frows.append({"scenario": f"{sc.name}(fed)", **mrow})
+        print(format_table(frows, prefix="[federation] "))
+        print(f"[federation] K={args.federation} members, "
+              f"{fres.n_rounds} overflow round(s) (one fixed point each), "
+              f"{int((fres.hops > 0).sum())} request(s) re-routed")
+        out["federation"] = {
+            "rows": frows, "n_rounds": fres.n_rounds,
+            "n_rerouted": int((fres.hops > 0).sum()),
+        }
+    if args.trace:
+        from ..obs import build_flight_log, summarize_timeseries, write_trace
+        log = build_flight_log(res.sim, res.result, replan=res.replan,
+                               scenario=sc.name)
+        trace = write_trace(args.trace, log)
+        tw = summarize_timeseries(res.sim.last_probes, plan=log.plan)
+        if tw:
+            print(format_table(tw, prefix="[telemetry] "))
+        print(f"[trace] {len(trace['traceEvents'])} events "
+              f"({len(log.requests)} requests, {len(log.events)} control "
+              f"instants) -> {args.trace}")
+        out["trace"] = {"path": args.trace,
+                        "n_events": len(trace["traceEvents"]),
+                        "n_control_events": len(log.events)}
 
 
 def _synchronize(device: torch.device) -> None:

@@ -42,6 +42,9 @@ reference writes its probe ring from inside its scans, bin by bin; here
 the final iteration's channels are gathered after its scan at the bins
 the ring keeps.
 
+A federation of constellations (:mod:`.federation`) runs its members as
+the lanes of one F-leading fixed point.
+
 The joint re-placement control plane (``run(replan=...)``,
 ``run_many(replan=...)``, :meth:`FleetSim.run_replan_grid`) runs probe ->
 decide -> evaluate as one :func:`_ctrl_core` call on the simulator's
@@ -243,14 +246,25 @@ def _resolve_attempts(q: dict, admit_floor: torch.Tensor,
     probability in effect at its (bin, gateway), the first admitted
     feasible attempt winning (the reference's ``resolve_admission``,
     batched over F).  ``per_entry``: the attempt tables ``att_feasible``
-    and ``att_extra`` are (F, P, A, R), else (P, A, R) shared.  Returns
+    and ``att_extra`` are (F, P, A, R), else (P, A, R) shared.  The
+    attempt bins, gateways and uniforms ``att_bin``, ``att_station`` and
+    ``adm_u`` are (A, R), shared, or (F, A, R): a federation's lanes, each
+    member's retries following its own ground visibility.  Returns
     (shed (F, P, R) bool, retries (F, P, R), ingress_extra (F, P, R)
     float64 of the attempt taken)."""
     F = admit_floor.shape[1]
-    adm = admit_floor.permute(0, 3, 1, 2)[q["att_bin"], q["att_station"]]
-    adm = adm.permute(2, 3, 0, 1)                             # (F, P, A, R)
+    if q["att_bin"].dim() == 3:
+        fi = torch.arange(F, device=admit_floor.device)[:, None, None]
+        adm = admit_floor.permute(0, 1, 3, 2)[q["att_bin"], fi,
+                                              q["att_station"]]
+        adm = adm.permute(0, 3, 1, 2)                         # (F, P, A, R)
+        u = q["adm_u"][:, None]
+    else:
+        adm = admit_floor.permute(0, 3, 1, 2)[q["att_bin"], q["att_station"]]
+        adm = adm.permute(2, 3, 0, 1)                         # (F, P, A, R)
+        u = q["adm_u"][None, None]
     feasible = q["att_feasible"] if per_entry else q["att_feasible"][None]
-    ok = (q["adm_u"][None, None] < adm) & feasible
+    ok = (u < adm) & feasible
     shed = ~ok.any(dim=2)
     retries = torch.where(shed, 0, ok.to(torch.uint8).argmax(dim=2))
     att_x = q["att_extra"] if per_entry else \
@@ -371,13 +385,16 @@ def _fleet_fixed_point(q: dict, chunks: dict, work0: torch.Tensor,
     that iteration's gathered waits (``probe_gw_wait``/``probe_ex_wait``).
 
     The tables arrive plan-leading (``q["eff_layer"]`` (P, M, L), shared
-    by the sweep) on every path but one: the joint control plane's
-    schedule row (:func:`_ctrl_core`), whose tables are gathers by each
-    entry's decided plan, F-leading (``eff_layer`` (F, P, M, L), and so
-    ``tok_base``, ``ingress_extra0``, the gather rows and bins, the
-    admission anchors ``ttft0`` (F, P, G) and ``tpot0`` (F, P), the
-    station maps (NS, F, P, ...) and the attempt tables (F, P, A, R)),
-    with the migration background load as ``mig_dense_f`` (F, rows, T).
+    by the sweep) on every path but two, where they are F-leading
+    (``eff_layer`` (F, P, M, L), and so ``tok_base``, ``ingress_extra0``,
+    the gather rows and bins, the admission anchors ``ttft0`` (F, P, G)
+    and ``tpot0`` (F, P), the station maps (NS, F, P, ...) and the
+    attempt tables (F, P, A, R)), with the migration background load as
+    ``mig_dense_f`` (F, rows, T): the joint control plane's schedule row
+    (:func:`_ctrl_core`), whose tables are gathers by each entry's
+    decided plan, and a federation's lanes (:mod:`.federation`), one
+    member's padded tables a lane, which add per-lane attempt bins,
+    gateways and uniforms (F, A, R).
 
     Args:
         q: Device tables (:meth:`FleetSim._device_tables`).

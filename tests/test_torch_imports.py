@@ -42,11 +42,18 @@ def test_port_files_were_found():
         assert ROOT / "src" / "repro_torch" / "obs" / f"{name}.py" in PORT_FILES
     assert ROOT / "src" / "repro_torch" / "traffic" / "batching.py" in PORT_FILES
     assert ROOT / "src" / "repro_torch" / "traffic" / "replan.py" in PORT_FILES
+    for name in ("scenarios", "federation"):
+        assert ROOT / "src" / "repro_torch" / "traffic" / f"{name}.py" \
+            in PORT_FILES
+    for rel in (("distributed", "__init__.py"), ("distributed", "elastic.py"),
+                ("core", "simulator.py")):
+        assert ROOT.joinpath("src", "repro_torch", *rel) in PORT_FILES
 
 
 def test_serve_import_loads_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.convert, "
-            "repro_torch.traffic, repro_torch.core.engine, repro_torch.obs; "
+            "repro_torch.traffic, repro_torch.core.engine, repro_torch.obs, "
+            "repro_torch.distributed; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -940,3 +940,135 @@ def test_replan_grid_on_the_card_matches_the_cpu(cuda_device):
             np.testing.assert_allclose(pb.ttft_s, pa.ttft_s, rtol=1e-5,
                                        equal_nan=True)
     assert any(o.report.n_switches for o in outs["cuda"])
+
+
+def _federation(device, policy="aimd"):
+    """A small K = 3 federation with padded plans (2, 1, 1) behind the 8
+    default gateways, AIMD or PID admission (the world of
+    ``tests/test_torch_federation.py``), on ``device``."""
+    from repro_torch import core
+    from repro_torch.traffic import (AdmissionConfig, FleetSim, QueueConfig,
+                                     build_federation, build_ground_segment,
+                                     sample_requests)
+    cfg = core.ConstellationConfig.scaled(8, 12, n_slots=10,
+                                          survival_prob=1.0)
+    req = sample_requests(np.random.default_rng(8), rate_rps=4.3,
+                          horizon_s=43.0, n_stations=8, prompt_median=4,
+                          prompt_max=16, decode_mean=4, decode_max=8)
+    qcfg = QueueConfig(dt_s=0.05, tail_s=40.0, admission=AdmissionConfig(
+        policy=policy, ttft_target_s=8.0))
+
+    def factory(seed, n_plans):
+        def build(min_bins=0):
+            con = core.Constellation(cfg)
+            topo = core.sample_topology(con, core.LinkConfig(),
+                                        np.random.default_rng(seed))
+            act = core.ActivationModel.zipf(4, 4, 2, seed=1)
+            plans = [core.spacemoe_plan(con, topo, act)]
+            if n_plans > 1:
+                plans.append(core.rand_intra_cg_plan(
+                    cfg, 4, 4, np.random.default_rng(seed)))
+            return FleetSim(plans, topo, act,
+                            core.MoEWorkload.llama_moe_3p5b(),
+                            core.ComputeConfig(), req,
+                            np.random.default_rng(5), qcfg=qcfg,
+                            ground=build_ground_segment(
+                                con, core.LinkConfig(),
+                                min_elevation_deg=10.0),
+                            min_bins=min_bins, device=device)
+        return build
+    fed = build_federation([factory(s, p) for s, p in
+                            zip((0, 1, 2), (2, 1, 1))])
+    masks = np.stack([np.ones(req.n_requests, dtype=bool),
+                      np.random.default_rng(1).random(req.n_requests) < 0.6])
+    return fed, masks
+
+
+@pytest.mark.parametrize("policy", ["aimd", "pid"])
+def test_fleet_kernels_on_the_federation_lanes(cuda_device, policy,
+                                               monkeypatch):
+    """The four fleet kernels on the lane-stacked, padded tables of a
+    K = 3 federation under a 2-entry sweep (F = 6 lanes, every overflow
+    round), each bitwise its plain version on the inputs the fixed point
+    gave it."""
+    from repro_torch.kernels import admission_ctrl as actl
+    from repro_torch.kernels import admission_window as awin
+    from repro_torch.kernels import backlog_scan as bscan
+    from repro_torch.kernels import deposit as dep
+    from repro_torch.traffic import admission, queueing
+    seen = {k: [] for k in ("deposit", "scan", "window", "ctrl")}
+    real = (queueing.deposit, queueing.backlog_scan,
+            admission.admission_window, admission.admission_ctrl)
+
+    def deposit_rec(rows, cols, vals, n_rows, n_cols, row_ptr):
+        out = real[0](rows, cols, vals, n_rows, n_cols, row_ptr=row_ptr)
+        seen["deposit"].append((out, dep.deposit_plain(rows, cols, vals,
+                                                       n_rows, n_cols)))
+        return out
+
+    def scan_rec(work, cap, dt):
+        out = real[1](work, cap, dt)
+        seen["scan"].append((out, bscan.backlog_scan_plain(
+            work.contiguous(), cap, dt)))
+        return out
+
+    def window_rec(*args):
+        out = real[2](*args)
+        seen["window"].append((out, awin.admission_window_plain(*args)))
+        return out
+
+    def ctrl_rec(win, *args, **kw):
+        out = real[3](win, *args, **kw)
+        seen["ctrl"].append((out, actl.admission_ctrl_plain(win, *args,
+                                                            **kw)))
+        return out
+    monkeypatch.setattr(queueing, "deposit", deposit_rec)
+    monkeypatch.setattr(queueing, "backlog_scan", scan_rec)
+    monkeypatch.setattr(admission, "admission_window", window_rec)
+    monkeypatch.setattr(admission, "admission_ctrl", ctrl_rec)
+    fed, masks = _federation("cuda", policy)
+    res = fed.run_many(masks)
+    torch.cuda.synchronize()
+    rounds, n_it = res[0].n_rounds, fed.sims[0].qcfg.iterations
+    assert rounds > 1                        # overflow rounds exercised
+    assert [len(v) for v in seen.values()] == \
+        [rounds * (n_it - 1), rounds * n_it, rounds * n_it, rounds * n_it]
+    for name, pairs in seen.items():
+        for got, want in pairs:
+            if name == "ctrl":
+                assert torch.equal(torch.isnan(got), torch.isnan(want))
+                ok = ~torch.isnan(got)
+                assert torch.equal(got[ok].view(torch.int32),
+                                   want[ok].view(torch.int32)), name
+            else:
+                assert torch.equal(got, want), name
+
+
+def test_federation_on_the_card_matches_the_cpu(cuda_device):
+    """The federation's overflow run on the card against the CPU: the same
+    rounds, hops and assignments, identical served, shed and retry sets,
+    latencies within the fused-vs-legacy rtol; one fixed point a round,
+    each launching the kernels the configuration implies."""
+    from repro_torch.kernels import ops
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        fed, masks = _federation(dev)
+        ops.reset_launch_counts()
+        outs[dev] = fed.run_many(masks)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            n, rounds = fed.sims[0].qcfg.iterations, outs[dev][0].n_rounds
+            want = dict(deposit=rounds * (n - 1), backlog_scan=rounds * n,
+                        admission_window=rounds * n,
+                        admission_ctrl=rounds * n)
+            assert {k: counts[k] for k in want} == want
+    for a, b in zip(outs["cpu"], outs["cuda"], strict=True):
+        assert a.n_rounds == b.n_rounds
+        for name in ("hops", "assigned", "offered"):
+            np.testing.assert_array_equal(getattr(b, name), getattr(a, name))
+        for name in ("served", "shed", "retries"):
+            np.testing.assert_array_equal(getattr(b.federated, name),
+                                          getattr(a.federated, name))
+        np.testing.assert_allclose(b.federated.ttft_s, a.federated.ttft_s,
+                                   rtol=1e-5, equal_nan=True)

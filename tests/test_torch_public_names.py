@@ -270,8 +270,23 @@ def test_init_cache_matches_reference(dtype):
 
 
 # --------------------------------------------------------------------- #
-# batching and obs: the names the port exports
+# batching, replan, scenarios, federation and obs: the names the port
+# exports
 # --------------------------------------------------------------------- #
+
+
+def test_traffic_and_core_name_lists_match_reference(ref):
+    """``repro_torch.traffic.__all__`` is the reference's list, in order;
+    ``repro_torch.core`` exports the token-generation simulator."""
+    traffic, _ = ref
+    assert pt.__all__ == traffic.__all__
+    for n in pt.__all__:
+        assert hasattr(pt, n)
+    import repro_torch.core as pcore
+    for n in ("simulate_token_generation",
+              "simulate_token_generation_legacy"):
+        assert n in pcore.__all__
+        assert getattr(pcore, n).__module__ == "repro_torch.core.simulator"
 
 #: The names of ``repro.traffic`` that each module of it exports.
 TRAFFIC_NAMES = {
@@ -281,14 +296,21 @@ TRAFFIC_NAMES = {
                "ReplanReport", "backlog_penalty_s", "build_replan_schedule",
                "replan_base_scores", "replan_traffic",
                "replan_traffic_fused"},
+    "scenarios": {"TrafficScenario", "ScenarioOutcome", "StormReport",
+                  "apply_failure_storm", "get_scenario", "make_federation",
+                  "make_sim", "run_scenario"},
+    "federation": {"FederationConfig", "FederationResult", "FederationSim",
+                   "build_federation"},
 }
 
 
 @pytest.mark.parametrize("module", ["obs", "traffic.batching",
-                                    "traffic.replan"])
+                                    "traffic.replan", "traffic.scenarios",
+                                    "traffic.federation"])
 def test_batching_and_obs_names_match_reference(ref, module):
-    """Every public name of ``repro.obs``, and every batching and replan
-    name of ``repro.traffic``, is exported by the port."""
+    """Every public name of ``repro.obs``, and every batching, replan,
+    scenario and federation name of ``repro.traffic``, is exported by the
+    port (``SCENARIOS`` is a dict: ``test_torch_scenarios.py``)."""
     import repro.obs as robs
     import repro_torch.obs as pobs
     traffic, _ = ref

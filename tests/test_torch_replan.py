@@ -365,6 +365,75 @@ def test_controller_grid_matches_reference_and_per_cell_runs(ref):
         assert ks[0] == 0 and all(k % cad == 0 for k in ks[1:])
 
 
+@pytest.mark.parametrize("case", ["batching", "batching_aimd",
+                                  "probes_aimd", "periodic"])
+def test_replan_host_loop_options_match_reference(ref, case):
+    """The host loop under the options the joint control plane refuses
+    (continuous batching at ``b_max=4``, with and without AIMD; probe
+    rings under AIMD) on the quiet world, and periodic mode on the
+    switching world (host loop and joint control plane): decisions and
+    results bitwise the reference's."""
+    from repro.obs import ProbeConfig
+
+    from repro_torch.obs import ProbeConfig as PProbeConfig
+    traffic, _ = ref
+    adm = None if case in ("batching", "periodic") else \
+        dict(policy="aimd", ttft_target_s=60.0)
+    w = _both(ref, "switch" if case == "periodic" else "quiet", adm)
+    kw = {"ref": {}, "port": {}}
+    if case.startswith("batching"):
+        kw = {"ref": dict(batching=traffic.BatchingConfig(b_max=4)),
+              "port": dict(batching=pt.BatchingConfig(b_max=4))}
+    elif case == "probes_aimd":
+        kw = {"ref": dict(probes=ProbeConfig()),
+              "port": dict(probes=PProbeConfig())}
+    gates = dict(SWITCH_GATES, mode="periodic") if case == "periodic" \
+        else dict(SWITCH_GATES)
+    outs = {}
+    for name in ("ref", "port"):
+        topo, act, plans, req, qcfg, c, t = w[name]
+        extra = dict(kw[name], device="cpu") if t is pt else kw[name]
+        outs[name] = t.replan_traffic(
+            plans, topo, act, c.MoEWorkload.llama_moe_3p5b(),
+            c.ComputeConfig(), req, np.random.default_rng(4),
+            t.ReplanConfig(**gates), qcfg, **extra)
+    _assert_same_outcome(outs["ref"], outs["port"])
+    if case == "periodic":
+        _, p_fused = _loops(w["port"], gates)
+        _assert_same_report(outs["port"].report, p_fused.report)
+        _assert_same_result(outs["port"].result, p_fused.result)
+        assert len(outs["port"].report.decisions) > 1
+    if case == "probes_aimd":
+        assert outs["port"].sim.last_probes is not None
+    if adm is not None:
+        assert all(p.shed is not None for p in outs["port"].result.plans)
+
+
+@pytest.mark.parametrize("case", ["pid_2x3", "zipped_inf"])
+def test_controller_grid_axes_match_reference(ref, case):
+    """``run_many(replan=)`` grids against the reference's: under PID over
+    2 cadences x 3 TTFT targets, and under AIMD with zipped TTFT/TPOT
+    target axes, one of them infinite in each cell."""
+    if case == "pid_2x3":
+        adm = dict(policy="pid", ttft_target_s=60.0)
+        grid = dict(cadences=[1, 2], ttft_targets=[30.0, 60.0, 90.0])
+    else:
+        adm = dict(policy="aimd", ttft_target_s=60.0)
+        grid = dict(cadences=[1], ttft_targets=[30.0, np.inf],
+                    tpot_targets=[np.inf, 5.0])
+    w = _both(ref, "quiet", adm)
+    outs = {}
+    for name in ("ref", "port"):
+        t = w[name][-1]
+        outs[name] = _sim(w[name]).run_many(
+            replan=t.ReplanConfig(**SWITCH_GATES),
+            replan_rng=np.random.default_rng(5), **grid)
+    n_cells = len(grid["cadences"]) * len(grid["ttft_targets"])
+    assert len(outs["port"]) == n_cells
+    for a, b in zip(outs["ref"], outs["port"], strict=True):
+        _assert_same_outcome(a, b)
+
+
 def test_run_replan_matches_reference_and_leaves_run_unchanged(ref):
     """``run(replan=)`` bitwise the reference's; a plain ``run()`` after
     it is bitwise the one before it."""

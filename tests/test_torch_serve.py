@@ -1,4 +1,8 @@
-"""The port's serve driver (steps 1-3) vs the reference's, on the CPU."""
+"""The port's serve entry point vs the reference's, on the CPU.
+
+Step 4's ``--traffic`` needs the reference's ``repro.traffic``, imported
+through the ``ref`` fixture of ``tests/test_torch_fleet.py`` (the
+``enable_x64`` shim)."""
 import dataclasses
 
 import jax
@@ -17,6 +21,7 @@ from repro.launch.steps import make_serve_step as jmake_serve_step
 from repro.models import Parallel
 from repro_torch.convert import params_from_jax
 from repro_torch.launch.steps import make_serve_step as tmake_serve_step
+from test_torch_fleet import ref  # noqa: F401
 
 ARCH = "llama-moe-3.5b"
 ARGV = ["--smoke", "--batch", "2", "--prompt-len", "8", "--decode-tokens", "3"]
@@ -78,13 +83,56 @@ def test_serve_steps_match_reference():
     np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
 
 
-@pytest.mark.parametrize("flag", [["--space-sim"], ["--traffic", "smoke"],
-                                  ["--fail-device", "0"]])
-def test_unported_flags_exit_with_an_error(flag, capsys):
-    with pytest.raises(SystemExit) as exc:
-        tserve.main(ARGV + ["--device", "cpu"] + flag)
-    assert exc.value.code != 0
-    assert "not yet ported" in capsys.readouterr().err
+def _same_rows(got, want):
+    """Table rows (the metrics' ``row()``, rounded to 3 decimals): the
+    same keys, strings and flags, numbers to rtol 1e-5 or one unit of the
+    last rounded digit."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for k, v in w.items():
+            if isinstance(v, float) and not isinstance(v, bool):
+                assert np.isclose(g[k], v, rtol=1e-5, atol=1.0001e-3,
+                                  equal_nan=True), (k, g[k], v)
+            else:
+                assert g[k] == v, (k, g[k], v)
+
+
+@pytest.mark.parametrize("flag", [
+    ["--space-sim"], ["--traffic", "smoke"], ["--fail-device", "0"],
+    ["--traffic", "smoke", "--admission", "aimd", "--federation", "2"]])
+def test_step4_flags_match_reference(ref, flag, monkeypatch, capsys):
+    """Steps 4 and 5 (space-network accounting, the traffic scenario, the
+    federation, the elastic demo) of the port's serve on the CPU against
+    the reference's, both at smoke size.  The port serves the reference's
+    weights (converted), so the router counts that every later number
+    rests on are the reference's."""
+    jc, tc = jcfgs.smoke_config(ARCH), tcfgs.smoke_config(ARCH)
+    jparams = jax.tree.map(np.asarray, jmodels.init_params(
+        jc, jax.random.PRNGKey(0)))
+    monkeypatch.setattr(tserve, "init_params",
+                        lambda cfg, gen, device: params_from_jax(
+                            tc, jparams, device))
+    got = tserve.main(ARGV + ["--device", "cpu"] + flag)
+    lines = capsys.readouterr().out
+    want = jserve.main(ARGV + flag)
+    assert set(got) == set(want)
+    assert got["dispatch_cost"] == want["dispatch_cost"]
+    if "--fail-device" in flag:
+        assert got["migration_bytes"] == want["migration_bytes"]
+        assert "[elastic] device 0 failed: " in lines
+    if "space_latency_s" in want:
+        for k, v in want["space_latency_s"].items():
+            assert np.isclose(got["space_latency_s"][k], v, rtol=1e-6)
+        assert "[space-sim] s/token: SpaceMoE=" in lines
+    if "traffic" in want:
+        _same_rows(got["traffic"], want["traffic"])
+        assert "[traffic] " in lines
+    if "federation" in want:
+        for k in ("n_rounds", "n_rerouted"):
+            assert got["federation"][k] == want["federation"][k]
+        _same_rows(got["federation"]["rows"], want["federation"]["rows"])
+        assert "[federation] K=2 members, " in lines
 
 
 def test_cuda_without_a_card_raises():

@@ -28,6 +28,26 @@ Phases (any failure exits non-zero and prints no success line):
      gmm launch on the tensor-core (wgmma) path;
   6. profile: where a full-width decode step's time goes (torch.profiler:
      device busy share, kernel time by name, ``decode_attention``'s);
+  6b. deepseek-moe-16b kernels: gmm and decode_attention against their
+     plain versions at its serve shapes (bf16: decode C = 6, prefill
+     C = 15, 64 experts of 2048 x 1408; attention q(4, 16, 1, 128)) and at
+     calibration's f32 shapes for both committed tables (gmm over 32
+     rows an expert, decode_attention at the table's ctx_len and
+     batches), each timed beside ``torch.bmm`` / SDPA and its bound;
+  6c. deepseek-moe-16b's smoke model (shared experts, dense first layer)
+     on the card against the CPU, as phase 4;
+  6d. ``repro_torch.launch.serve --arch deepseek-moe-16b --space-sim`` at
+     full width and depth (28 layers, 64 experts top-6, 2 shared, dense
+     first layer; batch 4, prompt 32, 16 decode tokens; weights drawn
+     cast block by block): tok/s against the 32.3 GB weights bound,
+     peak memory, gmm 1,458 launches all on wgmma, decode_attention 448,
+     finite logits, tokens in range, the placement cost line;
+  6e. the profile of phase 6 for deepseek-moe-16b;
+  6f. calibration: ``core.calibrate(impl="cuda")`` for deepseek-moe-16b and
+     llama-moe-3.5b at the committed tables' ctx_len and batches (gmm
+     and decode_attention launched, ``verify_table`` True), the measured
+     seconds beside the committed CPU table's, the unclipped
+     efficiencies, each table as one JSON line;
   7. fleet: the request-level fleet simulator (``repro_torch.traffic
      .FleetSim``) on the paper's world (33 x 32 satellites, 200 slots,
      llama-moe-3.5b's 32 MoE layers, 8 experts top-2, 3 plans, ~132
@@ -129,7 +149,9 @@ Phases (any failure exits non-zero and prints no success line):
      --federation 2 --fail-device 3 --trace``: its lines, its trace
      through ``validate_trace``, gmm and decode_attention launch counts
      as phase 5;
- 13. the ``kernels`` JSON line (all six kernels; launches counted over
+ 13. the ``kernels`` JSON line (all six kernels, and gmm and
+     decode_attention again at deepseek-moe-16b's decode shape with
+     phase 6d's launches; launches counted over
      the serve run for gmm/decode_attention, over the fleet ``run()``
      for deposit/backlog_scan and over the AIMD ``run()`` for
      admission_window/admission_ctrl), the card line, then the result
@@ -149,7 +171,12 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 ARCH = "llama-moe-3.5b"
+DEEPSEEK = "deepseek-moe-16b"
 BATCH, PROMPT, DECODE = 4, 32, 16
+# The models whose service tables are committed, and calibration's rows
+# per expert (measure_components' rows_per_expert).
+CALIBRATED = ("deepseek-moe-16b", "llama-moe-3.5b")
+CAL_ROWS = 32
 # H100 SXM data sheet: HBM rate and dense peak rates by type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float64": 34e12}
@@ -442,11 +469,11 @@ def phase_kernels(torch) -> dict[str, dict]:
 # --------------------------------------------------------------------- #
 
 
-def phase_small(torch) -> None:
+def phase_small(torch, arch: str = ARCH) -> None:
     from repro_torch.configs import smoke_config
     from repro_torch.models import (decode_step, forward, init_params,
                                     prefill, random_batch)
-    cfg = smoke_config(ARCH)                       # f32 compute
+    cfg = smoke_config(arch)                       # f32 compute
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 
     def to_cuda(node):
@@ -487,13 +514,42 @@ def phase_small(torch) -> None:
 # --------------------------------------------------------------------- #
 
 
-def phase_serve(torch, card: str) -> dict[str, int]:
+def serve_weight_bytes(cfg) -> dict[str, float]:
+    """Bytes of bf16 weights a decode step reads once: every routed expert
+    (the buckets cover every expert), the shared experts, the dense first
+    block, the attention projections and the LM head."""
+    from repro_torch.models import n_scan_units
+    n_moe = n_scan_units(cfg) * len(cfg.pattern)
+    n_blocks = n_moe + (1 if cfg.first_layer_dense else 0)
+    d, f = cfg.d_model, cfg.d_ff_expert
+    return {
+        "experts": n_moe * cfg.n_experts * 3 * d * f * 2,
+        "shared": n_moe * 3 * d * f * cfg.n_shared_experts * 2,
+        "first": (3 * d * (cfg.first_dense_d_ff or cfg.d_ff) * 2
+                  if cfg.first_layer_dense else 0),
+        "attention": n_blocks * (2 * d * cfg.q_dim + 2 * d * cfg.kv_dim) * 2,
+        "head": d * cfg.padded_vocab * 2,
+    }
+
+
+def serve_launches(cfg) -> dict[str, int]:
+    """gmm: 3 per MoE layer per pass (calibrate, prefill, each decode
+    step); decode_attention: one per attention block per decode step."""
+    from repro_torch.models import n_scan_units
+    n_moe = n_scan_units(cfg) * len(cfg.pattern)
+    n_blocks = n_moe + (1 if cfg.first_layer_dense else 0)
+    return {"gmm": 3 * n_moe * (2 + DECODE),
+            "decode_attention": n_blocks * DECODE}
+
+
+def phase_serve(torch, card: str, arch: str = ARCH,
+                extra: tuple = ()) -> dict[str, int]:
     from repro_torch.configs import get_config
     from repro_torch.kernels import moe_gmm, ops
     from repro_torch.launch import serve
-    cfg = get_config(ARCH)
-    argv = ["--arch", ARCH, "--batch", str(BATCH), "--prompt-len",
-            str(PROMPT), "--decode-tokens", str(DECODE)]
+    cfg = get_config(arch)
+    argv = ["--arch", arch, "--batch", str(BATCH), "--prompt-len",
+            str(PROMPT), "--decode-tokens", str(DECODE), *extra]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     out, state = serve.run(argv)
@@ -501,20 +557,20 @@ def phase_serve(torch, card: str) -> dict[str, int]:
     counts = ops.launch_counts()
     log(f"serve {cfg.name} (d_model {cfg.d_model}, {cfg.n_layers} layers, "
         f"{cfg.n_experts} experts top-{cfg.top_k}, d_ff_expert "
-        f"{cfg.d_ff_expert}): {out['tokens_per_s']:.2f} tok/s on {card}")
+        f"{cfg.d_ff_expert}, {cfg.n_shared_experts} shared, first dense "
+        f"{cfg.first_layer_dense}): {out['tokens_per_s']:.2f} tok/s on {card}")
     log(f"placement cost: {json.dumps(out.get('dispatch_cost'))}")
-    # A decode step reads every bf16 weight once: all experts (the buckets
-    # cover every expert), the attention projections and the LM head.
-    experts = cfg.n_layers * cfg.n_experts * 3 * cfg.d_model * cfg.d_ff_expert * 2
-    attn = cfg.n_layers * (2 * cfg.d_model * cfg.q_dim
-                           + 2 * cfg.d_model * cfg.kv_dim) * 2
-    head = cfg.d_model * cfg.padded_vocab * 2
-    step_ms = (experts + attn + head) / HBM_BYTES_PER_S * 1e3
-    log(f"decode-step bound: {(experts + attn + head) / 1e9:.3f} GB of weights "
-        f"(experts {experts / 1e9:.3f}, attention {attn / 1e9:.3f}, head "
-        f"{head / 1e9:.3f}) -> {step_ms:.3f} ms at 3.35 TB/s -> "
+    if "space_latency_s" in out:
+        log(f"space-sim s/token: {json.dumps(out['space_latency_s'])}")
+    parts = serve_weight_bytes(cfg)
+    total = sum(parts.values())
+    step_ms = total / HBM_BYTES_PER_S * 1e3
+    log(f"decode-step bound: {total / 1e9:.3f} GB of weights ("
+        + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in parts.items())
+        + f") -> {step_ms:.3f} ms at 3.35 TB/s -> "
         f"{BATCH / step_ms * 1e3:.0f} tok/s at batch {BATCH}; measured "
-        f"{BATCH * 1e3 / out['tokens_per_s']:.3f} ms/step")
+        f"{BATCH * 1e3 / out['tokens_per_s']:.3f} ms/step, "
+        f"{out['tokens_per_s']:.2f} tok/s")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     logits, tokens = state["logits"], state["tokens"]
     finite = bool(torch.isfinite(logits).all())
@@ -524,10 +580,7 @@ def phase_serve(torch, card: str) -> dict[str, int]:
             or tokens.shape != (BATCH, DECODE + 1) \
             or int(tokens.min()) < 0 or int(tokens.max()) >= cfg.padded_vocab:
         raise SmokeFailure("serve output has the wrong shape or values")
-    # gmm: 3 per MoE layer per pass (calibrate, prefill, each decode step);
-    # decode_attention: one per layer per decode step.
-    want = {"gmm": 3 * cfg.n_layers * (2 + DECODE),
-            "decode_attention": cfg.n_layers * DECODE}
+    want = serve_launches(cfg)
     log(f"launch counts {json.dumps(counts)} (expected {json.dumps(want)})")
     if {k: counts[k] for k in want} != want:
         raise SmokeFailure(f"launch counts {counts} != expected {want}")
@@ -545,16 +598,15 @@ def phase_serve(torch, card: str) -> dict[str, int]:
 # --------------------------------------------------------------------- #
 
 
-def phase_profile(torch, n_steps: int = 4) -> None:
+def phase_profile(torch, n_steps: int = 4, arch: str = ARCH) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_serve_step
-    from repro_torch.models import (cast_for_compute, init_params, prefill,
-                                    random_batch)
-    cfg = get_config(ARCH)
+    from repro_torch.models import init_params, prefill, random_batch
+    cfg = get_config(arch)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = cast_for_compute(cfg, init_params(cfg, gen, "cuda"))
+    params = init_params(cfg, gen, "cuda")
     batch = random_batch(cfg, BATCH, PROMPT, seed=0, device="cuda")
     logits, cache = prefill(cfg, params, {"tokens": batch["tokens"]},
                             max_len=PROMPT + DECODE + 1)
@@ -574,7 +626,8 @@ def phase_profile(torch, n_steps: int = 4) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     kernels = device_times(prof, n_steps)
     busy_ms = sum(k[0] for k in kernels)
-    log(f"profile: decode step {wall_ms:.3f} ms wall under the profiler, "
+    log(f"profile {cfg.name}: decode step {wall_ms:.3f} ms wall under the "
+        f"profiler, "
         f"device kernels {busy_ms:.3f} ms -> device busy "
         f"{busy_ms / wall_ms:.1%}, idle {1 - busy_ms / wall_ms:.1%} "
         f"({sum(k[1] for k in kernels):.0f} kernel launches per step)")
@@ -584,6 +637,120 @@ def phase_profile(torch, n_steps: int = 4) -> None:
             if "decode_attn_kernel" in name]
     log(f"profile: decode_attention {sum(a[0] for a in attn):.4f} ms/step in "
         f"{sum(a[1] for a in attn):.0f} calls/step")
+
+
+# --------------------------------------------------------------------- #
+# Phase 6b-f: deepseek-moe-16b (shared experts, a dense first layer) and
+# calibration on the kernels
+# --------------------------------------------------------------------- #
+
+
+def phase_kernels_deepseek(torch) -> dict[str, dict]:
+    """(b) gmm and decode_attention against their plain versions at
+    deepseek-moe-16b's serve shapes (decode: C floors at top_k; prefill at
+    T = BATCH x PROMPT) and at calibration's f32 shapes for both committed
+    tables (gmm over 32 rows an expert, decode_attention at the table's
+    ctx_len and batches).  Returns the decode cases."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import calibration as cal
+    from repro_torch.models.moe import capacity
+    cfg = get_config(DEEPSEEK)
+    d, f, e = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    cap_decode = capacity(cfg, BATCH, e)
+    cap_prefill = capacity(cfg, BATCH * PROMPT, e)
+    gmm_cases = [(e, c, kk, nn, "bfloat16")
+                 for c in (cap_decode, cap_prefill)
+                 for kk, nn in ((d, f), (f, d))]
+    last_pos = PROMPT + DECODE - 1
+    attn_cases = [(BATCH, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                   cfg.head_dim, PROMPT + DECODE + 1, "bfloat16",
+                   [last_pos] * BATCH)]
+    for name in CALIBRATED:
+        table = cal.load_table(name)
+        wl = table.workload_obj()
+        gmm_cases += [(wl.n_experts, CAL_ROWS, kk, nn, "float32")
+                      for kk, nn in ((wl.d_model, wl.d_ff_expert),
+                                     (wl.d_ff_expert, wl.d_model))]
+        attn_cases += [(b, wl.n_kv_heads, wl.n_heads // wl.n_kv_heads,
+                        wl.head_dim, table.ctx_len, "float32",
+                        [table.ctx_len - 1] * b) for b in table.batches]
+    main, failed = {}, []
+    for case in gmm_cases:
+        rec = check_gmm(torch, *case, iters=20)
+        log("kernel " + json.dumps(rec))
+        failed += [] if rec["ok"] else [rec["shape"]]
+        if case == (e, cap_decode, d, f, "bfloat16"):
+            main["gmm"] = rec
+    for b, hkv, g, hd, s, dt, pos in attn_cases:
+        rec = check_decode(torch, b, hkv, g, s, hd, dt, pos, iters=50)
+        log("kernel " + json.dumps(rec))
+        failed += [] if rec["ok"] else [rec["shape"]]
+        if dt == "bfloat16":
+            main["decode_attention"] = rec
+    if failed:
+        raise SmokeFailure(f"kernel disagrees with its plain version at "
+                           f"deepseek's or calibration's shapes: {failed}")
+    return main
+
+
+def unclipped_efficiencies(table) -> dict:
+    """ideal / measured of each component before derive_table clips it to
+    [MIN_EFFICIENCY, 1]: how far the clip hides the probe's rates."""
+    from repro_torch.core.calibration import _ideal_host
+    host = (table.host["flops_per_s"], table.host["bw_bytes_per_s"])
+    ms, ke = table.measured_s, table.meta["kernel_energy"]
+
+    def ratio(energy, t):
+        return _ideal_host(energy["flops"], energy["bytes"], host) / t
+    return {"expert": ratio(ke["expert_visit"], ms["expert_visit"]),
+            "gateway_by_batch": {b: ratio(ke["gateway_by_batch"][b], t)
+                                 for b, t in ms["gateway_by_batch"].items()},
+            "head": ratio(ke["head_token"], ms["head_token"])}
+
+
+def phase_calibration(torch) -> None:
+    """(d) ``calibrate(impl="cuda")`` for both committed tables at their
+    ctx_len and batches: the kernels launched, ``verify_table`` True, the
+    measured seconds beside the committed (CPU) ones, the unclipped
+    efficiencies, and each table as one JSON line."""
+    from repro_torch.core import calibration as cal
+    from repro_torch.kernels import ops
+    for name in CALIBRATED:
+        committed = cal.load_table(name)
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        table = cal.calibrate(name, committed.workload_obj(),
+                              committed.ctx_len, committed.batches,
+                              impl="cuda", device="cuda")
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        verified = cal.verify_table(table)
+        log(f"calibration {name}: {wall:.2f}s wall, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+            f"gmm {counts['gmm']} decode_attention "
+            f"{counts['decode_attention']}, impl {table.impl}, backend "
+            f"{table.backend}, torch {table.jax_version}, verify_table "
+            f"{verified}, hash {table.table_hash}")
+        log(f"calibration {name}: host probe flops/s "
+            f"{table.host['flops_per_s']:.6g}, bytes/s "
+            f"{table.host['bw_bytes_per_s']:.6g}")
+        for key in ("expert_visit", "head_token"):
+            log(f"calibration {name}: measured_s {key} "
+                f"{table.measured_s[key]:.6g} (committed CPU table "
+                f"{committed.measured_s[key]:.6g})")
+        for b, t in table.measured_s["gateway_by_batch"].items():
+            log(f"calibration {name}: measured_s gateway B={b} {t:.6g} "
+                f"(committed CPU table "
+                f"{committed.measured_s['gateway_by_batch'][b]:.6g})")
+        log(f"calibration {name}: efficiency {json.dumps(table.efficiency)}")
+        log(f"calibration {name}: unclipped "
+            f"{json.dumps(unclipped_efficiencies(table))}")
+        log(f"calibration table {json.dumps(table.to_dict(), sort_keys=True)}")
+        if not verified or counts["gmm"] == 0 \
+                or counts["decode_attention"] == 0:
+            raise SmokeFailure(f"calibration {name}: verify_table "
+                               f"{verified}, launches {counts}")
 
 
 # --------------------------------------------------------------------- #
@@ -3047,9 +3214,16 @@ def main() -> int:
         return out
 
     main_cases = timed("kernels", phase_kernels, torch)
+    deep_cases = timed("kernels_deepseek", phase_kernels_deepseek, torch)
     timed("small", phase_small, torch)
+    timed("small_deepseek", phase_small, torch, DEEPSEEK)
     counts = timed("serve", phase_serve, torch, card)
     timed("profile", phase_profile, torch)
+    deep_counts = timed("serve_deepseek", phase_serve, torch, card, DEEPSEEK,
+                        ("--space-sim",))
+    timed("profile_deepseek", phase_profile, torch, 4, DEEPSEEK)
+    torch.cuda.empty_cache()           # the 16B model's blocks go back
+    timed("calibration", phase_calibration, torch)
     fleet_counts, captured, in_run, world = timed("fleet", phase_fleet, torch)
     main_cases.update(timed("fleet_kernels", phase_fleet_kernels, torch,
                             captured, in_run))
@@ -3063,7 +3237,8 @@ def main() -> int:
     timed("scenarios", phase_scenarios, torch)
     main_cases["admission_window"] = win_rec
     main_cases["admission_ctrl"] = ctrl_rec
-    mixed = [name for name, rec in main_cases.items() if not rec["hidden"]]
+    mixed = [name for name, rec in (*main_cases.items(), *deep_cases.items())
+             if not rec["hidden"]]
     if mixed:
         raise SmokeFailure(f"kernel device time not separable from the "
                            f"host's: {mixed}")
@@ -3090,11 +3265,15 @@ def main() -> int:
         "admission_ctrl": ("src/repro_torch/kernels/csrc/admission_ctrl.cu",
                            "src/repro/traffic/queueing.py:589"),
     }
+    # Each kernel at its main path's shape; gmm and decode_attention also
+    # at deepseek-moe-16b's decode shape, with that serve run's launches.
+    runs = [(main_cases, counts), (deep_cases, deep_counts)]
     kernels = []
-    for name, rec in main_cases.items():
-        rec = dict(rec, route="cuda", source=sources[name][0],
-                   replaces=sources[name][1], launches=counts[name])
-        kernels.append({k: rec[k] for k in keys})
+    for cases, launches in runs:
+        for name, rec in cases.items():
+            rec = dict(rec, route="cuda", source=sources[name][0],
+                       replaces=sources[name][1], launches=launches[name])
+            kernels.append({k: rec[k] for k in keys})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 ``get_config(arch_id)`` returns the full published config;
 ``smoke_config(arch_id)`` returns the same reduced config as
 ``repro.configs.smoke_config`` (same pattern/MoE/GQA structure, tiny dims).
-Only the paper's model is registered so far; the other architectures of
-the reference join with the model families that run them.
+Registered so far: the paper's model and deepseek-moe-16b; the other
+architectures of the reference join with the model families that run
+them.
 """
 from __future__ import annotations
 
@@ -12,9 +13,9 @@ import dataclasses
 
 from repro_torch.models.config import ModelConfig
 
-from . import llama_moe_3p5b
+from . import deepseek_moe_16b, llama_moe_3p5b
 
-_MODULES = [llama_moe_3p5b]
+_MODULES = [deepseek_moe_16b, llama_moe_3p5b]
 
 REGISTRY: dict[str, ModelConfig] = {m.ARCH_ID: m.CONFIG for m in _MODULES}
 

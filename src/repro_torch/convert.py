@@ -4,7 +4,9 @@
 as nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)`` on
 the caller's side; this module imports no JAX) and returns the port's
 parameters: the same arrays in the same layout, with the reference's
-leading ``units`` axis unstacked into the per-layer list.
+leading ``units`` axis unstacked into the per-layer list (shared experts
+inside each unit's ``ffn["shared"]``), and the dense first block
+(``params["first"]``) as it is.
 
 The fleet simulator's state crosses the same way: ``plan_from_arrays``,
 ``schedule_from_arrays``, ``requests_from_arrays`` and
@@ -23,7 +25,7 @@ from .core.latency import TopologySample
 from .core.placement import MultiExpertPlan, PlacementPlan
 from .core.schedule import PlanSchedule
 from .models.config import ModelConfig
-from .models.model import check_supported
+from .models.model import check_supported, n_scan_units
 from .traffic.requests import RequestBatch
 
 
@@ -38,11 +40,11 @@ def params_from_jax(cfg: ModelConfig, params: dict, device="cuda") -> dict:
     """The reference's parameters (numpy leaves) as the port's parameters."""
     check_supported(cfg)
     dev = resolve_device(device)
-    out = {k: _tree(params[k], dev) for k in ("embed", "final_norm", "head")
-           if k in params}
+    out = {k: _tree(params[k], dev)
+           for k in ("embed", "final_norm", "head", "first") if k in params}
     units = params["units"]
     out["layers"] = [_tree(units[f"b{i}"], dev, pick=u)
-                     for u in range(cfg.n_units)
+                     for u in range(n_scan_units(cfg))
                      for i in range(len(cfg.pattern))]
     return out
 

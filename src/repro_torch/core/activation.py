@@ -10,16 +10,30 @@ activation probability
 
     P_i = 1 - e_K(w \\ i) / e_K(w)                            (Eq. 14).
 
-Counterpart of ``repro.core.activation``'s numpy half (the serve path's
-placement, the planners and the fleet simulator's expert draws): the same
-float64 dynamic programs and the same random stream, held bitwise to the
-reference.
+Counterpart of ``repro.core.activation``.  The numpy half (the serve
+path's placement, the planners and the fleet simulator's expert draws)
+keeps the same float64 dynamic programs and the same random stream, held
+bitwise to the reference.  The reference's device forms are PyTorch
+here, on the device of the tensor they are given:
+
+    esp_jax               -> esp_torch
+    activation_probs_jax  -> activation_probs_torch
+    esp_prefix_table_jax  -> esp_prefix_table_torch
+    sample_topk_jax       -> sample_topk_torch
+
+They run in the dtype of their weights (float32 where the reference's
+run without x64), take the reference's steps in its order, and accept
+leading batch dimensions (weights ``(..., I)``), which the engine's
+sampler uses for its layers.  ``sample_topk_torch`` draws its uniforms
+from a ``torch.Generator`` (other bits than ``jax.random``) or takes
+them explicitly, so that the same uniforms give the same draws.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 
 def esp(weights: np.ndarray, k_max: int) -> np.ndarray:
@@ -117,6 +131,105 @@ def subset_pmf(weights: np.ndarray, k: int) -> dict[tuple[int, ...], float]:
         u: float(np.prod(w[list(u)]) / denom)
         for u in itertools.combinations(range(len(w)), k)
     }
+
+
+# --------------------------------------------------------------------- #
+# Device forms (torch), composable on the card
+# --------------------------------------------------------------------- #
+
+
+def _mean_scaled(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    scale = w.mean(dim=-1, keepdim=True)
+    return w / scale, scale
+
+
+
+
+def activation_probs_torch(weights: torch.Tensor, k: int) -> torch.Tensor:
+    """Eq. 14 on the device, the reference's ``activation_probs_jax``: the
+    leave-one-out ESPs by the subtractive recurrence
+    e_j(w \\ i) = e_j(w) - w_i e_{j-1}(w \\ i)."""
+    w = torch.as_tensor(weights)
+    ws, _ = _mean_scaled(w)
+    e_full = esp_torch(ws, k)
+    loo = torch.ones_like(ws)
+    for j in range(1, k + 1):
+        loo = e_full[..., j:j + 1] - ws * loo
+    return 1.0 - loo / e_full[..., k:k + 1]
+
+
+def esp_prefix_table_torch(weights: torch.Tensor, k_max: int) -> torch.Tensor:
+    """E[..., i, k] = e_k(w_1..w_i) of mean-scaled weights, shape
+    (..., I+1, K+1).  As in the reference's device form, the scale is not
+    undone: it cancels in the sampling ratios."""
+    w = torch.as_tensor(weights)
+    ws, _ = _mean_scaled(w)
+    row = torch.zeros(w.shape[:-1] + (k_max + 1,), dtype=w.dtype,
+                      device=w.device)
+    row[..., 0] = 1.0
+    rows = [row]
+    for i in range(w.shape[-1]):
+        row = torch.cat([row[..., :1],
+                         row[..., 1:] + ws[..., i:i + 1] * row[..., :-1]],
+                        dim=-1)
+        rows.append(row)
+    return torch.stack(rows, dim=-2)
+
+
+def esp_torch(weights: torch.Tensor, k_max: int) -> torch.Tensor:
+    """e_0..e_{k_max} of ``weights`` (..., I): the DP of :func:`esp` (the
+    prefix table's last row, the scale undone), shape (..., k_max + 1)."""
+    w = torch.as_tensor(weights)
+    _, scale = _mean_scaled(w)
+    powers = torch.arange(k_max + 1, device=w.device)
+    return esp_prefix_table_torch(w, k_max)[..., -1, :] * scale ** powers
+
+
+def sample_topk_torch(weights: torch.Tensor, k: int, key,
+                      n_draws: int | None = None) -> torch.Tensor:
+    """Exact conditional-Poisson samples of Eq. 12 on the device, shape
+    (..., n_draws, K), int64.
+
+    The sequential ESP-ratio method of :func:`sample_topk` with the
+    per-draw state vectorized, as the reference's ``sample_topk_jax``:
+    item i = I..1 takes uniform row I - i.  ``key`` is a
+    ``torch.Generator`` on the weights' device (then ``n_draws`` is
+    required) or the uniforms themselves, shape (..., I, n_draws).
+    """
+    w = torch.as_tensor(weights)
+    n = w.shape[-1]
+    if not (0 < k <= n):
+        raise ValueError(f"need 0 < K <= I, got K={k}, I={n}")
+    if isinstance(key, torch.Generator):
+        if n_draws is None:
+            raise ValueError("a generator needs n_draws")
+        u = torch.rand(w.shape + (n_draws,), generator=key, dtype=w.dtype,
+                       device=w.device)
+    else:
+        u = torch.as_tensor(key, device=w.device)
+        if u.shape[:-1] != w.shape or (n_draws is not None
+                                       and u.shape[-1] != n_draws):
+            raise ValueError(f"uniforms of shape {tuple(u.shape)} for "
+                             f"weights {tuple(w.shape)}")
+    lead = w.shape[:-1]
+    w2 = w.reshape(-1, n)
+    u2 = u.reshape(w2.shape[0], n, -1)
+    table = esp_prefix_table_torch(w2, k)                  # (B, I+1, K+1)
+    ws, _ = _mean_scaled(w2)
+    b, t = u2.shape[0], u2.shape[2]
+    remaining = torch.full((b, t), k, dtype=torch.int64, device=w.device)
+    out = torch.zeros((b, t, k), dtype=torch.int64, device=w.device)
+    slot = torch.arange(k, device=w.device)
+    for i in range(n, 0, -1):
+        num = ws[:, i - 1, None] * torch.gather(
+            table[:, i - 1], 1, (remaining - 1).clamp(min=0))
+        den = torch.gather(table[:, i], 1, remaining)
+        p = torch.where(remaining > 0, num / den, torch.zeros_like(num))
+        take = u2[:, n - i] < p
+        write = take[..., None] & (slot == (remaining - 1)[..., None])
+        out = torch.where(write, i - 1, out)
+        remaining = remaining - take.to(torch.int64)
+    return out.reshape(lead + (t, k))
 
 
 @dataclasses.dataclass(frozen=True)

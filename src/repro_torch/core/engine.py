@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from .activation import ActivationModel
+from .activation import ActivationModel, sample_topk_torch
 from .calibration import ServiceModel, resolve_service_model
 from .latency import (ComputeConfig, TopologySample, node_masks_from_sets,
                       source_distance_table)
@@ -77,6 +77,11 @@ class SimResult:
     def drop_rate(self) -> float:
         """Fraction of tokens that were undeliverable."""
         return float(1.0 - self.delivered.mean())
+
+    def layer_stats(self) -> tuple[np.ndarray, np.ndarray]:
+        """(mean, std) per layer across tokens (Fig. 6a)."""
+        return (np.nanmean(self.layer_latency_s, axis=0),
+                np.nanstd(self.layer_latency_s, axis=0))
 
 
 # --------------------------------------------------------------------- #
@@ -298,6 +303,21 @@ def _schedule_rows(schedules: list[PlanSchedule]) -> np.ndarray:
                      for off, s in zip(offsets, schedules)])
 
 
+def ingress_offsets(batch: PlanBatch, slots: np.ndarray,
+                    ingress_sats: np.ndarray) -> np.ndarray:
+    """Per-token uphill offset D(ingress sat, gateway_0; slot), shape (P, T).
+
+    The graph is undirected, so the layer-0 gateway row of the deduped
+    Dijkstra table already holds every ingress->gateway distance: no extra
+    Dijkstra runs.  Tokens entering via an unreachable ingress satellite
+    get +inf (the traffic layer accounts them as drops).  Host numpy.
+    """
+    slots = np.asarray(slots)
+    ingress_sats = np.asarray(ingress_sats)
+    g0 = batch.g_idx[:, 0]                                   # (P,)
+    return batch.dist[slots[None, :], g0[:, None], ingress_sats[None, :]]
+
+
 def schedule_ingress_offsets(batch: ScheduleBatch, slots: np.ndarray,
                              ingress_sats: np.ndarray) -> np.ndarray:
     """Per-token uphill offset D(ingress sat, gateway_0; slot), shape
@@ -446,40 +466,13 @@ def _service_terms(svc: ServiceModel, topo, ctx_len, include_lm_head,
 def sample_draws_torch(activation: ActivationModel, n_tokens: int,
                        generator: torch.Generator,
                        device: torch.device) -> torch.Tensor:
-    """(L, T, K) conditional-Poisson draws on ``device`` from ``generator``.
-
-    The sequential ESP-ratio method of
-    :func:`~repro_torch.core.activation.sample_topk`, vectorized over
-    layers and draws (float32, like the reference's on-device sampler).
-    """
+    """(L, T, K) conditional-Poisson draws on ``device`` from ``generator``:
+    :func:`~repro_torch.core.activation.sample_topk_torch` over the
+    layers' weights at once (float32, like the reference's on-device
+    sampler)."""
     w = torch.as_tensor(activation.weights, dtype=torch.float32,
                         device=device)                        # (L, I)
-    n_layers, n = w.shape
-    k = activation.top_k
-    ws = w / w.mean(dim=1, keepdim=True)
-    table = torch.zeros(n_layers, n + 1, k + 1, device=device)
-    table[:, 0, 0] = 1.0
-    for i in range(1, n + 1):
-        table[:, i] = table[:, i - 1]
-        table[:, i, 1:] += ws[:, i - 1, None] * table[:, i - 1, :-1]
-    u = torch.rand((n_layers, n, n_tokens), generator=generator,
-                   device=device)
-    remaining = torch.full((n_layers, n_tokens), k, dtype=torch.int64,
-                           device=device)
-    out = torch.zeros((n_layers, n_tokens, k), dtype=torch.int64,
-                      device=device)
-    lidx = torch.arange(n_layers, device=device)[:, None]
-    slot = torch.arange(k, device=device)
-    for i in range(n, 0, -1):
-        num = ws[:, i - 1, None] * table[lidx, i - 1,
-                                         (remaining - 1).clamp(min=0)]
-        den = table[lidx, i, remaining]
-        p = torch.where(remaining > 0, num / den, torch.zeros_like(num))
-        take = u[:, n - i] < p
-        write = take[..., None] & (slot == (remaining - 1)[..., None])
-        out = torch.where(write, i - 1, out)
-        remaining = remaining - take.to(torch.int64)
-    return out
+    return sample_topk_torch(w, activation.top_k, generator, n_tokens)
 
 
 def _resolve_slots_draws(topo, activation, rng, n_tokens, slots, draws,

@@ -27,6 +27,8 @@ every fleet object of step 4 is built on ``--device``.
 
     python -m repro_torch.launch.serve --arch llama-moe-3.5b \
         --batch 4 --prompt-len 32 --decode-tokens 16
+    python -m repro_torch.launch.serve --arch deepseek-moe-16b \
+        --batch 4 --prompt-len 32 --decode-tokens 16
     python -m repro_torch.launch.serve --smoke --device cpu
     python -m repro_torch.launch.serve --smoke --device cpu \
         --traffic smoke --admission aimd --federation 2 --fail-device 0
@@ -48,14 +50,14 @@ from ..core import (ActivationModel, ComputeConfig, Constellation,
                     plan_expert_devices, rand_intra_cg_plan, sample_topology,
                     simulate_token_generation_legacy, spacemoe_plan)
 from ..distributed import migration, replan_on_failure
-from ..models import (cast_for_compute, forward, init_params, prefill,
-                      random_batch)
+from ..models import forward, init_params, prefill, random_batch
 from ..models.moe import apply_placement
 from .steps import make_serve_step
 
 
 def calibrate_router_stats(cfg, params, batch) -> np.ndarray | None:
-    """(n_units, E) expert-selection counts from one forward pass."""
+    """(n_scan_units, E) expert-selection counts from one forward pass:
+    one row per MoE unit (a dense first layer has none)."""
     if not cfg.has_moe:
         return None
     _, _, counts = forward(cfg, params, batch, return_router_stats=True)
@@ -64,7 +66,15 @@ def calibrate_router_stats(cfg, params, batch) -> np.ndarray | None:
 
 def plan_and_apply_placement(cfg, params, counts: np.ndarray,
                              ep_ring: int = 16):
-    """Per-unit Theorem-1 device placement, applied to the expert stacks."""
+    """Per-unit Theorem-1 device placement, applied to the expert stacks.
+
+    Unlike the reference (whose arrays are immutable), the permutation is
+    applied in place: each MoE layer's ``ffn`` in ``params["layers"]`` is
+    replaced as it is placed, so the device holds one layer's experts
+    twice at a time, not the model's.  That lowers the peak: for
+    deepseek-moe-16b (28 GiB of experts in bf16) it stays at the drawn
+    model's 32.26 GiB, where copying every stack peaked at 58.46 GiB.
+    Returns ``params`` itself."""
     e = cfg.n_experts
     ring = TorusSpec(shape=(min(ep_ring, e),), wrap=True)
     plans, costs = [], {"theorem1": 0.0, "identity": 0.0}
@@ -78,12 +88,11 @@ def plan_and_apply_placement(cfg, params, counts: np.ndarray,
         plans.append(plan)
 
     width = len(cfg.pattern)
-    layers = list(params["layers"])
-    for i, lp in enumerate(layers):
+    for i, lp in enumerate(params["layers"]):
         if "router" in lp["ffn"]:
-            layers[i] = dict(lp, ffn=apply_placement(
-                lp["ffn"], plans[i // width].expert_perm))
-    return dict(params, layers=layers), plans, costs
+            lp["ffn"] = apply_placement(lp["ffn"],
+                                        plans[i // width].expert_perm)
+    return params, plans, costs
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -168,7 +177,14 @@ def run(argv=None) -> tuple[dict, dict]:
         torch.backends.cudnn.allow_tf32 = False
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = cast_for_compute(cfg, init_params(cfg, gen, device))
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    params = init_params(cfg, gen, device)
+    if device.type == "cuda":
+        print(f"[init] {cfg.name}: weights "
+              f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB in "
+              f"{cfg.compute_dtype}, peak while drawing "
+              f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
     return _serve(cfg, params, args, device)
 
 
@@ -236,18 +252,31 @@ def _serve(cfg, params, args, device) -> tuple[dict, dict]:
     return out, {"logits": logits, "tokens": torch.cat(generated, dim=1)}
 
 
+def plane_sats(n_layers: int, n_experts: int, n_planes: int) -> int:
+    """Satellites a plane for step 4's world: the reference's 16, or the
+    fewest that give every layer's ring subnet room for its experts and
+    its gateway."""
+    per_layer = -(-(n_experts + 1) // n_planes)
+    return max(16, n_layers * per_layer)
+
+
 def _space_sim(cfg, counts: np.ndarray, args, device, out: dict) -> None:
     """Step 4: the space-network latency of the router statistics'
     activation model on a 12-plane constellation, and with ``--traffic``
     the request-level fleet simulation (and ``--federation``), every
     simulator on ``device``; fills ``out`` with the reference's keys.
 
-    The reference's world is 12 x 16; SpaceMoE's placement needs a plane
-    of at least one satellite per MoE layer (``ring_subnets``), so models
-    deeper than 16 layers (llama-moe-3.5b's 32) get planes of one
-    satellite a layer, where the reference's serve raises."""
+    The reference's world is 12 x 16.  SpaceMoE's placement gives each
+    MoE layer a ring subnet of ``sats_per_plane // layers`` satellites in
+    each of the 12 planes (``ring_subnets``), and each subnet must hold
+    the layer's experts besides its gateway (``theorem1_assignment``).
+    Where 16 satellites a plane cannot, the reference's serve raises; the
+    port widens the planes to the fewest satellites that can
+    (``plane_sats``): one a layer for llama-moe-3.5b's 32 layers, six a
+    layer for deepseek-moe-16b's 27 layers of 64 experts."""
     n_layers = counts.shape[0]
-    ccfg = ConstellationConfig.scaled(12, max(16, n_layers), n_slots=20)
+    ccfg = ConstellationConfig.scaled(
+        12, plane_sats(n_layers, cfg.n_experts, 12), n_slots=20)
     con = Constellation(ccfg)
     rng = np.random.default_rng(1)
     topo = sample_topology(con, LinkConfig(token_dim=cfg.d_model), rng)

@@ -4,8 +4,11 @@ Counterpart of ``repro.models.model`` for ``attn`` mixers with dense or
 MoE FFNs.  The reference scans over stacked pattern units; here the
 parameters are a list of per-layer dicts (``params["layers"][i]`` is
 block ``i % len(pattern)`` of unit ``i // len(pattern)``) and the stack is
-a Python loop.  The decode cache is a matching list of per-layer KV
-caches, updated in place.
+a Python loop.  With ``first_layer_dense`` the first unit is one dense
+block of width ``first_dense_d_ff`` (``params["first"]``), run ahead of
+the ``n_scan_units`` units, as in the reference.  The decode cache is a
+matching list of per-layer KV caches (and ``cache["first"]``), updated in
+place.
 
 Dtypes: weights are initialised in ``cfg.param_dtype`` as in the
 reference, which casts each weight to ``cfg.compute_dtype`` at every use.
@@ -13,12 +16,16 @@ reference, which casts each weight to ``cfg.compute_dtype`` at every use.
 identical, and a decode step then reads each weight once in the compute
 dtype instead of re-reading and re-casting the f32 copy.  The router and
 the norm scales stay f32, as the reference uses them in f32.
+``init_params`` makes that cast as each block is drawn, so the draw
+peaks at the cast model plus one block in ``param_dtype`` (deepseek-moe-16b
+in bf16: 32.26 GiB, against about 61 GiB for the whole model in f32).
 
 Not yet ported (they raise): ``Parallel``/sharded execution, mamba /
-mlstm / slstm mixers, the first-dense-layer variant, ``loss_fn`` and
-``remat``.
+mlstm / slstm mixers, ``loss_fn`` and ``remat``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -39,14 +46,23 @@ def check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(f"{spec.mixer} mixers are not yet ported")
         if spec.ffn not in ("dense", "moe"):
             raise NotImplementedError(f"ffn={spec.ffn!r} is not yet ported")
-    if cfg.first_layer_dense:
-        raise NotImplementedError("first_layer_dense is not yet ported")
     if cfg.frontend:
         raise NotImplementedError(f"{cfg.frontend!r} frontend is not yet ported")
 
 
+def n_scan_units(cfg: ModelConfig) -> int:
+    """Pattern units after the dense first block (all of them without)."""
+    return cfg.n_units - (1 if cfg.first_layer_dense else 0)
+
+
 def layer_specs(cfg: ModelConfig) -> list[LayerSpec]:
-    return [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+    """Specs of ``params["layers"]``: the units' blocks, in order."""
+    width = len(cfg.pattern)
+    return [cfg.pattern[i % width] for i in range(n_scan_units(cfg) * width)]
+
+
+def _first_spec(cfg: ModelConfig) -> LayerSpec:
+    return LayerSpec(mixer=cfg.pattern[0].mixer, ffn="dense")
 
 
 # ===================================================================== #
@@ -68,9 +84,12 @@ def _block_init(gen, cfg: ModelConfig, spec: LayerSpec, dtype, device) -> dict:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device="cuda") -> dict:
-    """Random weights in ``cfg.param_dtype`` on ``device``.
+    """Random weights drawn in ``cfg.param_dtype`` on ``device``, each block
+    cast by :func:`cast_for_compute` as soon as it is drawn.
 
-    ``generator`` must live on ``device``; None seeds one with 0.
+    ``generator`` must live on ``device``; None seeds one with 0.  The
+    values are those of drawing the whole model in ``param_dtype`` and
+    casting it after; the peak is the cast model plus one block.
     """
     check_supported(cfg)
     dev = resolve_device(device)
@@ -78,14 +97,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     if gen is None:
         gen = torch.Generator(device=dev).manual_seed(0)
     dtype = dtype_of(cfg.param_dtype)
-    params: dict = {
+
+    def drawn(node: dict) -> dict:
+        return cast_for_compute(cfg, node)
+
+    params: dict = drawn({
         "embed": embedding_init(gen, cfg.padded_vocab, cfg.d_model, dtype, dev),
         "final_norm": rmsnorm_init(cfg.d_model, dev),
-    }
+    })
     if not cfg.tie_embeddings:
-        params["head"] = normal_init(gen, (cfg.d_model, cfg.padded_vocab),
-                                     dtype, dev)
-    params["layers"] = [_block_init(gen, cfg, spec, dtype, dev)
+        params.update(drawn({"head": normal_init(
+            gen, (cfg.d_model, cfg.padded_vocab), dtype, dev)}))
+    if cfg.first_layer_dense:
+        first_cfg = dataclasses.replace(
+            cfg, d_ff=cfg.first_dense_d_ff or cfg.d_ff)
+        params["first"] = drawn(_block_init(gen, first_cfg, _first_spec(cfg),
+                                            dtype, dev))
+    params["layers"] = [drawn(_block_init(gen, cfg, spec, dtype, dev))
                         for spec in layer_specs(cfg)]
     return params
 
@@ -164,15 +192,19 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
     """Forward pass: returns (logits (B,S,V_padded), aux_loss).
 
     With ``return_router_stats`` also returns per-unit expert-selection
-    counts (n_units, n_experts): the activation statistics that feed the
-    SpaceMoE placement planner (Eq. 14 plug-in).
+    counts (n_scan_units, n_experts): the activation statistics that feed
+    the SpaceMoE placement planner (Eq. 14 plug-in); the dense first
+    block has no row.
     """
     cdt = dtype_of(cfg.compute_dtype)
     x, positions = _embed_inputs(cfg, params, batch, cdt)
     n_e = max(cfg.n_experts, 1)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    counts = torch.zeros((cfg.n_units, n_e), dtype=torch.float32,
+    counts = torch.zeros((n_scan_units(cfg), n_e), dtype=torch.float32,
                          device=x.device)
+    if cfg.first_layer_dense:
+        x, _, _ = _apply_block(cfg, _first_spec(cfg), params["first"], x,
+                               positions, cdt, None, "forward")
     width = len(cfg.pattern)
     for i, (spec, bp) in enumerate(zip(layer_specs(cfg), params["layers"])):
         x, _, aux = _apply_block(cfg, spec, bp, x, positions, cdt, None,
@@ -193,8 +225,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     check_supported(cfg)
     dev = resolve_device(device)
     cdt = dtype_of(cfg.compute_dtype)
-    return {"layers": [attn.init_kv_cache(cfg, batch, max_len, cdt, dev)
-                       for _ in range(cfg.n_layers)]}
+    cache = {"layers": [attn.init_kv_cache(cfg, batch, max_len, cdt, dev)
+                        for _ in layer_specs(cfg)]}
+    if cfg.first_layer_dense:
+        cache["first"] = attn.init_kv_cache(cfg, batch, max_len, cdt, dev)
+    return cache
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int):
@@ -205,6 +240,9 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int):
     cdt = dtype_of(cfg.compute_dtype)
     x, positions = _embed_inputs(cfg, params, batch, cdt)
     cache = init_cache(cfg, x.shape[0], max_len, x.device)
+    if cfg.first_layer_dense:
+        x, _, _ = _apply_block(cfg, _first_spec(cfg), params["first"], x,
+                               positions, cdt, cache["first"], "prefill")
     for spec, bp, lc in zip(layer_specs(cfg), params["layers"],
                             cache["layers"]):
         x, _, _ = _apply_block(cfg, spec, bp, x, positions, cdt, lc,
@@ -222,6 +260,9 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     """
     cdt = dtype_of(cfg.compute_dtype)
     x = embed(params["embed"], tokens, cdt)
+    if cfg.first_layer_dense:
+        x, _, _ = _apply_block(cfg, _first_spec(cfg), params["first"], x,
+                               pos, cdt, cache["first"], "decode")
     for spec, bp, lc in zip(layer_specs(cfg), params["layers"],
                             cache["layers"]):
         x, _, _ = _apply_block(cfg, spec, bp, x, pos, cdt, lc, "decode")

@@ -5,11 +5,16 @@ selection, combine weights normalized over the active set (Eq. 15), and a
 sort+gather dispatch into capacity-padded (E, C, d) buckets that drops the
 same token copies the reference drops.  The expert FFN runs through
 ``kernels.ops.expert_ffn``, i.e. the hand-written ``gmm`` kernel on a CUDA
-device.  ``apply_placement`` is the SpaceMoE placement as a checkpoint
-transform (permuted expert stacks and router columns).
+device.  Shared experts (``n_shared_experts``, always active: the
+P_i -> 1 limit of Theorem 1) are one dense SwiGLU of fused width
+``d_ff_expert * n_shared_experts`` added to the routed output; the
+reference computes it outside any kernel, and so does the port
+(``layers.ffn_apply``, ``torch.matmul``).  ``apply_placement`` is the
+SpaceMoE placement as a checkpoint transform (permuted expert stacks and
+router columns; the shared block stays where it is).
 
-Not ported yet (they raise): EP slotting, shared experts, and the
-expert-parallel ``moe_apply_ep*`` paths.
+Not ported yet (they raise): EP slotting and the expert-parallel
+``moe_apply_ep*`` paths.
 """
 from __future__ import annotations
 
@@ -18,25 +23,27 @@ import torch
 
 from ..kernels import ops
 from .config import ModelConfig
-from .layers import normal_init, out_proj_init
+from .layers import ffn_apply, ffn_init, normal_init, out_proj_init
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     if getattr(cfg, "moe_slotting", False):
         raise NotImplementedError("MoE EP slotting is not yet ported")
-    if cfg.n_shared_experts > 0:
-        raise NotImplementedError("shared experts are not yet ported")
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
     _check_supported(cfg)
     e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
-    return {
+    p = {
         "router": normal_init(gen, (d, e), torch.float32, device),  # kept f32
         "w_gate": normal_init(gen, (e, d, f), dtype, device),
         "w_up": normal_init(gen, (e, d, f), dtype, device),
         "w_down": out_proj_init(gen, (e, f, d), dtype, device, cfg.n_layers),
     }
+    if cfg.n_shared_experts > 0:
+        p["shared"] = ffn_init(gen, d, f * cfg.n_shared_experts,
+                               cfg.n_layers, dtype, device)
+    return p
 
 
 # --------------------------------------------------------------------- #
@@ -148,6 +155,8 @@ def moe_apply_local(cfg: ModelConfig, params: dict, x: torch.Tensor,
     flat_out = outs.reshape(n_b * cap, d)
     gathered = flat_out[copy_slot] * copy_kept[:, None].to(compute_dtype)
     y = _combine(gathered, weights, t, k, frag, compute_dtype)
+    if cfg.n_shared_experts > 0:
+        y = y + ffn_apply(params["shared"], xt, compute_dtype)
     return y.reshape(b, s, d), aux
 
 

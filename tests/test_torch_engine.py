@@ -201,3 +201,36 @@ def test_engine_refuses_a_mismatched_batch():
                           pc.MoEWorkload.llama_moe_3p5b(),
                           pc.ComputeConfig(), np.random.default_rng(0),
                           batch=batch, device="cpu")
+
+
+def test_ingress_offsets_and_layer_stats_are_bitwise():
+    """``ingress_offsets`` (host numpy over the deduped distance table,
+    unreachable ingress satellites at +inf) and ``SimResult.layer_stats``
+    (NaN-aware per-layer mean and std) equal the reference's bit for bit
+    on the same batch and results."""
+    from repro.core import ingress_offsets
+    from repro.core.engine import PlanBatch
+    (con, topo, act), (pcon, ptopo, pact) = _worlds()
+    plans = _plans(con, topo, act, _Ref)
+    batch = PlanBatch.from_plans(plans, topo)
+    pbatch = pc.PlanBatch.from_plans(_plans(pcon, ptopo, pact, pc), ptopo)
+    rng = np.random.default_rng(8)
+    slots = rng.integers(0, topo.n_slots, 700)
+    ing = rng.integers(0, topo.n_sats, 700)
+    want = ingress_offsets(batch, slots, ing)
+    got = pc.ingress_offsets(pbatch, slots, ing)
+    assert got.shape == (len(plans), 700) and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    ref = evaluate_plans(plans, topo, act, MoEWorkload.llama_moe_3p5b(),
+                         ComputeConfig(), np.random.default_rng(4),
+                         n_tokens=300, route_staleness=2)
+    port = pc.evaluate_plans(_plans(pcon, ptopo, pact, pc), ptopo, pact,
+                             pc.MoEWorkload.llama_moe_3p5b(),
+                             pc.ComputeConfig(), np.random.default_rng(4),
+                             n_tokens=300, route_staleness=2, device="cpu")
+    for a, b in zip(ref, port):
+        b.layer_latency_s[::7, 1] = np.nan      # undeliverable in that layer
+        a.layer_latency_s[::7, 1] = np.nan
+        for g, w in zip(b.layer_stats(), a.layer_stats()):
+            assert g.shape == (4,)
+            np.testing.assert_array_equal(g, w)

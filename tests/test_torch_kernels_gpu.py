@@ -51,6 +51,12 @@ def _gmm_inputs(device, e, c, k, n, dtype, seed=0):
     *[(8, c, 4096, 1376) for c in (1, 8, 9, 40, 64, 65, 256, 257, 2560)],
     (8, 40, 1000, 1376),   # K not a multiple of the 64-deep K step
     (1, 2, 4096, 1376),    # few blocks
+    # deepseek-moe-16b: decode (C floors at top_k = 6), prefill at
+    # T = 128 (C = 15), and calibration's f32 buckets (C = 32)
+    (64, 6, 2048, 1408), (64, 6, 1408, 2048),
+    (64, 15, 2048, 1408), (64, 15, 1408, 2048),
+    (64, 32, 2048, 1408), (64, 32, 1408, 2048),
+    (8, 32, 4096, 1376),   # llama-moe-3.5b's calibration buckets
 ])
 def test_gmm_kernel_matches_plain(cuda_device, e, c, k, n, dtype):
     x, w = _gmm_inputs(cuda_device, e, c, k, n, dtype)
@@ -92,7 +98,12 @@ def test_gmm_kernel_counts_its_path(cuda_device, e, c, k, n, dtype, path):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,hkv,g,s,hd", [(4, 32, 1, 49, 128),
                                           (2, 2, 3, 333, 64),
-                                          (1, 2, 6, 2048, 256)])
+                                          (1, 2, 6, 2048, 256),
+                                          # deepseek-moe-16b's decode and
+                                          # its calibration sweep
+                                          (4, 16, 1, 49, 128),
+                                          *[(b, 16, 1, 512, 128)
+                                            for b in (1, 2, 4, 8)]])
 def test_decode_attention_kernel_matches_plain(cuda_device, b, hkv, g, s, hd,
                                                dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(1)
@@ -1072,3 +1083,17 @@ def test_federation_on_the_card_matches_the_cpu(cuda_device):
                                           getattr(a.federated, name))
         np.testing.assert_allclose(b.federated.ttft_s, a.federated.ttft_s,
                                    rtol=1e-5, equal_nan=True)
+
+
+def test_calibrate_times_the_kernels(cuda_device):
+    """``calibrate`` on the card times the CUDA kernels (their launch
+    counters move) and derives a table that re-derives exactly."""
+    from repro_torch.core import MoEWorkload, calibrate, verify_table
+    wl = MoEWorkload(d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
+                     d_ff_expert=512, n_experts=4, top_k=2, vocab_size=1024)
+    before = (moe_gmm.launches, decode_attn.launches)
+    table = calibrate("tiny", wl, ctx_len=128, batches=(1, 2), iters=1)
+    assert (table.impl, table.backend) == ("cuda", "cuda")
+    assert moe_gmm.launches > before[0] and decode_attn.launches > before[1]
+    assert verify_table(table)
+    assert all(v > 0 for v in table.measured_s["gateway_by_batch"].values())

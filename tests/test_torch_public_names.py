@@ -360,3 +360,15 @@ def test_decision_trace_and_request_record_match_reference():
     lb = prec.FlightLog(requests=[rb], **log)
     assert lb.horizon_s == la.horizon_s
     assert [r.rid for r in lb.served()] == [r.rid for r in la.served()]
+
+
+def test_core_covers_every_public_name_of_the_reference():
+    """Every name of ``repro.core.__all__`` has its counterpart in
+    ``repro_torch.core`` (the device forms ``*_jax`` as ``*_torch``), and
+    ``repro_torch.models`` exports ``n_scan_units``."""
+    import repro_torch.models as pm
+    want = {n[:-4] + "_torch" if n.endswith("_jax") else n
+            for n in jcore.__all__}
+    assert want <= set(pc.__all__)
+    assert all(hasattr(pc, n) for n in pc.__all__)
+    assert "n_scan_units" in pm.__all__ and hasattr(pm, "n_scan_units")

@@ -148,8 +148,11 @@ def test_cuda_without_a_card_raises():
 
 
 def test_unported_model_features_raise():
-    cfg = dataclasses.replace(tcfgs.smoke_config(ARCH), n_shared_experts=1)
-    with pytest.raises(NotImplementedError, match="shared experts"):
+    """What the port does not run yet refuses loudly: EP slotting and the
+    architectures whose model families are not ported."""
+    cfg = dataclasses.replace(tcfgs.smoke_config("deepseek-moe-16b"),
+                              moe_slotting=True)
+    with pytest.raises(NotImplementedError, match="slotting"):
         tmodels.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(KeyError, match="not yet ported"):
-        tcfgs.get_config("deepseek-moe-16b")
+        tcfgs.get_config("granite-moe-3b-a800m")

@@ -149,9 +149,36 @@ Phases (any failure exits non-zero and prints no success line):
      --federation 2 --fail-device 3 --trace``: its lines, its trace
      through ``validate_trace``, gmm and decode_attention launch counts
      as phase 5;
- 13. the ``kernels`` JSON line (all six kernels, and gmm and
+ 13. every attention-only architecture of the reference and EP slotting
+     (run after 6f): (a) gmm (bf16, every case on wgmma) and
+     decode_attention against their plain versions at the new shapes,
+     each timed beside ``torch.bmm`` / SDPA and its bound:
+     granite-moe-3b-a800m's 40 experts of 1536 x 512 at decode C = 8
+     and prefill C = 32, slotted granite's 48 buckets (C = 8, 27),
+     slotted llama-moe-3.5b's 16 half-experts of 688 (C = 2, 40, both
+     projections); decode_attention at granite's and smollm-135m's
+     hd 64 G = 3, qwen2.5-3b's hd 128 G = 8, llava-next-mistral-7b's
+     G = 4, minicpm-2b's and musicgen-medium's hd 64 G = 1, at S = 49
+     and S = 2048; (b) the smoke models of the seven new architectures
+     (llava with its patch embeddings, musicgen decoding on frame
+     embeddings) and of slotted llama-moe-3.5b and granite on the card
+     against the CPU, as phase 4; (c) ``repro_torch.launch.serve`` at
+     full width and depth for the six that one card holds (granite with
+     ``--space-sim`` on 12 x 128), each as phase 5 (tok/s against its
+     weights bound, init and run peaks, launches as the config implies:
+     granite's gmm 1,728 all wgmma, none for a dense model,
+     decode_attention L x 16; finite logits, tokens in range) and
+     profiled as phase 6; (d) EP slotting at full width through the
+     model functions: slotted llama-moe-3.5b against unslotted on the
+     same canonical weights and tokens (every MoE call replayed on the
+     same input within 2^-5 of its largest output; the whole runs'
+     logits, differing routing choices and greedy tokens reported),
+     slotted granite's launches, paths and finite logits;
+     mistral-large-123b runs at smoke size only;
+ 14. the ``kernels`` JSON line (all six kernels, and gmm and
      decode_attention again at deepseek-moe-16b's decode shape with
-     phase 6d's launches; launches counted over
+     phase 6d's launches and at phase 13's decode shapes with that
+     phase's launches; launches counted over
      the serve run for gmm/decode_attention, over the fleet ``run()``
      for deposit/backlog_scan and over the AIMD ``run()`` for
      admission_window/admission_ctrl), the card line, then the result
@@ -469,11 +496,17 @@ def phase_kernels(torch) -> dict[str, dict]:
 # --------------------------------------------------------------------- #
 
 
-def phase_small(torch, arch: str = ARCH) -> None:
+def phase_small(torch, arch: str = ARCH, slotted: bool = False) -> None:
+    """The smoke model of ``arch`` (EP-slotted with ``slotted``) on the
+    card against the CPU: router counts, prefill and four decode steps
+    (on frame embeddings for an audio model), greedy tokens."""
+    import dataclasses
+
     from repro_torch.configs import smoke_config
     from repro_torch.models import (decode_step, forward, init_params,
                                     prefill, random_batch)
-    cfg = smoke_config(arch)                       # f32 compute
+    cfg = dataclasses.replace(smoke_config(arch),     # f32 compute
+                              moe_slotting=slotted)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 
     def to_cuda(node):
@@ -488,12 +521,15 @@ def phase_small(torch, arch: str = ARCH) -> None:
         calib = random_batch(cfg, BATCH, 8, seed=7, device=dev)
         _, _, counts = forward(cfg, p, calib, return_router_stats=True)
         batch = random_batch(cfg, BATCH, 8, seed=0, device=dev)
-        logits, cache = prefill(cfg, p, {"tokens": batch["tokens"]}, max_len=13)
+        prompt = {k: v for k, v in batch.items() if k != "labels"}
+        logits, cache = prefill(cfg, p, prompt, max_len=13)
         tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
         pos = torch.full((BATCH,), 8, dtype=torch.int32, device=dev)
+        emb = (torch.ones((BATCH, 1, cfg.d_model), device=dev)
+               if cfg.frontend == "audio" else None)
         steps, toks = [logits], [tok]
         for _ in range(4):
-            logits, cache = decode_step(cfg, p, cache, tok, pos)
+            logits, cache = decode_step(cfg, p, cache, tok, pos, embeds=emb)
             tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
             pos = pos + 1
             steps.append(logits)
@@ -502,7 +538,8 @@ def phase_small(torch, arch: str = ARCH) -> None:
                         torch.cat(toks, 1).cpu())
     (c0, l0, t0), (c1, l1, t1) = results["cpu"], results["cuda"]
     err = float((l0 - l1).abs().max())
-    log(f"small input ({cfg.name}, f32): card vs CPU logits max_abs_err="
+    log(f"small input ({cfg.name}{', slotted' if slotted else ''}, f32, "
+        f"inputs {sorted(prompt)}): card vs CPU logits max_abs_err="
         f"{err:.3g} (tol 2e-4), router counts equal={torch.equal(c0, c1)}, "
         f"greedy tokens equal={torch.equal(t0, t1)}")
     if not (err <= 2e-4 and torch.equal(c0, c1) and torch.equal(t0, t1)):
@@ -514,32 +551,41 @@ def phase_small(torch, arch: str = ARCH) -> None:
 # --------------------------------------------------------------------- #
 
 
+def n_ffn_layers(cfg) -> tuple[int, int]:
+    """(MoE layers, dense-FFN layers after the dense first block)."""
+    from repro_torch.models.model import layer_specs
+    specs = layer_specs(cfg)
+    n_moe = sum(spec.ffn == "moe" for spec in specs)
+    return n_moe, len(specs) - n_moe
+
+
 def serve_weight_bytes(cfg) -> dict[str, float]:
     """Bytes of bf16 weights a decode step reads once: every routed expert
     (the buckets cover every expert), the shared experts, the dense first
-    block, the attention projections and the LM head."""
-    from repro_torch.models import n_scan_units
-    n_moe = n_scan_units(cfg) * len(cfg.pattern)
-    n_blocks = n_moe + (1 if cfg.first_layer_dense else 0)
+    block, the dense FFNs, the attention projections and the LM head (the
+    embedding table itself when tied; the step gathers B of its rows)."""
+    n_moe, n_dense = n_ffn_layers(cfg)
     d, f = cfg.d_model, cfg.d_ff_expert
     return {
         "experts": n_moe * cfg.n_experts * 3 * d * f * 2,
         "shared": n_moe * 3 * d * f * cfg.n_shared_experts * 2,
         "first": (3 * d * (cfg.first_dense_d_ff or cfg.d_ff) * 2
                   if cfg.first_layer_dense else 0),
-        "attention": n_blocks * (2 * d * cfg.q_dim + 2 * d * cfg.kv_dim) * 2,
+        "ffn": n_dense * 3 * d * cfg.d_ff * 2,
+        "attention": cfg.n_layers * (2 * d * cfg.q_dim
+                                     + 2 * d * cfg.kv_dim) * 2,
         "head": d * cfg.padded_vocab * 2,
     }
 
 
-def serve_launches(cfg) -> dict[str, int]:
-    """gmm: 3 per MoE layer per pass (calibrate, prefill, each decode
-    step); decode_attention: one per attention block per decode step."""
-    from repro_torch.models import n_scan_units
-    n_moe = n_scan_units(cfg) * len(cfg.pattern)
-    n_blocks = n_moe + (1 if cfg.first_layer_dense else 0)
-    return {"gmm": 3 * n_moe * (2 + DECODE),
-            "decode_attention": n_blocks * DECODE}
+def serve_launches(cfg, passes: int = 2 + DECODE,
+                   decode_steps: int = DECODE) -> dict[str, int]:
+    """gmm: 3 per MoE layer per pass (serve's: calibrate, prefill, each
+    decode step; none for a dense model); decode_attention: one per
+    attention block per decode step."""
+    n_moe, _ = n_ffn_layers(cfg)
+    return {"gmm": 3 * n_moe * passes,
+            "decode_attention": cfg.n_layers * decode_steps}
 
 
 def phase_serve(torch, card: str, arch: str = ARCH,
@@ -608,19 +654,22 @@ def phase_profile(torch, n_steps: int = 4, arch: str = ARCH) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_params(cfg, gen, "cuda")
     batch = random_batch(cfg, BATCH, PROMPT, seed=0, device="cuda")
-    logits, cache = prefill(cfg, params, {"tokens": batch["tokens"]},
+    logits, cache = prefill(cfg, params,
+                            {k: v for k, v in batch.items() if k != "labels"},
                             max_len=PROMPT + DECODE + 1)
     step = make_serve_step(cfg)
     tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
     pos = torch.full((BATCH,), PROMPT, dtype=torch.int32, device="cuda")
+    emb = (torch.ones((BATCH, 1, cfg.d_model), device="cuda")
+           if cfg.frontend == "audio" else None)
     for _ in range(2):                                     # warm
-        tok, logits, cache = step(params, cache, tok, pos)
+        tok, logits, cache = step(params, cache, tok, pos, emb)
         pos = pos + 1
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
-            tok, logits, cache = step(params, cache, tok, pos)
+            tok, logits, cache = step(params, cache, tok, pos, emb)
             pos = pos + 1
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
@@ -751,6 +800,274 @@ def phase_calibration(torch) -> None:
                 or counts["decode_attention"] == 0:
             raise SmokeFailure(f"calibration {name}: verify_table "
                                f"{verified}, launches {counts}")
+
+
+# --------------------------------------------------------------------- #
+# Phase 13: every attention-only architecture of the reference, EP slotting
+# --------------------------------------------------------------------- #
+
+GRANITE = "granite-moe-3b-a800m"
+# The attention-only architectures one card holds whole in bf16, and the
+# one it does not (smoke size only: the port has no sharding).
+ONE_CARD_ARCHS = (GRANITE, "qwen2.5-3b", "smollm-135m", "minicpm-2b",
+                  "llava-next-mistral-7b", "musicgen-medium")
+SMOKE_ONLY_ARCHS = ("mistral-large-123b",)
+SLOT_STEPS = 4        # decode steps of the slotted runs (13d)
+
+
+def slotted_config(arch: str):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), moe_slotting=True)
+
+
+def phase_kernels_archs(torch) -> dict[str, dict]:
+    """(13a) gmm and decode_attention against their plain versions at the
+    new serve shapes: granite-moe-3b-a800m's 40 experts (decode: C floors
+    at top_k; prefill at T = BATCH x PROMPT), slotted granite's 48 buckets
+    and slotted llama-moe-3.5b's 16 half-experts of 688 (bf16, every one
+    on the wgmma path); decode_attention at each one-card architecture's
+    heads, S = 49 (serve) and S = 2048.  Returns the decode-shape records
+    keyed "<kernel>/<arch>" ("gmm/<arch>/slotted" for a slotted stack)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import capacity, slotting_for
+    gmm_cases = []                         # (key of a decode shape, case)
+    for cfg, tag in ((get_config(GRANITE), GRANITE),
+                     (slotted_config(GRANITE), GRANITE + "/slotted"),
+                     (slotted_config(ARCH), ARCH + "/slotted")):
+        sl = slotting_for(cfg)
+        n_b, e_cap, frag = ((sl.n_virtual, sl.e_pad, sl.frag) if sl
+                            else (cfg.n_experts, cfg.n_experts, 1))
+        d, f = cfg.d_model, cfg.d_ff_expert // frag
+        for t, key in ((BATCH, "gmm/" + tag), (BATCH * PROMPT, None)):
+            c = capacity(cfg, t, e_cap)
+            gmm_cases += [(key, (n_b, c, d, f, "bfloat16")),
+                          (None, (n_b, c, f, d, "bfloat16"))]
+    last_pos = PROMPT + DECODE - 1
+    attn_cases = []
+    for arch in ONE_CARD_ARCHS:
+        cfg = get_config(arch)
+        heads = (BATCH, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads)
+        attn_cases += [("decode_attention/" + arch,
+                        (*heads, PROMPT + DECODE + 1, cfg.head_dim,
+                         "bfloat16", [last_pos] * BATCH)),
+                       (None, (*heads, 2048, cfg.head_dim, "bfloat16",
+                               [2047, 1500, 1024, 17]))]
+    main, failed = {}, []
+    for key, case in gmm_cases:
+        rec = check_gmm(torch, *case, iters=20)
+        log("kernel " + json.dumps(rec))
+        failed += [] if rec["ok"] and rec["path"] == "wgmma" \
+            else [rec["shape"]]
+        if key:
+            main[key] = rec
+    for key, (b, hkv, g, s, hd, dt, pos) in attn_cases:
+        rec = check_decode(torch, b, hkv, g, s, hd, dt, pos, iters=50)
+        log("kernel " + json.dumps(rec))
+        failed += [] if rec["ok"] else [rec["shape"]]
+        if key:
+            main[key] = rec
+    if failed:
+        raise SmokeFailure(f"kernel disagrees with its plain version (or "
+                           f"left the wgmma path) at the new shapes: {failed}")
+    return main
+
+
+def phase_serve_archs(torch, card: str) -> dict[str, dict]:
+    """(13c) ``repro_torch.launch.serve`` for each one-card architecture at
+    full width and depth (``--space-sim`` for granite-moe-3b-a800m), with
+    phase 5's checks and launch counts, then phase 6's profile.  Returns
+    each run's launch counts."""
+    counts = {}
+    for arch in ONE_CARD_ARCHS:
+        t = time.perf_counter()
+        extra = ("--space-sim",) if arch == GRANITE else ()
+        counts[arch] = phase_serve(torch, card, arch, extra)
+        phase_profile(torch, 4, arch)
+        torch.cuda.empty_cache()
+        log(f"phase serve_archs {arch}: {time.perf_counter() - t:.1f}s")
+    return counts
+
+
+def decode_run(torch, cfg, params, prompt, feed=None):
+    """Prefill and SLOT_STEPS greedy decode steps on the model functions;
+    with ``feed`` (B, 1 + SLOT_STEPS) the steps take those tokens instead
+    of the model's own.  Returns (logits (1 + SLOT_STEPS, B, V) f32,
+    greedy tokens (B, 1 + SLOT_STEPS), ms a decode step)."""
+    from repro_torch.models import decode_step, prefill
+    logits, cache = prefill(cfg, params, prompt,
+                            max_len=PROMPT + SLOT_STEPS + 1)
+    steps = [logits.float()]
+    toks = [torch.argmax(logits, -1).to(torch.int32)[:, None]]
+    pos = torch.full((BATCH,), PROMPT, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(SLOT_STEPS):
+        tok = toks[-1] if feed is None else feed[:, i:i + 1]
+        logits, cache = decode_step(cfg, params, cache, tok, pos)
+        steps.append(logits.float())
+        toks.append(torch.argmax(logits, -1).to(torch.int32)[:, None])
+        pos = pos + 1
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / SLOT_STEPS
+    return torch.stack(steps), torch.cat(toks, dim=1), ms
+
+
+def slotted_launches(torch, cfg, what: str) -> dict[str, int]:
+    """Launches since the last reset, checked against a prefill and
+    SLOT_STEPS decode steps with every gmm launch on wgmma."""
+    from repro_torch.kernels import moe_gmm, ops
+    torch.cuda.synchronize()
+    counts, paths = ops.launch_counts(), dict(moe_gmm.path_launches)
+    want = serve_launches(cfg, passes=1 + SLOT_STEPS, decode_steps=SLOT_STEPS)
+    log(f"slotting {what}: launches {json.dumps(counts)}, gmm by path "
+        f"{json.dumps(paths)} (expected {json.dumps(want)}, all wgmma)")
+    if {k: counts[k] for k in want} != want \
+            or paths != {"wgmma": want["gmm"], "fma": 0}:
+        raise SmokeFailure(f"slotting {what}: launches {counts}, paths "
+                           f"{paths}, expected {want} all on wgmma")
+    return counts
+
+
+def recorded_run(torch, cfg, params, prompt, feed=None):
+    """``decode_run`` that also records every MoE call: (layer, input,
+    output) in call order, the layer found by its ``ffn`` dict."""
+    from repro_torch.models import moe as moe_mod
+    layer_of = {id(lp["ffn"]): i for i, lp in enumerate(params["layers"])}
+    calls, real = [], moe_mod.moe_apply_local
+
+    def recording(c, p, h, cdt):
+        y, aux = real(c, p, h, cdt)
+        calls.append((layer_of[id(p)], h, y))
+        return y, aux
+    moe_mod.moe_apply_local = recording
+    try:
+        return (*decode_run(torch, cfg, params, prompt, feed), calls)
+    finally:
+        moe_mod.moe_apply_local = real
+
+
+def phase_slotting(torch) -> dict[str, dict]:
+    """(13d) EP slotting at full width through the model functions (no
+    placement, which a slotted stack refuses).  llama-moe-3.5b slotted
+    (16 half-experts) against unslotted on the same canonical weights and
+    the same tokens.  Gate: every MoE call of the unslotted run replayed
+    through the slotted layer on the same input (so the same routing and
+    the same dropped copies, both at capacity C(E' = 8)), within 2^-5 of
+    that call's largest output: each half-expert's output, their sum
+    and the combined output are bf16 roundings (each at most 2^-7
+    relative), with room for halves larger than their sum.  Reported
+    beside it: the two whole runs' logits (their error against
+    n_layers x 2^-8 of the largest logit, one rounding of the residual
+    stream a layer) and the routing choices that differ between them,
+    which no rounding bound covers: near-tied router scores flip on the
+    last bit of their input.  Slotted granite-moe-3b-a800m (48 buckets;
+    its padded capacity differs from the unslotted model's, so the two
+    drop different copies): launches, paths, finite logits and tokens
+    in range.  Returns each slotted run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, random_batch
+    from repro_torch.models.moe import (moe_apply_local, route,
+                                        slotted_weights, slotting_for)
+    out = {}
+    cfg, scfg = get_config(ARCH), slotted_config(ARCH)
+    sl = slotting_for(scfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, "cuda")
+    names = ("w_gate", "w_up", "w_down")
+    slotted = dict(params, layers=[
+        dict(lp, ffn=dict(lp["ffn"], **dict(zip(names, slotted_weights(
+            *(lp["ffn"][n] for n in names), sl)))))
+        for lp in params["layers"]])
+    prompt = {"tokens": random_batch(cfg, BATCH, PROMPT, seed=0,
+                                     device="cuda")["tokens"]}
+    ops.reset_launch_counts()
+    want_l, want_t, ms0, calls0 = recorded_run(torch, cfg, params, prompt)
+    slotted_launches(torch, cfg, f"{cfg.name} unslotted")
+    ops.reset_launch_counts()
+    got_l, got_t, ms1, calls1 = recorded_run(torch, scfg, slotted, prompt,
+                                             feed=want_t)
+    out[ARCH + "/slotted"] = slotted_launches(
+        torch, scfg, f"{cfg.name} slotted ({sl.n_virtual} buckets)")
+
+    cdt = torch.bfloat16
+    worst, flips, choices = 0.0, 0, 0
+    for (layer, h0, y0), (_, h1, _) in zip(calls0, calls1, strict=True):
+        router = params["layers"][layer]["ffn"]["router"]
+        idx0 = route(cfg, router, h0.reshape(-1, cfg.d_model).to(cdt))[1]
+        idx1 = route(cfg, router, h1.reshape(-1, cfg.d_model).to(cdt))[1]
+        flips += int((idx0.sort(-1)[0] != idx1.sort(-1)[0]).any(-1).sum())
+        choices += idx0.shape[0]
+        y, _ = moe_apply_local(scfg, slotted["layers"][layer]["ffn"], h0, cdt)
+        worst = max(worst, float((y.float() - y0.float()).abs().max())
+                    / float(y0.float().abs().max()))
+    err = float((got_l - want_l).abs().max())
+    scale = float(want_l.abs().max())
+    tol = cfg.n_layers * 2.0 ** -8 * scale
+    agree = float((got_t == want_t).float().mean())
+    log(f"slotting {cfg.name}: {sl.n_virtual} buckets of d_ff "
+        f"{cfg.d_ff_expert // sl.frag}; {len(calls0)} MoE calls replayed "
+        f"on the unslotted run's inputs: worst max_abs_err / max|out| = "
+        f"{worst:.6g} (tol 2^-5 = {2.0 ** -5:.6g}); whole runs: logits "
+        f"max_abs_err={err:.6g} against {tol:.6g} = {cfg.n_layers} x 2^-8 "
+        f"x max|logit| {scale:.6g} (within={err <= tol}), routing choices "
+        f"that differ {flips} of {choices} token-layers, greedy tokens "
+        f"agree {agree:.1%}; decode {ms1:.3f} ms a step slotted, "
+        f"{ms0:.3f} unslotted; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (bool(torch.isfinite(got_l).all()) and worst <= 2.0 ** -5):
+        raise SmokeFailure(f"slotted {cfg.name} disagrees with unslotted on "
+                           f"the same inputs: {worst} > 2^-5")
+    del params, slotted, want_l, got_l, calls0, calls1
+    torch.cuda.empty_cache()
+
+    scfg = slotted_config(GRANITE)
+    sl = slotting_for(scfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(scfg, gen, "cuda")
+    prompt = {"tokens": random_batch(scfg, BATCH, PROMPT, seed=0,
+                                     device="cuda")["tokens"]}
+    ops.reset_launch_counts()
+    logits, toks, ms = decode_run(torch, scfg, params, prompt)
+    out[GRANITE + "/slotted"] = slotted_launches(
+        torch, scfg, f"{scfg.name} slotted ({sl.n_virtual} buckets)")
+    finite = bool(torch.isfinite(logits).all())
+    in_range = 0 <= int(toks.min()) and int(toks.max()) < scfg.padded_vocab
+    dummies = sl.e_pad - scfg.n_experts
+    log(f"slotting {scfg.name}: {sl.n_virtual} buckets ({dummies} "
+        f"dummies); logits {tuple(logits.shape)} finite="
+        f"{finite}; tokens in range={in_range}; decode {ms:.3f} ms a step")
+    if not (finite and in_range):
+        raise SmokeFailure(f"slotted {scfg.name}: non-finite logits or "
+                           "tokens out of range")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_archs(torch, card: str) -> tuple[dict, dict]:
+    """Phase 13 (a-d): kernels at the new shapes, the smoke models card
+    against CPU, the full-width serves, EP slotting.  Returns the 13a
+    records and the launch counts by run ("<arch>", "<arch>/slotted")."""
+    seconds = {}
+
+    def step(name, fn, *args):
+        t = time.perf_counter()
+        got = fn(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return got
+
+    cases = step("13a", phase_kernels_archs, torch)
+    for arch in (*ONE_CARD_ARCHS, *SMOKE_ONLY_ARCHS):
+        step("13b " + arch, phase_small, torch, arch)
+    for arch in (ARCH, GRANITE):
+        step(f"13b {arch} slotted", phase_small, torch, arch, True)
+    counts = step("13c", phase_serve_archs, torch, card)
+    counts.update(step("13d", phase_slotting, torch))
+    log(f"phase 13 seconds {json.dumps(seconds)}")
+    return cases, counts
 
 
 # --------------------------------------------------------------------- #
@@ -3224,6 +3541,7 @@ def main() -> int:
     timed("profile_deepseek", phase_profile, torch, 4, DEEPSEEK)
     torch.cuda.empty_cache()           # the 16B model's blocks go back
     timed("calibration", phase_calibration, torch)
+    arch_cases, arch_counts = timed("archs", phase_archs, torch, card)
     fleet_counts, captured, in_run, world = timed("fleet", phase_fleet, torch)
     main_cases.update(timed("fleet_kernels", phase_fleet_kernels, torch,
                             captured, in_run))
@@ -3237,7 +3555,8 @@ def main() -> int:
     timed("scenarios", phase_scenarios, torch)
     main_cases["admission_window"] = win_rec
     main_cases["admission_ctrl"] = ctrl_rec
-    mixed = [name for name, rec in (*main_cases.items(), *deep_cases.items())
+    mixed = [name for name, rec in (*main_cases.items(), *deep_cases.items(),
+                                    *arch_cases.items())
              if not rec["hidden"]]
     if mixed:
         raise SmokeFailure(f"kernel device time not separable from the "
@@ -3266,8 +3585,11 @@ def main() -> int:
                            "src/repro/traffic/queueing.py:589"),
     }
     # Each kernel at its main path's shape; gmm and decode_attention also
-    # at deepseek-moe-16b's decode shape, with that serve run's launches.
+    # at deepseek-moe-16b's decode shape, with that serve run's launches,
+    # and at phase 13's decode shapes, each with its own run's launches.
     runs = [(main_cases, counts), (deep_cases, deep_counts)]
+    runs += [({key.split("/")[0]: rec}, arch_counts[key.split("/", 1)[1]])
+             for key, rec in arch_cases.items()]
     kernels = []
     for cases, launches in runs:
         for name, rec in cases.items():

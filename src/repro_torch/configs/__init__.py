@@ -3,9 +3,9 @@
 ``get_config(arch_id)`` returns the full published config;
 ``smoke_config(arch_id)`` returns the same reduced config as
 ``repro.configs.smoke_config`` (same pattern/MoE/GQA structure, tiny dims).
-Registered so far: the paper's model and deepseek-moe-16b; the other
-architectures of the reference join with the model families that run
-them.
+Registered: the paper's model and every attention-only architecture of
+the reference.  jamba-1.5-large-398b and xlstm-350m need SSM mixers,
+which are not yet ported; ``get_config`` raises ``KeyError`` for them.
 """
 from __future__ import annotations
 
@@ -13,9 +13,16 @@ import dataclasses
 
 from repro_torch.models.config import ModelConfig
 
-from . import deepseek_moe_16b, llama_moe_3p5b
+from . import (deepseek_moe_16b, granite_moe_3b_a800m, llama_moe_3p5b,
+               llava_next_mistral_7b, minicpm_2b, mistral_large_123b,
+               musicgen_medium, qwen2_5_3b, smollm_135m)
 
-_MODULES = [deepseek_moe_16b, llama_moe_3p5b]
+# The reference's registry order, without the SSM architectures.
+_MODULES = [
+    granite_moe_3b_a800m, deepseek_moe_16b, llava_next_mistral_7b,
+    qwen2_5_3b, minicpm_2b, smollm_135m, mistral_large_123b,
+    musicgen_medium, llama_moe_3p5b,
+]
 
 REGISTRY: dict[str, ModelConfig] = {m.ARCH_ID: m.CONFIG for m in _MODULES}
 

@@ -1,0 +1,20 @@
+"""qwen2.5-3b [dense] — 36L d2048 16H (GQA kv=2) d_ff=11008 vocab 151936;
+QKV bias, tied embeddings.  [hf:Qwen/Qwen2.5-3B]
+"""
+from repro_torch.models.config import LayerSpec, ModelConfig
+
+ARCH_ID = "qwen2.5-3b"
+
+CONFIG = ModelConfig(
+    name=ARCH_ID,
+    n_layers=36,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=2,
+    d_ff=11008,
+    vocab_size=151936,
+    pattern=(LayerSpec("attn", "dense"),),
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    tie_embeddings=True,
+)

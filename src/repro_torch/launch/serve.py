@@ -5,8 +5,9 @@ Counterpart of ``repro.launch.serve``:
   1. calibrate: one forward pass collecting per-layer expert-selection
      counts (the paper's activation statistics, Eq. 14 plug-in);
   2. plan: Theorem-1 expert->device placement per MoE layer on the EP
-     ring (``repro_torch.core.device_placement``), applied as a weight
-     permutation (``repro_torch.models.moe.apply_placement``); with
+     ring (``repro_torch.core.device_placement``; ``ep_ring_devices``
+     devices), applied as a weight permutation
+     (``repro_torch.models.moe.apply_placement``); with
      ``--fail-device`` the elastic demo fails one EP device, re-plans on
      the survivors and reports the migration bytes;
   3. serve: prefill a batch of prompts, greedy-decode N tokens per
@@ -21,14 +22,21 @@ Counterpart of ``repro.launch.serve``:
      (``--trace``) and federation (``--federation K``) options of the
      reference.
 
-On a CUDA device the expert FFNs run through the hand-written ``gmm``
-kernel and decode attention through the ``decode_attention`` kernel, and
-every fleet object of step 4 is built on ``--device``.
+Every registered architecture serves (``--arch``): dense models skip
+steps 1-2 and 4, as in the reference; a vision model's prompts start
+with patch embeddings, and an audio model's prompts are embeddings
+throughout, with a frame embedding on every decode step.  On a CUDA
+device the expert FFNs run through the hand-written ``gmm`` kernel and
+decode attention through the ``decode_attention`` kernel, and every fleet
+object of step 4 is built on ``--device``.
 
     python -m repro_torch.launch.serve --arch llama-moe-3.5b \
         --batch 4 --prompt-len 32 --decode-tokens 16
     python -m repro_torch.launch.serve --arch deepseek-moe-16b \
         --batch 4 --prompt-len 32 --decode-tokens 16
+    python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \
+        --space-sim
+    python -m repro_torch.launch.serve --arch llava-next-mistral-7b
     python -m repro_torch.launch.serve --smoke --device cpu
     python -m repro_torch.launch.serve --smoke --device cpu \
         --traffic smoke --admission aimd --federation 2 --fail-device 0
@@ -64,6 +72,17 @@ def calibrate_router_stats(cfg, params, batch) -> np.ndarray | None:
     return counts.cpu().numpy()
 
 
+def ep_ring_devices(n_experts: int, ep_ring: int = 16) -> int:
+    """Devices of step 2's EP ring: the reference's ``min(ep_ring, E)``,
+    or, where that does not divide E (the reference's
+    ``plan_expert_devices`` then raises: granite-moe-3b-a800m's 40
+    experts on 16), the largest divisor of E below it (10 for 40)."""
+    n = min(ep_ring, n_experts)
+    while n_experts % n:
+        n -= 1
+    return n
+
+
 def plan_and_apply_placement(cfg, params, counts: np.ndarray,
                              ep_ring: int = 16):
     """Per-unit Theorem-1 device placement, applied to the expert stacks.
@@ -76,7 +95,7 @@ def plan_and_apply_placement(cfg, params, counts: np.ndarray,
     model's 32.26 GiB, where copying every stack peaked at 58.46 GiB.
     Returns ``params`` itself."""
     e = cfg.n_experts
-    ring = TorusSpec(shape=(min(ep_ring, e),), wrap=True)
+    ring = TorusSpec(shape=(ep_ring_devices(e, ep_ring),), wrap=True)
     plans, costs = [], {"theorem1": 0.0, "identity": 0.0}
     for u in range(counts.shape[0]):
         w = counts[u] + 1e-3
@@ -207,7 +226,8 @@ def _serve(cfg, params, args, device) -> tuple[dict, dict]:
                   f"{costs['identity']*1e6:.1f}us  (-{red:.1f}%)")
             if args.fail_device >= 0:
                 w = counts.sum(axis=0) + 1e-3
-                ring = TorusSpec(shape=(min(16, cfg.n_experts),), wrap=True)
+                ring = TorusSpec(shape=(ep_ring_devices(cfg.n_experts),),
+                                 wrap=True)
                 plan0 = plan_expert_devices(w, cfg.top_k, ring)
                 plan1, survivors = replan_on_failure(
                     w, cfg.top_k, ring, {args.fail_device})
@@ -228,11 +248,15 @@ def _serve(cfg, params, args, device) -> tuple[dict, dict]:
     tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     pos = torch.full((args.batch,), args.prompt_len, dtype=torch.int32,
                      device=device)
+    # The audio frontend's stub: every decode step takes a frame embedding.
+    emb = (torch.ones((args.batch, 1, cfg.d_model), dtype=torch.float32,
+                      device=device)
+           if cfg.frontend == "audio" else None)
     generated = [tok]
     _synchronize(device)
     t0 = time.perf_counter()
     for _ in range(args.decode_tokens):
-        tok, logits, cache = serve_step(params, cache, tok, pos)
+        tok, logits, cache = serve_step(params, cache, tok, pos, emb)
         pos = pos + 1
         generated.append(tok)
     _synchronize(device)
@@ -272,8 +296,9 @@ def _space_sim(cfg, counts: np.ndarray, args, device, out: dict) -> None:
     the layer's experts besides its gateway (``theorem1_assignment``).
     Where 16 satellites a plane cannot, the reference's serve raises; the
     port widens the planes to the fewest satellites that can
-    (``plane_sats``): one a layer for llama-moe-3.5b's 32 layers, six a
-    layer for deepseek-moe-16b's 27 layers of 64 experts."""
+    (``plane_sats``): one a layer for llama-moe-3.5b's 32 layers, four a
+    layer for granite-moe-3b-a800m's 32 layers of 40 experts, six a layer
+    for deepseek-moe-16b's 27 layers of 64 experts."""
     n_layers = counts.shape[0]
     ccfg = ConstellationConfig.scaled(
         12, plane_sats(n_layers, cfg.n_experts, 12), n_slots=20)

@@ -1,10 +1,12 @@
-"""Model zoo of the port (attention + dense/MoE FFN families so far)."""
+"""Model zoo of the port (attention mixers with dense/MoE FFNs, EP
+slotting and the stub vision/audio frontends)."""
 from .config import LayerSpec, ModelConfig
-from .frontends import random_batch
+from .frontends import batch_specs, frontend_split, random_batch
 from .model import (cast_for_compute, decode_step, forward, init_cache,
                     init_params, n_scan_units, prefill)
 from .moe import apply_placement
 
-__all__ = ["LayerSpec", "ModelConfig", "random_batch", "cast_for_compute",
-           "decode_step", "forward", "init_cache", "init_params",
-           "n_scan_units", "prefill", "apply_placement"]
+__all__ = ["LayerSpec", "ModelConfig", "batch_specs", "frontend_split",
+           "random_batch", "cast_for_compute", "decode_step", "forward",
+           "init_cache", "init_params", "n_scan_units", "prefill",
+           "apply_placement"]

@@ -5,8 +5,8 @@ A model is a stack of ``n_layers`` blocks described by a repeating
 ``pattern`` of (mixer, ffn) pairs.  ``len(pattern)`` must divide
 ``n_layers``; the reference scans over ``n_units`` units, the port loops
 over them in Python.  Fields for features the port does not run yet
-(SSM mixers, slotting, remat) are kept so that one config describes the
-same model in both packages.
+(SSM mixers, remat) are kept so that one config describes the same
+model in both packages.
 """
 from __future__ import annotations
 

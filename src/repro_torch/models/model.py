@@ -20,6 +20,10 @@ the norm scales stay f32, as the reference uses them in f32.
 peaks at the cast model plus one block in ``param_dtype`` (deepseek-moe-16b
 in bf16: 32.26 GiB, against about 61 GiB for the whole model in f32).
 
+Inputs are a batch dict as in the reference: "tokens" (B, S_t) and/or
+"embeds" (B, S_e, d) from a stub frontend (``frontends.py``), embeddings
+first; ``decode_step`` takes ``embeds`` (B, 1, d) in place of tokens.
+
 Not yet ported (they raise): ``Parallel``/sharded execution, mamba /
 mlstm / slstm mixers, ``loss_fn`` and ``remat``.
 """
@@ -46,8 +50,6 @@ def check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(f"{spec.mixer} mixers are not yet ported")
         if spec.ffn not in ("dense", "moe"):
             raise NotImplementedError(f"ffn={spec.ffn!r} is not yet ported")
-    if cfg.frontend:
-        raise NotImplementedError(f"{cfg.frontend!r} frontend is not yet ported")
 
 
 def n_scan_units(cfg: ModelConfig) -> int:
@@ -166,10 +168,14 @@ def _apply_block(cfg, spec, bp, x, positions, cdt, cache, mode):
 
 
 def _embed_inputs(cfg, params, batch, cdt):
-    """batch: dict with 'tokens' (B, S)."""
+    """batch: dict with 'tokens' (B, S_t) and/or 'embeds' (B, S_e, d);
+    embeddings come first, and positions run over the whole prompt."""
+    parts = []
     if "embeds" in batch:
-        raise NotImplementedError("embedding inputs are not yet ported")
-    x = embed(params["embed"], batch["tokens"], cdt)
+        parts.append(batch["embeds"].to(cdt))
+    if "tokens" in batch:
+        parts.append(embed(params["embed"], batch["tokens"], cdt))
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     b, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None] \
         .expand(b, s)
@@ -252,14 +258,19 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int):
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                tokens: torch.Tensor, pos: torch.Tensor):
+                tokens: torch.Tensor | None, pos: torch.Tensor,
+                embeds: torch.Tensor | None = None):
     """One autoregressive step; updates ``cache`` in place.
 
-    tokens: (B, 1) int32; pos: (B,) int32 positions of these tokens.
-    Returns (logits (B, V), cache).
+    tokens: (B, 1) int32 (or ``embeds`` (B, 1, d) for stub frontends, in
+    which case ``tokens`` is not read); pos: (B,) int32 positions of these
+    tokens.  Returns (logits (B, V), cache).
     """
     cdt = dtype_of(cfg.compute_dtype)
-    x = embed(params["embed"], tokens, cdt)
+    if embeds is not None:
+        x = embeds.to(cdt)
+    else:
+        x = embed(params["embed"], tokens, cdt)
     if cfg.first_layer_dense:
         x, _, _ = _apply_block(cfg, _first_spec(cfg), params["first"], x,
                                pos, cdt, cache["first"], "decode")

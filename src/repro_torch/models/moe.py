@@ -13,10 +13,20 @@ reference computes it outside any kernel, and so does the port
 SpaceMoE placement as a checkpoint transform (permuted expert stacks and
 router columns; the shared block stays where it is).
 
-Not ported yet (they raise): EP slotting and the expert-parallel
-``moe_apply_ep*`` paths.
+EP slotting (``moe_slotting``) re-lays the expert stack into V virtual
+slots so that V divides the EP axis (``moe_ep_slots``): E >= S pads with
+dummy experts to the next multiple of S (granite-moe-3b-a800m: 40 -> 48;
+the dummies get no tokens); E < S splits each expert's d_ff into
+fragments (llama-moe-3.5b: 8 experts x 2 halves = 16 slots), each token
+copy goes to every fragment of its expert, and the fragments' outputs
+are summed before the top-K weights.  On one device the V buckets run
+through ``gmm`` as one stack.
+
+Not ported yet: the expert-parallel ``moe_apply_ep*`` paths.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -26,13 +36,70 @@ from .config import ModelConfig
 from .layers import ffn_apply, ffn_init, normal_init, out_proj_init
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if getattr(cfg, "moe_slotting", False):
-        raise NotImplementedError("MoE EP slotting is not yet ported")
+# --------------------------------------------------------------------- #
+# EP slotting (paper Sec. VI-B multi-expert rule on devices)
+# --------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass(frozen=True)
+class Slotting:
+    n_experts: int
+    n_slots: int       # EP axis size the layout targets
+    frag: int          # d_ff fragments per expert
+    e_pad: int         # padded expert count (>= n_experts)
+
+    @property
+    def n_virtual(self) -> int:
+        return self.e_pad * self.frag
+
+
+def make_slotting(n_experts: int, n_slots: int) -> Slotting:
+    if n_experts >= n_slots:
+        e_pad = -(-n_experts // n_slots) * n_slots
+        return Slotting(n_experts, n_slots, 1, e_pad)
+    e_pad = n_experts
+    while n_slots % e_pad:
+        e_pad += 1
+    return Slotting(n_experts, n_slots, n_slots // e_pad, e_pad)
+
+
+def slotting_for(cfg: ModelConfig) -> Slotting | None:
+    if not cfg.moe_slotting or cfg.n_experts == 0:
+        return None
+    return make_slotting(cfg.n_experts, cfg.moe_ep_slots)
+
+
+def slotted_weights(w_gate: torch.Tensor, w_up: torch.Tensor,
+                    w_down: torch.Tensor, sl: Slotting):
+    """Canonical (E,d,f)/(E,f,d) stacks -> virtual (V,d,f/frag)/(V,f/frag,d),
+    slot-major per expert, contiguous; dummy experts are zeros."""
+    e, d, f = w_gate.shape
+    if f % sl.frag:
+        raise ValueError(f"d_ff_expert={f} not divisible by frag={sl.frag}")
+    pad = sl.e_pad - e
+    if pad:
+        w_gate = torch.cat([w_gate, w_gate.new_zeros((pad, d, f))])
+        w_up = torch.cat([w_up, w_up.new_zeros((pad, d, f))])
+        w_down = torch.cat([w_down, w_down.new_zeros((pad, f, d))])
+    fs = f // sl.frag
+    # (E', d, f) -> (E', frag, d, fs) -> (V, d, fs)
+    wg = w_gate.reshape(sl.e_pad, d, sl.frag, fs).permute(0, 2, 1, 3) \
+        .reshape(sl.n_virtual, d, fs)
+    wu = w_up.reshape(sl.e_pad, d, sl.frag, fs).permute(0, 2, 1, 3) \
+        .reshape(sl.n_virtual, d, fs)
+    wd = w_down.reshape(sl.n_virtual, fs, d)
+    return wg.contiguous(), wu.contiguous(), wd.contiguous()
+
+
+def virtual_indices(idx: torch.Tensor, sl: Slotting) -> torch.Tensor:
+    """(T, K) expert ids -> (T, K*frag) virtual slot ids."""
+    frag_ids = torch.arange(sl.frag, dtype=idx.dtype, device=idx.device)
+    v = idx[..., None] * sl.frag + frag_ids          # (T, K, frag)
+    return v.reshape(idx.shape[0], -1)
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
-    _check_supported(cfg)
+    """The canonical (E, d, f) stacks, slotted where ``cfg`` asks for it."""
     e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
     p = {
         "router": normal_init(gen, (d, e), torch.float32, device),  # kept f32
@@ -40,6 +107,10 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
         "w_up": normal_init(gen, (e, d, f), dtype, device),
         "w_down": out_proj_init(gen, (e, f, d), dtype, device, cfg.n_layers),
     }
+    sl = slotting_for(cfg)
+    if sl is not None:
+        p["w_gate"], p["w_up"], p["w_down"] = slotted_weights(
+            p["w_gate"], p["w_up"], p["w_down"], sl)
     if cfg.n_shared_experts > 0:
         p["shared"] = ffn_init(gen, d, f * cfg.n_shared_experts,
                                cfg.n_layers, dtype, device)
@@ -130,6 +201,15 @@ def expert_ffn(params: dict, xs: torch.Tensor, compute_dtype) -> torch.Tensor:
     return ops.expert_ffn(params, xs, compute_dtype)
 
 
+def _plan(cfg: ModelConfig, idx: torch.Tensor, t: int):
+    """Virtual-slot dispatch plan: (v_idx, n_buckets, cap, frag)."""
+    sl = slotting_for(cfg)
+    if sl is None:
+        return idx, cfg.n_experts, capacity(cfg, t, cfg.n_experts), 1
+    return (virtual_indices(idx, sl), sl.n_virtual,
+            capacity(cfg, t, sl.e_pad), sl.frag)
+
+
 def _combine(gathered: torch.Tensor, weights: torch.Tensor, t: int, k: int,
              frag: int, compute_dtype) -> torch.Tensor:
     """(T*K*frag, d) copy outputs -> (T, d): sum fragments, weight top-K."""
@@ -139,17 +219,18 @@ def _combine(gathered: torch.Tensor, weights: torch.Tensor, t: int, k: int,
 
 def moe_apply_local(cfg: ModelConfig, params: dict, x: torch.Tensor,
                     compute_dtype) -> tuple[torch.Tensor, dict]:
-    """Single-device MoE: x (B, S, d) -> (B, S, d)."""
-    _check_supported(cfg)
+    """Single-device MoE: x (B, S, d) -> (B, S, d).  With slotting the
+    V virtual buckets (E' * frag) run as one stack."""
     b, s, d = x.shape
     t = b * s
     k = cfg.top_k
     xt = x.reshape(t, d).to(compute_dtype)
     weights, idx, aux = route(cfg, params["router"], xt)
-    n_b, cap, frag = cfg.n_experts, capacity(cfg, t, cfg.n_experts), 1
-    slot_token, slot_valid, copy_slot, copy_kept = dispatch_indices(idx, n_b, cap)
-    # copy j of the flattened (T*K,) list is token j // K: gather the
-    # tokens directly instead of materializing the repeated copies.
+    v_idx, n_b, cap, frag = _plan(cfg, idx, t)
+    slot_token, slot_valid, copy_slot, copy_kept = dispatch_indices(
+        v_idx, n_b, cap)
+    # copy j of the flattened (T*K*frag,) list is token j // (K*frag):
+    # gather the tokens directly instead of materializing the copies.
     buckets = xt[slot_token // (k * frag)] * slot_valid[:, None].to(compute_dtype)
     outs = expert_ffn(params, buckets.reshape(n_b, cap, d), compute_dtype)
     flat_out = outs.reshape(n_b * cap, d)
@@ -171,7 +252,19 @@ def apply_placement(moe_params: dict, slot_to_expert: np.ndarray) -> dict:
 
     The router columns are permuted identically, so routing semantics are
     unchanged: logits[slot] == original logits[slot_to_expert[slot]].
+
+    A slotted stack (V virtual rows for E experts, V != E) raises: an
+    E-long permutation of its rows would keep E of the V rows.  (The
+    reference permutes it all the same and fails later, in the expert
+    einsum.)
     """
+    n_rows, n_experts = (moe_params["w_gate"].shape[0],
+                         moe_params["router"].shape[1])
+    if n_rows != n_experts:
+        raise ValueError(
+            f"apply_placement: the expert stack has {n_rows} rows for "
+            f"{n_experts} experts (an EP-slotted layout, V != E); the "
+            "placement permutes experts, not virtual slots")
     perm = torch.as_tensor(np.asarray(slot_to_expert), dtype=torch.int64,
                            device=moe_params["router"].device)
     out = dict(moe_params)
@@ -181,5 +274,7 @@ def apply_placement(moe_params: dict, slot_to_expert: np.ndarray) -> dict:
     return out
 
 
-__all__ = ["moe_init", "route", "capacity", "dispatch_indices", "expert_ffn",
-           "moe_apply_local", "apply_placement"]
+__all__ = ["Slotting", "make_slotting", "slotting_for", "slotted_weights",
+           "virtual_indices", "moe_init", "route", "capacity",
+           "dispatch_indices", "expert_ffn", "moe_apply_local",
+           "apply_placement"]

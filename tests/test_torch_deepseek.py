@@ -261,6 +261,7 @@ def test_serve_places_every_moe_unit():
     (2, 8, 16),      # smoke sizes: the reference's 12 x 16 world
     (32, 8, 32),     # llama-moe-3.5b: one satellite a layer
     (27, 64, 162),   # deepseek-moe-16b: 6 x 12 = 72 >= 65 a subnet
+    (32, 40, 128),   # granite-moe-3b-a800m: 4 x 12 = 48 >= 41
     (16, 11, 16), (16, 12, 32),
 ])
 def test_step4_world_holds_every_layers_experts(layers, experts, want):

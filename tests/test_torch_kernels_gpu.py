@@ -57,6 +57,15 @@ def _gmm_inputs(device, e, c, k, n, dtype, seed=0):
     (64, 15, 2048, 1408), (64, 15, 1408, 2048),
     (64, 32, 2048, 1408), (64, 32, 1408, 2048),
     (8, 32, 4096, 1376),   # llama-moe-3.5b's calibration buckets
+    # granite-moe-3b-a800m: 40 experts, decode (C floors at top_k = 8)
+    # and prefill at T = 128 (C = 32); slotted to 48 buckets (prefill
+    # C = 27); slotted llama-moe-3.5b: 16 half-experts of 688, whose K and
+    # N leave tails of the 64-deep K step and the 128-wide N block
+    (40, 8, 1536, 512), (40, 8, 512, 1536),
+    (40, 32, 1536, 512), (40, 32, 512, 1536),
+    (48, 8, 1536, 512), (48, 27, 512, 1536),
+    (16, 2, 4096, 688), (16, 2, 688, 4096),
+    (16, 40, 4096, 688), (16, 40, 688, 4096),
 ])
 def test_gmm_kernel_matches_plain(cuda_device, e, c, k, n, dtype):
     x, w = _gmm_inputs(cuda_device, e, c, k, n, dtype)
@@ -85,6 +94,9 @@ def test_gmm_kernel_is_bitwise_repeatable(cuda_device, e, c, k, n):
     (8, 2560, 4096, 1376, torch.bfloat16, "wgmma"),
     (8, 2, 4096, 1376, torch.float32, "fma"),
     (3, 130, 100, 36, torch.bfloat16, "fma"),
+    (40, 8, 1536, 512, torch.bfloat16, "wgmma"),
+    (16, 2, 4096, 688, torch.bfloat16, "wgmma"),
+    (16, 40, 688, 4096, torch.bfloat16, "wgmma"),
 ])
 def test_gmm_kernel_counts_its_path(cuda_device, e, c, k, n, dtype, path):
     x, w = _gmm_inputs(cuda_device, e, c, k, n, dtype)
@@ -103,7 +115,19 @@ def test_gmm_kernel_counts_its_path(cuda_device, e, c, k, n, dtype, path):
                                           # its calibration sweep
                                           (4, 16, 1, 49, 128),
                                           *[(b, 16, 1, 512, 128)
-                                            for b in (1, 2, 4, 8)]])
+                                            for b in (1, 2, 4, 8)],
+                                          # head dim 64 with 3 of a block's
+                                          # 4 heads (granite, smollm), 8
+                                          # heads in two blocks (qwen2.5),
+                                          # llava's 4, minicpm's and
+                                          # musicgen's MHA at hd 64
+                                          (4, 8, 3, 49, 64),
+                                          (4, 3, 3, 2048, 64),
+                                          (4, 2, 8, 49, 128),
+                                          (4, 2, 8, 2048, 128),
+                                          (4, 8, 4, 49, 128),
+                                          (4, 36, 1, 49, 64),
+                                          (4, 24, 1, 2048, 64)])
 def test_decode_attention_kernel_matches_plain(cuda_device, b, hkv, g, s, hd,
                                                dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(1)

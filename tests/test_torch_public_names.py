@@ -2,7 +2,7 @@
 reference: the arrival processes and length samplers of ``traffic``,
 ``simulate_traffic``, and ``core``'s ``sample_topk``, ``rand_intra_plan``,
 ``migration_between``, ``save_table``, ``contention_counts``,
-``hop_latency``, and ``models.init_cache``.
+``hop_latency``, ``models.init_cache`` and ``models.__all__``.
 
 Host numpy functions get the same seeded generators in both packages and
 are held bitwise.  ``contention_counts`` and ``hop_latency`` are jnp in
@@ -372,3 +372,16 @@ def test_core_covers_every_public_name_of_the_reference():
     assert want <= set(pc.__all__)
     assert all(hasattr(pc, n) for n in pc.__all__)
     assert "n_scan_units" in pm.__all__ and hasattr(pm, "n_scan_units")
+
+
+def test_models_cover_the_references_public_names():
+    """``repro_torch.models.__all__`` holds every name of the reference's
+    but ``Parallel`` and ``loss_fn`` (sharding and training, not yet
+    ported), the frontends' ``batch_specs`` and ``frontend_split``
+    among them."""
+    import repro.models as jmodels
+    import repro_torch.models as pm
+    missing = set(jmodels.__all__) - set(pm.__all__)
+    assert missing == {"Parallel", "loss_fn"}
+    assert {"batch_specs", "frontend_split"} <= set(pm.__all__)
+    assert all(hasattr(pm, n) for n in pm.__all__)

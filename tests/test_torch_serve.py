@@ -148,11 +148,13 @@ def test_cuda_without_a_card_raises():
 
 
 def test_unported_model_features_raise():
-    """What the port does not run yet refuses loudly: EP slotting and the
-    architectures whose model families are not ported."""
-    cfg = dataclasses.replace(tcfgs.smoke_config("deepseek-moe-16b"),
-                              moe_slotting=True)
-    with pytest.raises(NotImplementedError, match="slotting"):
+    """What the port does not run yet refuses loudly: the architectures
+    that need SSM mixers, and an SSM mixer in any config."""
+    for arch in ("jamba-1.5-large-398b", "xlstm-350m"):
+        with pytest.raises(KeyError, match="not yet ported"):
+            tcfgs.get_config(arch)
+    from repro_torch.models.config import LayerSpec
+    cfg = dataclasses.replace(tcfgs.smoke_config("llama-moe-3.5b"),
+                              pattern=(LayerSpec("mamba", "moe"),))
+    with pytest.raises(NotImplementedError, match="mamba"):
         tmodels.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(KeyError, match="not yet ported"):
-        tcfgs.get_config("granite-moe-3b-a800m")

@@ -175,19 +175,46 @@ Phases (any failure exits non-zero and prints no success line):
      logits, differing routing choices and greedy tokens reported),
      slotted granite's launches, paths and finite logits;
      mistral-large-123b runs at smoke size only;
- 14. the ``kernels`` JSON line (all six kernels, and gmm and
+ 14. the recurrent mixers (run after 13): (a) ``repro_torch.launch.serve
+     --arch xlstm-350m`` at published width and depth (24 layers of
+     mLSTM and sLSTM, d_model 1024) as phase 5: tok/s against the bound
+     of its weights and the mLSTM memory each step reads and writes,
+     peak memory, no gmm and no decode_attention launch; profiled as
+     phase 6 with the mLSTM state update as a labelled range (its share
+     of the step's kernel time), beside the update timed alone;
+     (b) xlstm-350m's and jamba-1.5-large-398b's smoke models on the card
+     against the CPU, as phase 4, and ``serve --smoke --arch
+     jamba-1.5-large-398b --space-sim`` on the card (gmm 432,
+     decode_attention 32 launches); (c) jamba at published width one
+     block at a time (its full size needs sharding over more than four
+     cards): gmm at its expert stacks (16 x 8192 x 24576, past 2^31
+     elements; decode C = 2, prefill C = 20, both projections) and
+     decode_attention at q(4, 8, 8, 128), S = 49 and 2048, against their
+     plain versions, ``torch.bmm`` / SDPA and their bounds; then its Mamba
+     + MoE, Mamba + dense and attention + MoE blocks, each drawn through
+     ``_block_init`` and ``cast_for_compute``, prefilled (4 x 32) and
+     decoded 16 steps through ``_apply_block`` (ms a step against its
+     weights bound, peaks, launches: gmm 102 and decode_attention 16 in
+     all, every gmm call replayed against ``gmm_ref`` within 2^-5);
+ 15. the ``kernels`` JSON line (all six kernels, and gmm and
      decode_attention again at deepseek-moe-16b's decode shape with
-     phase 6d's launches and at phase 13's decode shapes with that
-     phase's launches; launches counted over
+     phase 6d's launches, at phase 13's decode shapes with that
+     phase's launches and at phase 14c's shapes with their launches
+     there; launches counted over
      the serve run for gmm/decode_attention, over the fleet ``run()``
      for deposit/backlog_scan and over the AIMD ``run()`` for
      admission_window/admission_ctrl), the card line, then the result
      line.  Each phase's seconds are printed as it ends.
 
+Every ``torch.profiler`` window opens with PROFILE_PRIMER throwaway spin
+launches (``primed_profile``), which the profiler may drop in place of
+the first kernels of the work it measures.
+
 Imports nothing of JAX and nothing of the ``repro`` package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -241,13 +268,49 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def device_times(prof, n_calls: int) -> list[tuple[float, float, str]]:
+# Throwaway launches that open every profiled window (``primed_profile``).
+PROFILE_PRIMER = 1000
+PRIMER_KERNEL = "spin_kernel"        # torch.cuda._sleep's kernel
+
+
+@contextlib.contextmanager
+def primed_profile(torch):
+    """``torch.profiler.profile`` over CPU and CUDA whose window opens with
+    PROFILE_PRIMER one-cycle spin launches and a synchronize, before the
+    caller's work.  Late in this script the profiler has dropped the
+    first few kernel records of a window (5 to 11 in repeated windows on
+    the H100 with torch 2.11, among them the first ``backlog_scan`` launch
+    of phase 7's profiled ``run()``, which failed its check); the spins
+    take that loss, and ``device_times`` leaves them out."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PRIMER):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        yield prof
+
+
+def device_times(prof, n_calls: int,
+                 ranges: tuple = ()) -> list[tuple[float, float, str]]:
     """(ms per call, launches per call, name) of every device-side event
-    the profiler recorded, summed by name."""
+    the profiler recorded, summed by name; the device-side spans of the
+    ``record_function`` labels in ``ranges`` are not kernels, and
+    ``primed_profile``'s spins not the caller's: both are left out."""
     from torch.autograd import DeviceType
     return [(evt.self_device_time_total / 1e3 / n_calls, evt.count / n_calls,
              evt.key)
-            for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA]
+            for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA and evt.key not in ranges
+            and PRIMER_KERNEL not in evt.key]
+
+
+def primer_launches(prof) -> int:
+    """The primer's launches the profiler recorded (of PROFILE_PRIMER)."""
+    from torch.autograd import DeviceType
+    return sum(evt.count for evt in prof.key_averages()
+               if evt.device_type == DeviceType.CUDA
+               and PRIMER_KERNEL in evt.key)
 
 
 def _events(torch, n: int):
@@ -551,51 +614,90 @@ def phase_small(torch, arch: str = ARCH, slotted: bool = False) -> None:
 # --------------------------------------------------------------------- #
 
 
+def block_specs(cfg) -> list:
+    """Every block's spec in order, the dense first block included."""
+    from repro_torch.models.model import _first_spec, layer_specs
+    return ([_first_spec(cfg)] if cfg.first_layer_dense else []) \
+        + layer_specs(cfg)
+
+
 def n_ffn_layers(cfg) -> tuple[int, int]:
     """(MoE layers, dense-FFN layers after the dense first block)."""
     from repro_torch.models.model import layer_specs
     specs = layer_specs(cfg)
     n_moe = sum(spec.ffn == "moe" for spec in specs)
-    return n_moe, len(specs) - n_moe
+    return n_moe, sum(spec.ffn == "dense" for spec in specs)
+
+
+def mixer_bytes(cfg, mixer: str, batch: int = BATCH) -> tuple[int, int]:
+    """(weight bytes, state bytes) one decode step of one ``mixer`` block
+    moves: its bf16 weights and f32 parameters read once, its f32
+    recurrent state read and written once (the KV cache is counted by
+    ``decode_attention``'s own bound)."""
+    d, di, nh = cfg.d_model, cfg.d_inner, cfg.n_heads
+    dh = di // nh
+    n, r, dc = cfg.mamba_d_state, cfg.mamba_dt_rank, cfg.mamba_d_conv
+    if mixer == "attn":
+        return (2 * d * cfg.q_dim + 2 * d * cfg.kv_dim) * 2, 0
+    if mixer == "mamba":
+        bf16 = 2 * d * di + dc * di + 2 * di + di * (r + 2 * n) + r * di + di * d
+        return bf16 * 2 + (di + di * n) * 4, \
+            2 * batch * ((dc - 1) * di + di * n) * 4
+    if mixer == "mlstm":
+        return 5 * d * di * 2 + (2 * d * nh + 2 * nh) * 4, \
+            2 * batch * nh * (dh * dh + dh + 1) * 4
+    return (4 * d * di + di * d) * 2 + (nh * dh * 4 * dh + 4 * di) * 4, \
+        2 * batch * 4 * nh * dh * 4
 
 
 def serve_weight_bytes(cfg) -> dict[str, float]:
-    """Bytes of bf16 weights a decode step reads once: every routed expert
-    (the buckets cover every expert), the shared experts, the dense first
-    block, the dense FFNs, the attention projections and the LM head (the
-    embedding table itself when tied; the step gathers B of its rows)."""
+    """Bytes a decode step must move once: every bf16 weight (every routed
+    expert: the buckets cover every expert; the shared experts, the dense
+    first block, the dense FFNs, each kind of mixer, the LM head or the
+    tied embedding table, of which the step gathers B rows), the
+    recurrent mixers' f32 parameters, and their f32 state read and
+    written (``state``: mLSTM's (B, NH, dh, dh) memory above all)."""
     n_moe, n_dense = n_ffn_layers(cfg)
     d, f = cfg.d_model, cfg.d_ff_expert
-    return {
+    parts = {
         "experts": n_moe * cfg.n_experts * 3 * d * f * 2,
         "shared": n_moe * 3 * d * f * cfg.n_shared_experts * 2,
         "first": (3 * d * (cfg.first_dense_d_ff or cfg.d_ff) * 2
                   if cfg.first_layer_dense else 0),
         "ffn": n_dense * 3 * d * cfg.d_ff * 2,
-        "attention": cfg.n_layers * (2 * d * cfg.q_dim
-                                     + 2 * d * cfg.kv_dim) * 2,
+        "attention": 0, "mamba": 0, "mlstm": 0, "slstm": 0, "state": 0,
         "head": d * cfg.padded_vocab * 2,
     }
+    for spec in block_specs(cfg):
+        weights, state = mixer_bytes(cfg, spec.mixer)
+        parts["attention" if spec.mixer == "attn" else spec.mixer] += weights
+        parts["state"] += state
+    return parts
 
 
 def serve_launches(cfg, passes: int = 2 + DECODE,
                    decode_steps: int = DECODE) -> dict[str, int]:
     """gmm: 3 per MoE layer per pass (serve's: calibrate, prefill, each
-    decode step; none for a dense model); decode_attention: one per
-    attention block per decode step."""
+    decode step; none without MoE); decode_attention: one per attention
+    block per decode step (none for the recurrent mixers)."""
     n_moe, _ = n_ffn_layers(cfg)
+    n_attn = sum(spec.mixer == "attn" for spec in block_specs(cfg))
     return {"gmm": 3 * n_moe * passes,
-            "decode_attention": cfg.n_layers * decode_steps}
+            "decode_attention": n_attn * decode_steps}
 
 
-def phase_serve(torch, card: str, arch: str = ARCH,
-                extra: tuple = ()) -> dict[str, int]:
-    from repro_torch.configs import get_config
+def phase_serve(torch, card: str, arch: str = ARCH, extra: tuple = (),
+                smoke: bool = False) -> dict[str, int]:
+    """``serve`` at full width and depth (``smoke``: the smoke model, f32,
+    so every gmm launch takes the fma path) with the checks of phase 5."""
+    from repro_torch.configs import get_config, smoke_config
     from repro_torch.kernels import moe_gmm, ops
     from repro_torch.launch import serve
-    cfg = get_config(arch)
+    cfg = smoke_config(arch) if smoke else get_config(arch)
     argv = ["--arch", arch, "--batch", str(BATCH), "--prompt-len",
             str(PROMPT), "--decode-tokens", str(DECODE), *extra]
+    if smoke:
+        argv.append("--smoke")
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     out, state = serve.run(argv)
@@ -611,8 +713,8 @@ def phase_serve(torch, card: str, arch: str = ARCH,
     parts = serve_weight_bytes(cfg)
     total = sum(parts.values())
     step_ms = total / HBM_BYTES_PER_S * 1e3
-    log(f"decode-step bound: {total / 1e9:.3f} GB of weights ("
-        + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in parts.items())
+    log(f"decode-step bound: {total / 1e9:.3f} GB of weights and state ("
+        + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in parts.items() if v)
         + f") -> {step_ms:.3f} ms at 3.35 TB/s -> "
         f"{BATCH / step_ms * 1e3:.0f} tok/s at batch {BATCH}; measured "
         f"{BATCH * 1e3 / out['tokens_per_s']:.3f} ms/step, "
@@ -631,11 +733,12 @@ def phase_serve(torch, card: str, arch: str = ARCH,
     if {k: counts[k] for k in want} != want:
         raise SmokeFailure(f"launch counts {counts} != expected {want}")
     paths = dict(moe_gmm.path_launches)
+    path = "fma" if smoke else "wgmma"
     log(f"gmm launches by path {json.dumps(paths)} (expected all "
-        f"{want['gmm']} on wgmma)")
-    if paths != {"wgmma": want["gmm"], "fma": 0}:
+        f"{want['gmm']} on {path})")
+    if paths != {"wgmma": 0, "fma": 0, path: want["gmm"]}:
         raise SmokeFailure(f"gmm paths {paths}: not every serve launch ran "
-                           "on the tensor cores")
+                           f"on the {path} path")
     return counts
 
 
@@ -644,8 +747,14 @@ def phase_serve(torch, card: str, arch: str = ARCH,
 # --------------------------------------------------------------------- #
 
 
-def phase_profile(torch, n_steps: int = 4, arch: str = ARCH) -> None:
-    from torch.profiler import ProfilerActivity, profile
+def phase_profile(torch, n_steps: int = 4, arch: str = ARCH,
+                  ranges: dict | None = None) -> dict:
+    """Profile ``n_steps`` decode steps.  ``ranges`` maps a label to
+    (module, function name): during the profile that function runs inside
+    ``record_function(label)``, and each label's kernel time a step is
+    reported.  Returns the step's wall and kernel ms, launches and each
+    label's kernel ms a step."""
+    from torch.profiler import record_function
 
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_serve_step
@@ -666,15 +775,34 @@ def phase_profile(torch, n_steps: int = 4, arch: str = ARCH) -> None:
         tok, logits, cache = step(params, cache, tok, pos, emb)
         pos = pos + 1
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_steps):
-            tok, logits, cache = step(params, cache, tok, pos, emb)
-            pos = pos + 1
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    kernels = device_times(prof, n_steps)
+    ranges = ranges or {}
+    real = {label: getattr(mod, name) for label, (mod, name) in ranges.items()}
+
+    def labelled(label):
+        def fn(*args):
+            with record_function(label):
+                return real[label](*args)
+        return fn
+    for label, (mod, name) in ranges.items():
+        setattr(mod, name, labelled(label))
+    try:
+        with primed_profile(torch) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                tok, logits, cache = step(params, cache, tok, pos, emb)
+                pos = pos + 1
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    finally:
+        for label, (mod, name) in ranges.items():
+            setattr(mod, name, real[label])
+    kernels = device_times(prof, n_steps, tuple(ranges))
     busy_ms = sum(k[0] for k in kernels)
+    # A label's CPU-side event sums the kernels launched inside it.
+    from torch.autograd import DeviceType
+    in_range = {evt.key: evt.device_time_total / 1e3 / n_steps
+                for evt in prof.key_averages()
+                if evt.key in ranges and evt.device_type == DeviceType.CPU}
     log(f"profile {cfg.name}: decode step {wall_ms:.3f} ms wall under the "
         f"profiler, "
         f"device kernels {busy_ms:.3f} ms -> device busy "
@@ -686,6 +814,11 @@ def phase_profile(torch, n_steps: int = 4, arch: str = ARCH) -> None:
             if "decode_attn_kernel" in name]
     log(f"profile: decode_attention {sum(a[0] for a in attn):.4f} ms/step in "
         f"{sum(a[1] for a in attn):.0f} calls/step")
+    for label, ms in in_range.items():
+        log(f"profile: {label} {ms:.4f} ms/step of kernels, "
+            f"{ms / busy_ms:.1%} of the step's kernel time")
+    return {"wall_ms": wall_ms, "kernel_ms": busy_ms,
+            "launches": sum(k[1] for k in kernels), "ranges": in_range}
 
 
 # --------------------------------------------------------------------- #
@@ -1071,6 +1204,253 @@ def phase_archs(torch, card: str) -> tuple[dict, dict]:
 
 
 # --------------------------------------------------------------------- #
+# Phase 14: the recurrent mixers (xlstm-350m, jamba-1.5-large-398b)
+# --------------------------------------------------------------------- #
+
+XLSTM = "xlstm-350m"
+JAMBA = "jamba-1.5-large-398b"
+# jamba's three block kinds, each one block at published width (14c): a
+# unit's positions 0 (Mamba + MoE), 1 (Mamba + dense) and 4 (attention +
+# MoE).
+JAMBA_BLOCKS = {"mamba+moe": 0, "mamba+dense": 1, "attn+moe": 4}
+
+
+def mlstm_update_ms(torch) -> tuple[float, float]:
+    """(device ms, bound ms) of one mLSTM state update
+    (``ssm._mlstm_memory``) at xlstm-350m's decode shape: C (B, NH, dh, dh)
+    f32 read and written, n, k and v beside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    cfg = get_config(XLSTM)
+    nh, dh = cfg.n_heads, cfg.d_inner // cfg.n_heads
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+    c, n = rand(BATCH, nh, dh, dh), rand(BATCH, nh, dh)
+    f_g, i_g, k, v = rand(BATCH, nh), rand(BATCH, nh), rand(BATCH, nh, dh), \
+        rand(BATCH, nh, dh)
+    ms, _, _ = time_ms(torch, lambda: ssm._mlstm_memory(c, n, f_g, i_g, k, v),
+                       iters=50)
+    nbytes = 4 * (2 * c.numel() + 2 * n.numel() + 2 * k.numel()
+                  + 2 * f_g.numel())
+    return ms, bound(nbytes, 3.0 * c.numel(), "float32")[0]
+
+
+def phase_xlstm(torch, card: str) -> dict[str, int]:
+    """(14a) ``serve --arch xlstm-350m`` at published width and depth with
+    phase 5's checks (no gmm, no decode_attention: the model has no MoE
+    and no attention), its bound counting the mLSTM memory each step reads
+    and writes; then a profiled step with the mLSTM state update
+    (``ssm._mlstm_memory``) as a labelled range, beside the update timed
+    alone.  Returns the serve run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    counts = phase_serve(torch, card, XLSTM)
+    label = "mlstm_state_update"
+    prof = phase_profile(torch, 4, XLSTM, ranges={label: (ssm, "_mlstm_memory")})
+    cfg = get_config(XLSTM)
+    n_mlstm = sum(spec.mixer == "mlstm" for spec in block_specs(cfg))
+    alone, upd_bound = mlstm_update_ms(torch)
+    in_prof = prof["ranges"].get(label, 0.0)
+    log(f"xlstm mLSTM state update: {in_prof:.4f} ms a step in the profile "
+        f"({in_prof / prof['kernel_ms']:.1%} of {prof['kernel_ms']:.3f} ms of "
+        f"kernels, {prof['launches']:.0f} launches a step, busy "
+        f"{prof['kernel_ms'] / prof['wall_ms']:.1%}); timed alone "
+        f"{alone:.5f} ms a call x {n_mlstm} layers = {alone * n_mlstm:.4f} "
+        f"ms a step ({alone * n_mlstm / prof['kernel_ms']:.1%} of the "
+        f"profiled kernels), bound {upd_bound:.5f} ms a call (C read and "
+        f"written)")
+    if in_prof <= 0.0:
+        raise SmokeFailure("the profile shows no kernel time in the mLSTM "
+                           "state update")
+    return counts
+
+
+def jamba_kernel_cases(torch) -> list[tuple[dict, str]]:
+    """(14c) gmm at jamba's full-width expert stacks, x(16, C, 8192) .
+    w(16, 8192, 24576) and x(16, C, 24576) . w(16, 24576, 8192) bf16 (3.2e9
+    elements of w, past 2^31) at decode C = 2 and prefill C = 20, against
+    ``torch.bmm``; decode_attention at q(4, 8, 8, 128), S = 49 and 2048,
+    against SDPA.  Returns (name, record, key): a gmm case's key is its
+    "(x shape)x(w shape)", decode_attention's "serve" at serve's S."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import capacity
+    cfg = get_config(JAMBA)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+    out, failed = [], []
+    for t in (BATCH, BATCH * PROMPT):
+        c = capacity(cfg, t, e)
+        for k, n in ((d, f), (f, d)):
+            rec = check_gmm(torch, e, c, k, n, "bfloat16", iters=20)
+            log("kernel " + json.dumps(rec))
+            failed += [] if rec["ok"] and rec["path"] == "wgmma" \
+                else [rec["shape"]]
+            out.append(("gmm", rec, f"{(e, c, k)}x{(e, k, n)}"))
+            torch.cuda.empty_cache()
+    heads = (BATCH, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads)
+    for s, pos in ((PROMPT + DECODE + 1, [PROMPT + DECODE - 1] * BATCH),
+                   (2048, [2047, 1500, 1024, 17])):
+        rec = check_decode(torch, *heads, s, cfg.head_dim, "bfloat16", pos,
+                           iters=50)
+        log("kernel " + json.dumps(rec))
+        failed += [] if rec["ok"] else [rec["shape"]]
+        out.append(("decode_attention", rec,
+                    "serve" if s == PROMPT + DECODE + 1 else "long"))
+    if failed:
+        raise SmokeFailure(f"kernel disagrees with its plain version (or "
+                           f"left the wgmma path) at jamba's shapes: {failed}")
+    return out
+
+
+def jamba_block(torch, card: str, kind: str) -> dict:
+    """One jamba block at published width on the card: drawn through
+    ``_block_init`` and ``cast_for_compute``, prefill of BATCH x PROMPT
+    random bf16 inputs and DECODE decode steps through ``_apply_block``,
+    every gmm call recorded and replayed against ``kernels/ref.py``'s
+    plain version on the same inputs (2^-5 of the call's largest output).
+    Returns its launch counts and gmm launches by (x, w) shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_gmm, ops
+    from repro_torch.kernels.ref import gmm_ref
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.model import (_apply_block, _block_cache,
+                                          _block_init, cast_for_compute)
+    cfg = get_config(JAMBA)
+    spec = cfg.pattern[JAMBA_BLOCKS[kind]]
+    cdt = dtype_of(cfg.compute_dtype)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t = time.perf_counter()
+    bp = cast_for_compute(cfg, _block_init(gen, cfg, spec,
+                                           dtype_of(cfg.param_dtype), "cuda"))
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t
+    draw_peak = torch.cuda.max_memory_allocated() / 2**30
+
+    def leaves(node):
+        if isinstance(node, dict):
+            return [x for v in node.values() for x in leaves(v)]
+        return [node]
+    nbytes = sum(w.numel() * w.element_size() for w in leaves(bp))
+    _, state_bytes = mixer_bytes(cfg, spec.mixer)
+    x = torch.randn(BATCH, PROMPT, cfg.d_model, generator=gen,
+                    device="cuda").to(cdt)
+    xs = torch.randn(DECODE, BATCH, 1, cfg.d_model, generator=gen,
+                     device="cuda").to(cdt)
+    positions = torch.arange(PROMPT, dtype=torch.int32,
+                             device="cuda")[None].expand(BATCH, PROMPT)
+    cache = _block_cache(cfg, spec, BATCH, PROMPT + DECODE + 1, cdt,
+                         torch.device("cuda"))
+    calls, real = [], ops.gmm
+
+    def recording(a, w):
+        out = real(a, w)
+        calls.append((a, w, out))
+        return out
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ops.gmm = recording
+    try:
+        y, cache, _ = _apply_block(cfg, spec, bp, x, positions, cdt, cache,
+                                   "prefill")
+        outs = [y]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(DECODE):
+            pos = torch.full((BATCH,), PROMPT + i, dtype=torch.int32,
+                             device="cuda")
+            y, cache, _ = _apply_block(cfg, spec, bp, xs[i], pos, cdt, cache,
+                                       "decode")
+            outs.append(y)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / DECODE
+    finally:
+        ops.gmm = real
+    counts, paths = ops.launch_counts(), dict(moe_gmm.path_launches)
+    run_peak = torch.cuda.max_memory_allocated() / 2**30
+    n_gmm = 3 * (1 + DECODE) if spec.ffn == "moe" else 0
+    want = {"gmm": n_gmm,
+            "decode_attention": DECODE if spec.mixer == "attn" else 0}
+    worst = 0.0
+    by_shape: dict[str, int] = {}
+    for a, w, out in calls:
+        ref = gmm_ref(a, w).float()
+        worst = max(worst, float((out.float() - ref).abs().max())
+                    / float(ref.abs().max()))
+        key = f"{tuple(a.shape)}x{tuple(w.shape)}"
+        by_shape[key] = by_shape.get(key, 0) + 1
+        del ref
+    finite = all(bool(torch.isfinite(o).all()) for o in outs)
+    step_bound = (nbytes + state_bytes) / HBM_BYTES_PER_S * 1e3
+    ffn = (f"{cfg.n_experts} experts of {cfg.d_ff_expert}"
+           if spec.ffn == "moe" else f"d_ff {cfg.d_ff}")
+    log(f"jamba block {kind} ({spec.mixer} + {spec.ffn}, d_model "
+        f"{cfg.d_model}, {ffn}) on {card}: {nbytes / 1e9:.3f} GB of weights drawn in {draw_s:.1f}s "
+        f"(draw peak {draw_peak:.2f} GiB, run peak {run_peak:.2f} GiB); "
+        f"decode {ms:.3f} ms a step against a {step_bound:.3f} ms bound "
+        f"(weights{' and state' if state_bytes else ''} at 3.35 TB/s); "
+        f"launches {json.dumps({k: counts[k] for k in want})} (expected "
+        f"{json.dumps(want)}), gmm by path {json.dumps(paths)}; "
+        f"{len(calls)} gmm calls replayed against gmm_ref: worst "
+        f"max_abs_err / max|out| = {worst:.6g} (tol 2^-5); outputs finite "
+        f"{finite}")
+    if {k: counts[k] for k in want} != want \
+            or paths != {"wgmma": n_gmm, "fma": 0}:
+        raise SmokeFailure(f"jamba block {kind}: launches {counts}, paths "
+                           f"{paths}, expected {want} all on wgmma")
+    if not finite or worst > 2.0 ** -5:
+        raise SmokeFailure(f"jamba block {kind}: non-finite outputs or a gmm "
+                           f"call off its plain version ({worst} > 2^-5)")
+    del bp, cache, calls, outs, x, xs
+    torch.cuda.empty_cache()
+    return {"counts": {k: counts[k] for k in want}, "by_shape": by_shape}
+
+
+def phase_recurrent(torch, card: str) -> tuple[list, dict]:
+    """Phase 14 (a-c): xlstm-350m served at full width, both architectures'
+    smoke models card against CPU and jamba's smoke serve with step 4,
+    jamba's kernel shapes and its three block kinds at published width.
+    Returns the jamba kernel rows (name, record, launches in 14c) and the
+    launch counts by run ("xlstm-350m", "jamba-1.5-large-398b/smoke",
+    "jamba-1.5-large-398b/blocks")."""
+    seconds, counts = {}, {}
+
+    def step(name, fn, *args, **kw):
+        t = time.perf_counter()
+        got = fn(*args, **kw)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return got
+
+    counts[XLSTM] = step("14a", phase_xlstm, torch, card)
+    torch.cuda.empty_cache()
+    for arch in (XLSTM, JAMBA):
+        step("14b " + arch, phase_small, torch, arch)
+    counts[JAMBA + "/smoke"] = step("14b serve " + JAMBA, phase_serve, torch,
+                                    card, JAMBA, ("--space-sim",), smoke=True)
+    cases = step("14c kernels", jamba_kernel_cases, torch)
+    blocks = {kind: step("14c " + kind, jamba_block, torch, card, kind)
+              for kind in JAMBA_BLOCKS}
+    total = {k: sum(b["counts"][k] for b in blocks.values())
+             for k in ("gmm", "decode_attention")}
+    shapes: dict[str, int] = {}
+    for b in blocks.values():
+        for key, n in b["by_shape"].items():
+            shapes[key] = shapes.get(key, 0) + n
+    log(f"jamba blocks: launches {json.dumps(total)} (expected gmm 102, "
+        f"decode_attention 16); gmm launches by shape {json.dumps(shapes)}")
+    if total != {"gmm": 3 * 2 * (1 + DECODE), "decode_attention": DECODE}:
+        raise SmokeFailure(f"jamba blocks: launches {total}")
+    counts[JAMBA + "/blocks"] = total
+    rows = [(name, rec, shapes.get(key, 0) if name == "gmm"
+             else total["decode_attention"] * (key == "serve"))
+            for name, rec, key in cases]
+    log(f"phase 14 seconds {json.dumps(seconds)}")
+    return rows, counts
+
+
+# --------------------------------------------------------------------- #
 # Phase 7: the fleet simulator on the paper's world
 # --------------------------------------------------------------------- #
 
@@ -1229,7 +1609,6 @@ def phase_fleet(torch) -> tuple[dict, dict, dict, tuple]:
     """Returns (launch counts of run(), the kernels' captured inputs, their
     device ms per launch in the profiled run(), the world)."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
     from repro_torch.traffic import queueing
@@ -1287,8 +1666,7 @@ def phase_fleet(torch) -> tuple[dict, dict, dict, tuple]:
     log(f"fleet run(): peak device memory {peak / 2**20:.1f} MiB above what "
         "it held before")
     assert_parity(res, again, "card run() vs card run()", rtol=0.0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with primed_profile(torch) as prof:
         t0 = time.perf_counter()
         sim.run()
         torch_sync()
@@ -1300,6 +1678,8 @@ def phase_fleet(torch) -> tuple[dict, dict, dict, tuple]:
                 if any(k in key for k in cuda_names)]
         seen[name] = sorted(calls for _, calls in hits)
         in_run[name] = sum(ms for ms, _ in hits) / want[name]
+    log(f"fleet run() profile: {primer_launches(prof)} of the "
+        f"{PROFILE_PRIMER} primer launches recorded")
     if any(seen[n] != [want[n]] * len(FLEET_KERNELS[n]) for n in want):
         raise SmokeFailure(f"the profiled fleet run() recorded launches "
                            f"{seen} of {FLEET_KERNELS}, not {want} of each: "
@@ -1800,7 +2180,6 @@ def phase_fleet_admission(torch, world) -> tuple[dict, dict, dict, tuple]:
     import copy
 
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import core
     from repro_torch.kernels import ops
@@ -1883,8 +2262,7 @@ def phase_fleet_admission(torch, world) -> tuple[dict, dict, dict, tuple]:
             assert_parity(res, again, f"{policy} card run() vs run()",
                           rtol=0.0)
             same_admission(res, again, f"{policy} card run() vs run()")
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with primed_profile(torch) as prof:
                 t0 = time.perf_counter()
                 sim.run()
                 torch_sync()
@@ -2254,7 +2632,6 @@ def phase_fleet_batching(torch, world, adm_sims) -> None:
     and on phase 9's AIMD ``run()``, and the reference's batching
     frontier (:func:`phase_batching_bench`)."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import deposit as dep
     from repro_torch.kernels import ops
@@ -2293,8 +2670,7 @@ def phase_fleet_batching(torch, world, adm_sims) -> None:
     log(f"batched run(): peak device memory {peak / 2**20:.1f} MiB above what "
         "it held before")
     same_results(res, again, "batched card run() vs run()")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with primed_profile(torch) as prof:
         t0 = time.perf_counter()
         sim.run()
         torch_sync()
@@ -2415,7 +2791,7 @@ def grid_stages(torch, call, profiled=False) -> tuple[dict, list, object]:
     call's, ``launches`` the device events).  Returns (ms per stage, summed over rounds; the
     profiled kernels as ``device_times`` gives them, or []; the
     outcomes)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
     times: dict[str, float] = {}
     if not profiled:
         last = [0.0]
@@ -2437,8 +2813,7 @@ def grid_stages(torch, call, profiled=False) -> tuple[dict, list, object]:
         rng[0] = record_function(f"replan_stage_{len(names)}")
         rng[0].__enter__()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with primed_profile(torch) as prof:
         t0 = time.perf_counter()
         rng.append(record_function("replan_stage_0"))
         rng[0].__enter__()
@@ -3542,6 +3917,8 @@ def main() -> int:
     torch.cuda.empty_cache()           # the 16B model's blocks go back
     timed("calibration", phase_calibration, torch)
     arch_cases, arch_counts = timed("archs", phase_archs, torch, card)
+    torch.cuda.empty_cache()
+    rec_rows, rec_counts = timed("recurrent", phase_recurrent, torch, card)
     fleet_counts, captured, in_run, world = timed("fleet", phase_fleet, torch)
     main_cases.update(timed("fleet_kernels", phase_fleet_kernels, torch,
                             captured, in_run))
@@ -3556,7 +3933,8 @@ def main() -> int:
     main_cases["admission_window"] = win_rec
     main_cases["admission_ctrl"] = ctrl_rec
     mixed = [name for name, rec in (*main_cases.items(), *deep_cases.items(),
-                                    *arch_cases.items())
+                                    *arch_cases.items(),
+                                    *((n, r) for n, r, _ in rec_rows))
              if not rec["hidden"]]
     if mixed:
         raise SmokeFailure(f"kernel device time not separable from the "
@@ -3590,12 +3968,15 @@ def main() -> int:
     runs = [(main_cases, counts), (deep_cases, deep_counts)]
     runs += [({key.split("/")[0]: rec}, arch_counts[key.split("/", 1)[1]])
              for key, rec in arch_cases.items()]
+    # jamba's shapes (phase 14c), each with its launches in the block runs.
+    runs += [({name: rec}, {name: n}) for name, rec, n in rec_rows]
     kernels = []
     for cases, launches in runs:
         for name, rec in cases.items():
             rec = dict(rec, route="cuda", source=sources[name][0],
                        replaces=sources[name][1], launches=launches[name])
             kernels.append({k: rec[k] for k in keys})
+    log(f"recurrent runs' launch counts {json.dumps(rec_counts)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

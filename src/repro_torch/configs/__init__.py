@@ -1,11 +1,10 @@
-"""Config registry of the port.
+"""Config registry of the port: the 10 assigned architectures + the
+paper's model, as in ``repro.configs``.
 
-``get_config(arch_id)`` returns the full published config;
+``get_config(arch_id)`` returns the full published config (``KeyError``
+only for a name the reference does not know either);
 ``smoke_config(arch_id)`` returns the same reduced config as
 ``repro.configs.smoke_config`` (same pattern/MoE/GQA structure, tiny dims).
-Registered: the paper's model and every attention-only architecture of
-the reference.  jamba-1.5-large-398b and xlstm-350m need SSM mixers,
-which are not yet ported; ``get_config`` raises ``KeyError`` for them.
 """
 from __future__ import annotations
 
@@ -13,25 +12,30 @@ import dataclasses
 
 from repro_torch.models.config import ModelConfig
 
-from . import (deepseek_moe_16b, granite_moe_3b_a800m, llama_moe_3p5b,
-               llava_next_mistral_7b, minicpm_2b, mistral_large_123b,
-               musicgen_medium, qwen2_5_3b, smollm_135m)
+from . import (deepseek_moe_16b, granite_moe_3b_a800m, jamba_1_5_large_398b,
+               llama_moe_3p5b, llava_next_mistral_7b, minicpm_2b,
+               mistral_large_123b, musicgen_medium, qwen2_5_3b, smollm_135m,
+               xlstm_350m)
+from .shapes import SHAPES, ShapeSpec, shape_applies
 
-# The reference's registry order, without the SSM architectures.
+# The reference's registry order.
 _MODULES = [
-    granite_moe_3b_a800m, deepseek_moe_16b, llava_next_mistral_7b,
-    qwen2_5_3b, minicpm_2b, smollm_135m, mistral_large_123b,
-    musicgen_medium, llama_moe_3p5b,
+    granite_moe_3b_a800m, deepseek_moe_16b, jamba_1_5_large_398b,
+    llava_next_mistral_7b, qwen2_5_3b, minicpm_2b, smollm_135m,
+    mistral_large_123b, musicgen_medium, xlstm_350m, llama_moe_3p5b,
 ]
 
 REGISTRY: dict[str, ModelConfig] = {m.ARCH_ID: m.CONFIG for m in _MODULES}
+ASSIGNED: tuple[str, ...] = tuple(m.ARCH_ID for m in _MODULES[:10])
+
+
+def list_archs(include_paper_model: bool = True) -> list[str]:
+    return list(REGISTRY) if include_paper_model else list(ASSIGNED)
 
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in REGISTRY:
-        raise KeyError(f"unknown arch {arch_id!r}; the port knows "
-                       f"{sorted(REGISTRY)} (other architectures not yet "
-                       "ported)")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(REGISTRY)}")
     return REGISTRY[arch_id]
 
 
@@ -67,4 +71,5 @@ def smoke_config(arch_id: str) -> ModelConfig:
     )
 
 
-__all__ = ["REGISTRY", "get_config", "smoke_config"]
+__all__ = ["REGISTRY", "ASSIGNED", "SHAPES", "ShapeSpec", "shape_applies",
+           "list_archs", "get_config", "smoke_config"]

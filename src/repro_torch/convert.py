@@ -6,11 +6,12 @@ the caller's side; this module imports no JAX) and returns the port's
 parameters: the same arrays in the same layout, with the reference's
 leading ``units`` axis unstacked into the per-layer list (shared experts
 inside each unit's ``ffn["shared"]``), and the dense first block
-(``params["first"]``) as it is.  Every leaf crosses as it is, so tied
-embeddings (no ``head``), the QKV bias leaves (``b_q``, ``b_k``,
-``b_v``) and EP-slotted expert stacks ((V, d, f/frag) and
-(V, f/frag, d)) arrive in the structure the port's ``init_params``
-draws for the same config.
+(``params["first"]``) as it is.  Every leaf crosses as it is, in its
+own dtype, so tied embeddings (no ``head``), the QKV bias leaves
+(``b_q``, ``b_k``, ``b_v``), EP-slotted expert stacks ((V, d, f/frag)
+and (V, f/frag, d)), blocks without ``norm2`` and ``ffn`` (``ffn="none"``)
+and the recurrent mixers' f32 leaves arrive in the structure the port's
+``init_params`` draws for the same config.
 
 The fleet simulator's state crosses the same way: ``plan_from_arrays``,
 ``schedule_from_arrays``, ``requests_from_arrays`` and

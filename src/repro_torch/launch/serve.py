@@ -22,8 +22,10 @@ Counterpart of ``repro.launch.serve``:
      (``--trace``) and federation (``--federation K``) options of the
      reference.
 
-Every registered architecture serves (``--arch``): dense models skip
-steps 1-2 and 4, as in the reference; a vision model's prompts start
+Every registered architecture serves (``--arch``): models without MoE
+(dense, and the recurrent xlstm-350m) skip steps 1-2 and 4, as in the
+reference; jamba-1.5-large-398b's four MoE blocks a pattern unit share
+that unit's router counts and placement; a vision model's prompts start
 with patch embeddings, and an audio model's prompts are embeddings
 throughout, with a frame embedding on every decode step.  On a CUDA
 device the expert FFNs run through the hand-written ``gmm`` kernel and
@@ -37,6 +39,9 @@ object of step 4 is built on ``--device``.
     python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \
         --space-sim
     python -m repro_torch.launch.serve --arch llava-next-mistral-7b
+    python -m repro_torch.launch.serve --arch xlstm-350m
+    python -m repro_torch.launch.serve --smoke --arch jamba-1.5-large-398b \
+        --space-sim
     python -m repro_torch.launch.serve --smoke --device cpu
     python -m repro_torch.launch.serve --smoke --device cpu \
         --traffic smoke --admission aimd --federation 2 --fail-device 0
@@ -108,7 +113,7 @@ def plan_and_apply_placement(cfg, params, counts: np.ndarray,
 
     width = len(cfg.pattern)
     for i, lp in enumerate(params["layers"]):
-        if "router" in lp["ffn"]:
+        if "router" in lp.get("ffn", {}):
             lp["ffn"] = apply_placement(lp["ffn"],
                                         plans[i // width].expert_perm)
     return params, plans, costs

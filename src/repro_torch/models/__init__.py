@@ -1,5 +1,5 @@
-"""Model zoo of the port (attention mixers with dense/MoE FFNs, EP
-slotting and the stub vision/audio frontends)."""
+"""Model zoo of the port: attention, Mamba, mLSTM and sLSTM mixers with
+dense, MoE or no FFN, EP slotting and the stub vision/audio frontends."""
 from .config import LayerSpec, ModelConfig
 from .frontends import batch_specs, frontend_split, random_batch
 from .model import (cast_for_compute, decode_step, forward, init_cache,

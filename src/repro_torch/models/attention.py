@@ -1,11 +1,14 @@
-"""GQA attention: causal prefill + KV-cache decode.
+"""GQA attention: chunked (flash-style) prefill + KV-cache decode.
 
-Counterpart of ``repro.models.attention``.  Prefill attention is plain
-PyTorch with explicit matmuls and a causal mask (the reference's is plain
-jnp too); it keeps ``_flash_fwd``'s numerics: f32 scores, probabilities
-cast to the value dtype before the PV product, f32 accumulation.  Decode
-on a CUDA device goes through the hand-written ``decode_attention``
-kernel whenever the reference's kernel guard holds (no sliding window, no
+Counterpart of ``repro.models.attention``.  Forward and prefill run
+``flash_attention``, the reference's online softmax over
+``attn_q_chunk`` x ``attn_kv_chunk`` blocks (``_flash_fwd``), so the
+S x S score matrix is never materialized: f32 scores, running max, sum
+and accumulator, probabilities cast to the value dtype before the PV
+product.  It is plain PyTorch, as the reference's is plain jnp, and
+forward only (``_flash_vjp_fn`` waits for training).  Decode on a CUDA
+device goes through the hand-written ``decode_attention`` kernel
+whenever the reference's kernel guard holds (no sliding window, no
 softcap); on the CPU it does so only when ``cfg.use_pallas_decode`` asks
 for the kernel path, which there runs the kernel's plain version.
 
@@ -62,40 +65,95 @@ def _softcap(s: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(s / cap) if cap > 0 else s
 
 
-def causal_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor, q_positions: torch.Tensor,
-                     kv_positions: torch.Tensor) -> torch.Tensor:
-    """Causal GQA attention: q (B,S,Hq,hd), k/v (B,S,Hkv,hd) -> (B,S,Hq,hd).
+def _pick_chunk(s: int, target: int) -> int:
+    """Largest divisor of ``s`` that is <= target."""
+    c = min(target, s)
+    while s % c:
+        c -= 1
+    return c
 
-    The whole (S, S) score block at once, with ``_flash_fwd``'s numerics.
+
+def flash_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, q_positions: torch.Tensor,
+                    kv_positions: torch.Tensor) -> torch.Tensor:
+    """Causal online-softmax attention, chunked along both S axes:
+    q (B,S,Hq,hd), k/v (B,S,Hkv,hd), positions (B,S) -> (B,S,Hq,hd).
+
+    Forward only: the reference's ``cfg.flash_vjp`` backward
+    (``_flash_vjp_fn``) waits for training.
+    """
+    out, _ = _flash_fwd(cfg, q, k, v, q_positions, kv_positions)
+    return out
+
+
+def _mask_block(cfg: ModelConfig, qpos: torch.Tensor,
+                kpos: torch.Tensor) -> torch.Tensor:
+    """(B, qc, kc) bool mask for one chunk pair (causal [+ window])."""
+    m = qpos[:, :, None] >= kpos[:, None, :]
+    if cfg.sliding_window > 0:
+        m = m & ((qpos[:, :, None] - kpos[:, None, :]) < cfg.sliding_window)
+    return m
+
+
+def _flash_fwd(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor, q_positions: torch.Tensor,
+               kv_positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (out (B,S,Hq,hd), lse (B,Hkv,G,S) log-sum-exp per query).
+
+    Query chunks outer, KV chunks inner, as the reference's two scans; the
+    running max, sum and accumulator are f32, probabilities are cast to the
+    value dtype before the PV product, and causally fully masked KV chunks
+    are still computed.
     """
     b, s, hq, hd = q.shape
     hkv = k.shape[2]
     g = hq // hkv
-    qg = q.reshape(b, s, hkv, g, hd).permute(0, 2, 3, 1, 4)   # (B,Hkv,G,S,hd)
-    kt = k.permute(0, 2, 1, 3)                                 # (B,Hkv,S,hd)
+    qc = _pick_chunk(s, cfg.attn_q_chunk)
+    kc = _pick_chunk(s, cfg.attn_kv_chunk)
+    scale = hd ** -0.5
+    f32 = torch.float32
+
+    # (B, Hkv, G, S, hd) view of q; K/V as (B, Hkv, S, hd).
+    qg = q.reshape(b, s, hkv, g, hd).permute(0, 2, 3, 1, 4)
+    kt = k.permute(0, 2, 1, 3)
     vt = v.permute(0, 2, 1, 3)
-    sco = torch.matmul(qg.float(), kt.float()[:, :, None].transpose(-1, -2))
-    sco = _softcap(sco * hd ** -0.5, cfg.attn_logit_softcap)   # (B,Hkv,G,S,S)
-    mask = q_positions[:, None, None, :, None] >= kv_positions[:, None, None, None, :]
-    if cfg.sliding_window > 0:
-        mask = mask & ((q_positions[:, None, None, :, None]
-                        - kv_positions[:, None, None, None, :])
-                       < cfg.sliding_window)
-    sco = torch.where(mask, sco, torch.full_like(sco, NEG_INF))
-    m = sco.amax(dim=-1, keepdim=True)
-    p = torch.exp(sco - m)
-    l = p.sum(dim=-1, keepdim=True)
-    acc = torch.matmul(p.to(v.dtype).float(), vt.float()[:, :, None])
-    out = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)       # (B,Hkv,G,S,hd)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, hd)
+    outs, lses = [], []
+    for q0 in range(0, s, qc):
+        # (B, Hkv, G*qc, hd): each KV head's G query heads in one product.
+        q_blk = qg[:, :, :, q0:q0 + qc].to(f32).reshape(b, hkv, g * qc, hd)
+        qpos = q_positions[:, q0:q0 + qc]
+        m = torch.full((b, hkv, g, qc), NEG_INF, dtype=f32, device=q.device)
+        l = torch.zeros((b, hkv, g, qc), dtype=f32, device=q.device)
+        acc = torch.zeros((b, hkv, g, qc, hd), dtype=f32, device=q.device)
+        for k0 in range(0, s, kc):
+            k_blk = kt[:, :, k0:k0 + kc].to(f32)               # (B,Hkv,kc,hd)
+            v_blk = vt[:, :, k0:k0 + kc]
+            sco = torch.matmul(q_blk, k_blk.transpose(-1, -2)) \
+                .reshape(b, hkv, g, qc, -1) * scale            # (B,Hkv,G,qc,kc)
+            sco = _softcap(sco, cfg.attn_logit_softcap)
+            mask = _mask_block(cfg, qpos, kv_positions[:, k0:k0 + kc])
+            sco = torch.where(mask[:, None, None], sco, NEG_INF)
+            m_new = torch.maximum(m, sco.amax(dim=-1))
+            p = torch.exp(sco - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.matmul(p.to(v_blk.dtype).to(f32).reshape(b, hkv, -1, kc),
+                              v_blk.to(f32))
+            acc = acc * corr[..., None] + pv.reshape(b, hkv, g, qc, hd)
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.to(q.dtype))
+        lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
+    out = torch.cat(outs, dim=3)                               # (B,Hkv,G,S,hd)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, hd)
+    return out, torch.cat(lses, dim=3)
 
 
 def attention_forward(cfg: ModelConfig, params: dict, x: torch.Tensor,
                       positions: torch.Tensor, compute_dtype) -> torch.Tensor:
     """Forward-pass self-attention (no cache)."""
     q, k, v = _project_qkv(cfg, params, x, positions, compute_dtype)
-    out = causal_attention(cfg, q, k, v, positions, positions)
+    out = flash_attention(cfg, q, k, v, positions, positions)
     b, s = x.shape[:2]
     return out.reshape(b, s, cfg.q_dim) @ params["w_o"].to(compute_dtype)
 
@@ -105,7 +163,7 @@ def attention_prefill(cfg: ModelConfig, params: dict, x: torch.Tensor,
                       compute_dtype) -> tuple[torch.Tensor, dict]:
     """Prefill: causal attention, and K/V written into the cache at [0, S)."""
     q, k, v = _project_qkv(cfg, params, x, positions, compute_dtype)
-    out = causal_attention(cfg, q, k, v, positions, positions)
+    out = flash_attention(cfg, q, k, v, positions, positions)
     s = x.shape[1]
     # In place; the reference's dynamic_update_slice is functional.
     cache["k"][:, :s] = k.to(cache["k"].dtype)

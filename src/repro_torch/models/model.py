@@ -1,21 +1,24 @@
 """Composable LM: init / forward / prefill / decode_step.
 
-Counterpart of ``repro.models.model`` for ``attn`` mixers with dense or
-MoE FFNs.  The reference scans over stacked pattern units; here the
-parameters are a list of per-layer dicts (``params["layers"][i]`` is
-block ``i % len(pattern)`` of unit ``i // len(pattern)``) and the stack is
-a Python loop.  With ``first_layer_dense`` the first unit is one dense
-block of width ``first_dense_d_ff`` (``params["first"]``), run ahead of
-the ``n_scan_units`` units, as in the reference.  The decode cache is a
-matching list of per-layer KV caches (and ``cache["first"]``), updated in
-place.
+Counterpart of ``repro.models.model``: attention, Mamba, mLSTM and sLSTM
+mixers with dense, MoE or no FFN.  The reference scans over stacked
+pattern units; here the parameters are a list of per-layer dicts
+(``params["layers"][i]`` is block ``i % len(pattern)`` of unit
+``i // len(pattern)``) and the stack is a Python loop.  With
+``first_layer_dense`` the first unit is one dense block of width
+``first_dense_d_ff`` (``params["first"]``), run ahead of the
+``n_scan_units`` units, as in the reference.  The decode cache is a
+matching list of per-layer caches (and ``cache["first"]``): a KV cache
+for attention, updated in place, and the recurrent state dict for the
+other mixers, which each step replaces in the list.
 
 Dtypes: weights are initialised in ``cfg.param_dtype`` as in the
 reference, which casts each weight to ``cfg.compute_dtype`` at every use.
 ``cast_for_compute`` makes that cast once, at load: the values are
 identical, and a decode step then reads each weight once in the compute
-dtype instead of re-reading and re-casting the f32 copy.  The router and
-the norm scales stay f32, as the reference uses them in f32.
+dtype instead of re-reading and re-casting the f32 copy.  The leaves the
+reference uses in f32 stay f32 (``F32_LEAVES``: the router, the norm
+scales and the recurrent mixers' f32 parameters).
 ``init_params`` makes that cast as each block is drawn, so the draw
 peaks at the cast model plus one block in ``param_dtype`` (deepseek-moe-16b
 in bf16: 32.26 GiB, against about 61 GiB for the whole model in f32).
@@ -24,8 +27,8 @@ Inputs are a batch dict as in the reference: "tokens" (B, S_t) and/or
 "embeds" (B, S_e, d) from a stub frontend (``frontends.py``), embeddings
 first; ``decode_step`` takes ``embeds`` (B, 1, d) in place of tokens.
 
-Not yet ported (they raise): ``Parallel``/sharded execution, mamba /
-mlstm / slstm mixers, ``loss_fn`` and ``remat``.
+Not yet ported: ``Parallel``/sharded execution, ``loss_fn`` and
+``remat`` (training).
 """
 from __future__ import annotations
 
@@ -36,20 +39,31 @@ import torch
 from .. import resolve_device
 from . import attention as attn
 from . import moe as moe_mod
+from . import ssm
 from .config import LayerSpec, ModelConfig
 from .layers import (dtype_of, embed, embedding_init, ffn_apply, ffn_init,
                      lm_head, normal_init, rmsnorm, rmsnorm_init)
 
-# Parameters the reference keeps and uses in f32 whatever the dtypes.
-F32_LEAVES = ("router", "scale")
+# Parameters the reference keeps and uses in f32 whatever the dtypes: the
+# router, the norm scales, Mamba's decay and dt bias, mLSTM's gates and
+# sLSTM's recurrent weights and bias.  Names match anywhere in the tree;
+# no other leaf carries one of them.
+F32_LEAVES = ("router", "scale", "a_log", "dt_bias", "w_gates", "b_gates",
+              "r_h", "b")
+
+_MIXER_INIT = {"attn": attn.attn_init, "mamba": ssm.mamba_init,
+               "mlstm": ssm.mlstm_init, "slstm": ssm.slstm_init}
+FFNS = ("dense", "moe", "none")
 
 
 def check_supported(cfg: ModelConfig) -> None:
+    """Refuse a pattern with a mixer or FFN the model does not know (the
+    reference's ``_block_init`` raises ``ValueError`` for them too)."""
     for spec in cfg.pattern:
-        if spec.mixer != "attn":
-            raise NotImplementedError(f"{spec.mixer} mixers are not yet ported")
-        if spec.ffn not in ("dense", "moe"):
-            raise NotImplementedError(f"ffn={spec.ffn!r} is not yet ported")
+        if spec.mixer not in _MIXER_INIT:
+            raise ValueError(f"unknown mixer {spec.mixer!r}")
+        if spec.ffn not in FFNS:
+            raise ValueError(f"unknown ffn {spec.ffn!r}")
 
 
 def n_scan_units(cfg: ModelConfig) -> int:
@@ -73,9 +87,13 @@ def _first_spec(cfg: ModelConfig) -> LayerSpec:
 
 
 def _block_init(gen, cfg: ModelConfig, spec: LayerSpec, dtype, device) -> dict:
+    """One block's parameters; a block with ``ffn="none"`` has no
+    ``norm2`` and no ``ffn``, as in the reference."""
     p = {"norm1": rmsnorm_init(cfg.d_model, device),
-         "mixer": attn.attn_init(gen, cfg, dtype, device),
-         "norm2": rmsnorm_init(cfg.d_model, device)}
+         "mixer": _MIXER_INIT[spec.mixer](gen, cfg, dtype, device)}
+    if spec.ffn == "none":
+        return p
+    p["norm2"] = rmsnorm_init(cfg.d_model, device)
     if spec.ffn == "dense":
         p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.n_layers, dtype,
                             device)
@@ -121,9 +139,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 
 
 def cast_for_compute(cfg: ModelConfig, params):
-    """Cast every weight except the router and norm scales to the compute
-    dtype, once (see the module docstring); tensors are replaced one by
-    one, so peak memory grows by one tensor, not by a copy of the model."""
+    """Cast every weight except ``F32_LEAVES`` to the compute dtype, once
+    (see the module docstring); tensors are replaced one by one, so peak
+    memory grows by one tensor, not by a copy of the model."""
     cdt = dtype_of(cfg.compute_dtype)
 
     def walk(node, name=""):
@@ -145,19 +163,35 @@ def cast_for_compute(cfg: ModelConfig, params):
 # ===================================================================== #
 
 
+_RECURRENT = {"mamba": (ssm.mamba_forward, ssm.mamba_decode),
+              "mlstm": (ssm.mlstm_forward, ssm.mlstm_decode),
+              "slstm": (ssm.slstm_forward, ssm.slstm_decode)}
+
+
+def _apply_mixer(cfg, spec, mp, x, positions, cdt, cache, mode):
+    """Returns (y, cache): the KV cache written in place, or the new
+    recurrent state (prefill and decode run the same step)."""
+    if spec.mixer == "attn":
+        if mode == "forward":
+            return attn.attention_forward(cfg, mp, x, positions, cdt), None
+        if mode == "prefill":
+            return attn.attention_prefill(cfg, mp, x, positions, cache, cdt)
+        return attn.attention_decode(cfg, mp, x, positions, cache, cdt)
+    fwd, dec = _RECURRENT[spec.mixer]
+    if mode == "forward":
+        return fwd(cfg, mp, x, cdt), None
+    return dec(cfg, mp, x, cache, cdt)
+
+
 def _apply_block(cfg, spec, bp, x, positions, cdt, cache, mode):
     """Returns (x, cache, aux); aux is the MoE router's aux dict or None."""
     aux = None
     h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
-    if mode == "forward":
-        y = attn.attention_forward(cfg, bp["mixer"], h, positions, cdt)
-    elif mode == "prefill":
-        y, cache = attn.attention_prefill(cfg, bp["mixer"], h, positions,
-                                          cache, cdt)
-    else:
-        y, cache = attn.attention_decode(cfg, bp["mixer"], h, positions,
-                                         cache, cdt)
+    y, cache = _apply_mixer(cfg, spec, bp["mixer"], h, positions, cdt, cache,
+                            mode)
     x = x + y
+    if spec.ffn == "none":
+        return x, cache, aux
     h = rmsnorm(bp["norm2"], x, cfg.norm_eps)
     if spec.ffn == "dense":
         x = x + ffn_apply(bp["ffn"], h, cdt)
@@ -225,34 +259,53 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
     return logits, aux_total
 
 
+def _block_cache(cfg, spec: LayerSpec, batch: int, max_len: int, cdt, dev):
+    if spec.mixer == "attn":
+        return attn.init_kv_cache(cfg, batch, max_len, cdt, dev)
+    init_state = {"mamba": ssm.mamba_init_state, "mlstm": ssm.mlstm_init_state,
+                  "slstm": ssm.slstm_init_state}[spec.mixer]
+    return init_state(cfg, batch, dev)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> dict:
-    """Decode cache: one KV cache per layer, in the compute dtype."""
+    """Decode cache: one entry per layer, a KV cache in the compute dtype
+    for attention and the f32 recurrent state for the other mixers."""
     check_supported(cfg)
     dev = resolve_device(device)
     cdt = dtype_of(cfg.compute_dtype)
-    cache = {"layers": [attn.init_kv_cache(cfg, batch, max_len, cdt, dev)
-                        for _ in layer_specs(cfg)]}
+    cache = {"layers": [_block_cache(cfg, spec, batch, max_len, cdt, dev)
+                        for spec in layer_specs(cfg)]}
     if cfg.first_layer_dense:
-        cache["first"] = attn.init_kv_cache(cfg, batch, max_len, cdt, dev)
+        cache["first"] = _block_cache(cfg, cfg.pattern[0], batch, max_len,
+                                      cdt, dev)
     return cache
+
+
+def _run_stack(cfg, params, cache, x, positions, cdt, mode):
+    """Every block in order, each layer's cache entry replaced by what its
+    block returns (the same KV cache, or the new recurrent state)."""
+    if cfg.first_layer_dense:
+        x, cache["first"], _ = _apply_block(
+            cfg, _first_spec(cfg), params["first"], x, positions, cdt,
+            cache["first"], mode)
+    layers = cache["layers"]
+    for i, (spec, bp) in enumerate(zip(layer_specs(cfg), params["layers"])):
+        x, layers[i], _ = _apply_block(cfg, spec, bp, x, positions, cdt,
+                                       layers[i], mode)
+    return x
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int):
     """Run the prompt through the stack: (last-token logits (B, V), cache).
 
-    Attention blocks write K/V for positions [0, S).
+    Attention blocks write K/V for positions [0, S); recurrent blocks
+    carry their final state.
     """
     cdt = dtype_of(cfg.compute_dtype)
     x, positions = _embed_inputs(cfg, params, batch, cdt)
     cache = init_cache(cfg, x.shape[0], max_len, x.device)
-    if cfg.first_layer_dense:
-        x, _, _ = _apply_block(cfg, _first_spec(cfg), params["first"], x,
-                               positions, cdt, cache["first"], "prefill")
-    for spec, bp, lc in zip(layer_specs(cfg), params["layers"],
-                            cache["layers"]):
-        x, _, _ = _apply_block(cfg, spec, bp, x, positions, cdt, lc,
-                               "prefill")
+    x = _run_stack(cfg, params, cache, x, positions, cdt, "prefill")
     logits = _logits(cfg, params, x[:, -1:, :])
     return logits[:, 0, :], cache
 
@@ -271,11 +324,6 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
         x = embeds.to(cdt)
     else:
         x = embed(params["embed"], tokens, cdt)
-    if cfg.first_layer_dense:
-        x, _, _ = _apply_block(cfg, _first_spec(cfg), params["first"], x,
-                               pos, cdt, cache["first"], "decode")
-    for spec, bp, lc in zip(layer_specs(cfg), params["layers"],
-                            cache["layers"]):
-        x, _, _ = _apply_block(cfg, spec, bp, x, pos, cdt, lc, "decode")
+    x = _run_stack(cfg, params, cache, x, pos, cdt, "decode")
     logits = _logits(cfg, params, x)
     return logits[:, 0, :], cache

@@ -1,15 +1,15 @@
-"""Every attention-only architecture of the reference in the port, on the
-CPU.
+"""Every architecture of the reference in the port, on the CPU.
 
-Configs field for field; each smoke model on the reference's weights
-(``repro_torch.convert.params_from_jax``): forward, prefill and three
-decode steps, with the stub frontends' embeddings where the model takes
-them, at atol = rtol = 2e-4 in f32 (summation order only; the tolerance
-of ``tests/test_torch_deepseek.py``); qwen2.5-3b's QKV bias; a vocabulary
-that is not a multiple of 128; granite-moe-3b-a800m's serve at smoke size
-against the reference's, and the EP ring that places its 40 experts at
-full size, where the reference's raises.  jamba-1.5-large-398b and
-xlstm-350m need SSM mixers, which are not yet ported.
+Configs field for field and the registry; each smoke model on the
+reference's weights (``repro_torch.convert.params_from_jax``): forward,
+prefill and three decode steps, with the stub frontends' embeddings where
+the model takes them, at atol = rtol = 2e-4 in f32 (summation order only;
+the tolerance of ``tests/test_torch_deepseek.py``), the recurrent
+xlstm-350m and the hybrid jamba-1.5-large-398b among them; qwen2.5-3b's
+QKV bias; a vocabulary that is not a multiple of 128;
+granite-moe-3b-a800m's serve at smoke size against the reference's, and
+the EP ring that places its 40 experts at full size, where the
+reference's raises.
 """
 import dataclasses
 
@@ -56,25 +56,40 @@ def _both(jc, tc, seed=0, tweak=None):
 
 
 @pytest.mark.parametrize("get", ["get_config", "smoke_config"])
-@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("arch", NEW_ARCHS + SSM_ARCHS)
 def test_config_matches_reference(arch, get):
     want = dataclasses.asdict(getattr(jcfgs, get)(arch))
     assert dataclasses.asdict(getattr(tcfgs, get)(arch)) == want
 
 
 def test_registry_is_the_references_without_ssm_archs():
-    assert list(tcfgs.REGISTRY) == [a for a in jcfgs.REGISTRY
-                                    if a not in SSM_ARCHS]
+    """The registry is now the reference's whole (the SSM architectures
+    included, in its order), and so are ``ASSIGNED``, ``list_archs``,
+    ``SHAPES`` and ``shape_applies``; ``get_config`` raises only for a
+    name the reference does not know either."""
+    assert list(tcfgs.REGISTRY) == list(jcfgs.REGISTRY)
+    assert tcfgs.ASSIGNED == jcfgs.ASSIGNED
+    for paper in (True, False):
+        assert tcfgs.list_archs(paper) == jcfgs.list_archs(paper)
     for arch in SSM_ARCHS:
-        assert any(s.mixer != "attn" for s in jcfgs.get_config(arch).pattern)
-        with pytest.raises(KeyError, match="not yet ported"):
-            tcfgs.get_config(arch)
+        assert any(s.mixer != "attn" for s in tcfgs.get_config(arch).pattern)
+    assert {k: dataclasses.asdict(v) for k, v in tcfgs.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in jcfgs.SHAPES.items()}
+    for arch in tcfgs.REGISTRY:
+        for name in tcfgs.SHAPES:
+            assert tcfgs.shape_applies(tcfgs.get_config(arch),
+                                       tcfgs.SHAPES[name]) == \
+                jcfgs.shape_applies(jcfgs.get_config(arch), jcfgs.SHAPES[name])
+    with pytest.raises(KeyError, match="unknown arch"):
+        tcfgs.get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("arch", NEW_ARCHS + SSM_ARCHS)
 def test_carried_params_have_init_params_structure(arch):
     """``params_from_jax`` gives exactly the tree the port draws: tied
-    embeddings without ``head``, qwen's bias leaves, granite's stacks."""
+    embeddings without ``head``, qwen's bias leaves, granite's stacks,
+    blocks without ``norm2`` and ``ffn`` (xlstm) and the recurrent f32
+    leaves."""
     jc, tc = jcfgs.smoke_config(arch), tcfgs.smoke_config(arch)
     _, carried = _both(jc, tc)
     drawn = tmodels.init_params(tc, torch.Generator().manual_seed(0), "cpu")
@@ -150,7 +165,7 @@ def check_smoke_model(jc, tc, jparams, tparams):
         np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("arch", NEW_ARCHS + SSM_ARCHS)
 def test_smoke_model_matches_reference(arch):
     jc, tc = jcfgs.smoke_config(arch), tcfgs.smoke_config(arch)
     check_smoke_model(jc, tc, *_both(jc, tc))

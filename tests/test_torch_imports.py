@@ -47,10 +47,12 @@ def test_port_files_were_found():
             in PORT_FILES
     for rel in (("distributed", "__init__.py"), ("distributed", "elastic.py"),
                 ("core", "simulator.py"), ("models", "frontends.py"),
+                ("models", "ssm.py"), ("configs", "shapes.py"),
                 *[("configs", f"{name}.py") for name in (
                     "granite_moe_3b_a800m", "qwen2_5_3b", "smollm_135m",
                     "minicpm_2b", "llava_next_mistral_7b", "musicgen_medium",
-                    "mistral_large_123b")]):
+                    "mistral_large_123b", "jamba_1_5_large_398b",
+                    "xlstm_350m")]):
         assert ROOT.joinpath("src", "repro_torch", *rel) in PORT_FILES
 
 
@@ -58,7 +60,8 @@ def test_serve_import_loads_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.convert, "
             "repro_torch.traffic, repro_torch.core.engine, repro_torch.obs, "
             "repro_torch.distributed, repro_torch.configs, "
-            "repro_torch.models.frontends; "
+            "repro_torch.models.frontends, repro_torch.models.ssm, "
+            "repro_torch.configs.shapes; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

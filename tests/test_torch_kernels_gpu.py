@@ -1121,3 +1121,69 @@ def test_calibrate_times_the_kernels(cuda_device):
     assert moe_gmm.launches > before[0] and decode_attn.launches > before[1]
     assert verify_table(table)
     assert all(v > 0 for v in table.measured_s["gateway_by_batch"].values())
+
+
+@pytest.mark.parametrize("n,path", [(16392, "wgmma"), (16385, "fma")])
+def test_gmm_kernel_past_2_31_elements(cuda_device, n, path):
+    """A (16, 8192, N) bf16 expert stack of just over 2^31 elements, as
+    jamba-1.5-large-398b's (16, 8192, 24576) stacks are: the last experts'
+    offsets pass 2^31 on both paths (N % 8 != 0 takes the fma path), and
+    the product stays the plain version's, row for row of every expert."""
+    e, c, k = 16, 2, 8192
+    assert e * k * n > 2 ** 31
+    x, w = _gmm_inputs(cuda_device, e, c, k, n, torch.bfloat16)
+    before = dict(moe_gmm.path_launches)
+    got = moe_gmm.gmm(x, w)
+    torch.cuda.synchronize()
+    assert moe_gmm.path_launches[path] == before[path] + 1
+    want = moe_gmm.gmm_plain(x, w)
+    del w
+    scale = float(want.float().abs().max())
+    np.testing.assert_allclose(_np(got) / scale, _np(want) / scale,
+                               **TOL[torch.bfloat16])
+    assert float(got[-1].float().abs().max()) > 0.1 * scale
+
+
+def test_jamba_mamba_moe_block_on_the_card_matches_the_cpu(cuda_device):
+    """One Mamba + MoE block of jamba-1.5-large-398b's smoke config (f32):
+    prefill of 8 tokens and three decode steps through ``_apply_block`` on
+    the card (gmm on its fma path) against the same weights on the CPU,
+    outputs and the carried Mamba state at 2e-4 (summation order)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import (_apply_block, _block_cache,
+                                          _block_init)
+    cfg = smoke_config("jamba-1.5-large-398b")
+    spec = cfg.pattern[0]
+    assert (spec.mixer, spec.ffn) == ("mamba", "moe")
+    bp = _block_init(torch.Generator().manual_seed(0), cfg, spec,
+                     torch.float32, "cpu")
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(4, 8, cfg.d_model, generator=gen)
+    steps = torch.randn(3, 4, 1, cfg.d_model, generator=gen)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: {n: v.to(dev) for n, v in sub.items()} if isinstance(sub, dict)
+             else sub.to(dev) for k, sub in bp.items()}
+        cache = _block_cache(cfg, spec, 4, 12, torch.float32, torch.device(dev))
+        pos = torch.arange(8, dtype=torch.int32, device=dev)[None].expand(4, 8)
+        ops.reset_launch_counts()
+        y, cache, _ = _apply_block(cfg, spec, p, x.to(dev), pos,
+                                   torch.float32, cache, "prefill")
+        outs = [y]
+        for i in range(3):
+            pos = torch.full((4,), 8 + i, dtype=torch.int32, device=dev)
+            y, cache, _ = _apply_block(cfg, spec, p, steps[i].to(dev), pos,
+                                       torch.float32, cache, "decode")
+            outs.append(y)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["gmm"] == 3 * 4
+        runs[dev] = ([o.cpu() for o in outs],
+                     {k: v.cpu() for k, v in cache.items()})
+    for got, want in zip(runs["cuda"][0], runs["cpu"][0], strict=True):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-4,
+                                   rtol=2e-4)
+    for k, want in runs["cpu"][1].items():
+        np.testing.assert_allclose(runs["cuda"][1][k].numpy(), want.numpy(),
+                                   atol=2e-4, rtol=2e-4)

@@ -385,3 +385,12 @@ def test_models_cover_the_references_public_names():
     assert missing == {"Parallel", "loss_fn"}
     assert {"batch_specs", "frontend_split"} <= set(pm.__all__)
     assert all(hasattr(pm, n) for n in pm.__all__)
+
+
+def test_configs_names_are_the_references():
+    """``repro_torch.configs.__all__`` is the reference's list, in order,
+    and every name resolves."""
+    import repro.configs as jconfigs
+    import repro_torch.configs as pconfigs
+    assert pconfigs.__all__ == jconfigs.__all__
+    assert all(hasattr(pconfigs, n) for n in pconfigs.__all__)

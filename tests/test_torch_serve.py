@@ -148,13 +148,41 @@ def test_cuda_without_a_card_raises():
 
 
 def test_unported_model_features_raise():
-    """What the port does not run yet refuses loudly: the architectures
-    that need SSM mixers, and an SSM mixer in any config."""
-    for arch in ("jamba-1.5-large-398b", "xlstm-350m"):
-        with pytest.raises(KeyError, match="not yet ported"):
-            tcfgs.get_config(arch)
+    """What the model still refuses, it refuses loudly: a mixer or an FFN
+    it does not know (``ValueError``, as the reference's ``_block_init``)
+    and the placement of an EP-slotted stack (``ValueError`` naming V !=
+    E; the reference's fails inside the einsum)."""
     from repro_torch.models.config import LayerSpec
-    cfg = dataclasses.replace(tcfgs.smoke_config("llama-moe-3.5b"),
-                              pattern=(LayerSpec("mamba", "moe"),))
-    with pytest.raises(NotImplementedError, match="mamba"):
-        tmodels.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    base = tcfgs.smoke_config("llama-moe-3.5b")
+    for spec in (LayerSpec("rwkv", "moe"), LayerSpec("mamba", "glu")):
+        cfg = dataclasses.replace(base, pattern=(spec,))
+        with pytest.raises(ValueError, match="unknown"):
+            tmodels.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        with pytest.raises(ValueError, match="unknown"):
+            tmodels.init_cache(cfg, 1, 4, "cpu")
+    slotted = dataclasses.replace(base, moe_slotting=True)
+    params = tmodels.init_params(slotted, torch.Generator().manual_seed(0),
+                                 "cpu")
+    with pytest.raises(ValueError, match="virtual"):
+        tmodels.apply_placement(params["layers"][0]["ffn"],
+                                np.arange(slotted.n_experts))
+
+
+def test_serve_smoke_xlstm_on_the_cpu(capsys):
+    """``serve --smoke --arch xlstm-350m``: no MoE, so steps 1-2 and 4 are
+    skipped as in the reference (no placement line, no space latency even
+    with ``--space-sim``); the recurrent state carries through prefill and
+    decode to finite logits and in-range greedy tokens."""
+    argv = ["--smoke", "--arch", "xlstm-350m", "--batch", "2",
+            "--prompt-len", "8", "--decode-tokens", "3", "--space-sim",
+            "--device", "cpu"]
+    out, state = tserve.run(argv)
+    lines = capsys.readouterr().out
+    assert set(out) == {"arch", "tokens_per_s"}
+    assert out["arch"] == "xlstm-350m-smoke"
+    assert "[placement]" not in lines and "[space-sim]" not in lines
+    cfg = tcfgs.smoke_config("xlstm-350m")
+    assert bool(torch.isfinite(state["logits"]).all())
+    assert tuple(state["tokens"].shape) == (2, 4)
+    assert 0 <= int(state["tokens"].min()) < cfg.padded_vocab
+    assert int(state["tokens"].max()) < cfg.padded_vocab

@@ -196,11 +196,35 @@ Phases (any failure exits non-zero and prints no success line):
      decoded 16 steps through ``_apply_block`` (ms a step against its
      weights bound, peaks, launches: gmm 102 and decode_attention 16 in
      all, every gmm call replayed against ``gmm_ref`` within 2^-5);
- 15. the ``kernels`` JSON line (all six kernels, and gmm and
+ 15. training (run after 14): (a) gmm at granite-moe-3b-a800m's train
+     step calls at batch 4 x seq 2048 (C = 2048): the forward products
+     and their dx = gmm(dy, w^T) and dw = gmm(x^T, dy), each distinct
+     (E, C, K, N) against its plain version, ``torch.bmm`` and its bound,
+     on the wgmma path, and ``GmmFunction``'s forward and backward for
+     both projections against autograd through the plain version (each
+     within 2^-7 of its largest value), with the backward's time;
+     (b) three ``make_train_step`` steps of granite-moe-3b-a800m's and
+     llama-moe-3.5b's smoke models (f32) on the card against the CPU,
+     and ``python -m repro_torch.launch.train --smoke`` on the card: a
+     run ended by ``--simulate-failure`` in a subprocess (exit 42), its
+     resume from the checkpoint under build/, and an uninterrupted run
+     with the same losses; (c) granite-moe-3b-a800m trained at published
+     width: f32 master weights drawn on the card, batch 4 x 2048 from
+     ``SyntheticTokens``, AdamW on a cosine schedule (warmup 2, 6
+     steps): loss, ce, aux and grad norm a step (finite, the last loss
+     below the first), seconds a step and tok/s beside the bound worked
+     out from the config (the causal attention pairs and routed expert
+     rows a step needs), peak memory, gmm 384 launches a step all on
+     wgmma (by call shape as the config implies), no decode_attention,
+     and a profiled step with its device time split by region (gmm
+     forward and backward, attention forward and backward, AdamW, the
+     rest) and its busy share; a split that cannot be made fails;
+ 16. the ``kernels`` JSON line (all six kernels, and gmm and
      decode_attention again at deepseek-moe-16b's decode shape with
      phase 6d's launches, at phase 13's decode shapes with that
-     phase's launches and at phase 14c's shapes with their launches
-     there; launches counted over
+     phase's launches, at phase 14c's shapes with their launches
+     there and gmm at phase 15a's shapes with their launches over
+     15c's run; launches counted over
      the serve run for gmm/decode_attention, over the fleet ``run()``
      for deposit/backlog_scan and over the AIMD ``run()`` for
      admission_window/admission_ctrl), the card line, then the result
@@ -216,6 +240,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -318,6 +343,10 @@ def _events(torch, n: int):
 
 
 _SPIN_CYCLES_PER_MS: list[float] = []
+# Measurements ``time_ms`` takes of a function whose queueing a host
+# stall overran (on the H100's host, one of the script's ~90 kernel
+# timings has come back voided by a stall).
+HIDDEN_TRIES = 3
 
 
 def spin_cycles_per_ms(torch) -> float:
@@ -343,9 +372,11 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> tuple[float, float, bool]
     queued every call before the spin ended, which makes device ms the
     card's time alone; a function that waits on the card inside (or
     whose calls take over a second) is not hidden, and its device ms
-    includes host gaps.  (Per-window ``torch.profiler`` sums are not used
-    here: late in this script short windows have come back with part or
-    none of their kernels.)
+    includes host gaps.  A host stall while queueing (the host's time
+    past 0.9 of the spin) voids that measurement, which is taken again, up
+    to HIDDEN_TRIES times.  (Per-window ``torch.profiler`` sums are not
+    used here: late in this script short windows have come back with part
+    or none of their kernels.)
     """
     for _ in range(warmup):
         fn()
@@ -359,16 +390,19 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> tuple[float, float, bool]
     wall = start.elapsed_time(end) / iters
     if wall * iters > 1000.0:
         return wall, wall, False
-    spin.record()
-    torch.cuda._sleep(int(2.0 * wall * iters * spin_cycles_per_ms(torch)))
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    t_host_ms = (time.perf_counter() - t0) * 1e3
-    end.record()
-    end.synchronize()
-    hidden = t_host_ms < 0.9 * spin.elapsed_time(start)
+    for _ in range(HIDDEN_TRIES):
+        spin.record()
+        torch.cuda._sleep(int(2.0 * wall * iters * spin_cycles_per_ms(torch)))
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t_host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        hidden = t_host_ms < 0.9 * spin.elapsed_time(start)
+        if hidden:
+            break
     return start.elapsed_time(end) / iters, wall, hidden
 
 
@@ -1448,6 +1482,476 @@ def phase_recurrent(torch, card: str) -> tuple[list, dict]:
             for name, rec, key in cases]
     log(f"phase 14 seconds {json.dumps(seconds)}")
     return rows, counts
+
+
+# --------------------------------------------------------------------- #
+# Phase 15: training (granite-moe-3b-a800m at published width)
+# --------------------------------------------------------------------- #
+
+# The full-width train run (15c): batch x sequence from SyntheticTokens,
+# a cosine schedule with TRAIN_WARMUP warmup steps over TRAIN_STEPS.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 4, 2048, 6, 2
+TRAIN_LR = 3e-4               # AdamWConfig's default peak rate
+# The MoE FFN's products a layer, by the kernel's (E, C, K, N) call as a
+# function of the config's (E, C, d, f): forward gate/up (2 a layer) and
+# down (1), each run twice under unit remat; dx and dw of each.
+TRAIN_PRODUCTS = {
+    "forward gate/up": (lambda e, c, d, f: (e, c, d, f), 2 * 2),
+    "forward down": (lambda e, c, d, f: (e, c, f, d), 2 * 1),
+    "dx gate/up": (lambda e, c, d, f: (e, c, f, d), 2),
+    "dw gate/up": (lambda e, c, d, f: (e, d, c, f), 2),
+    "dx down": (lambda e, c, d, f: (e, c, d, f), 1),
+    "dw down": (lambda e, c, d, f: (e, f, c, d), 1),
+}
+
+
+def train_shapes(cfg) -> tuple[int, dict[tuple, int]]:
+    """(C, {kernel call (E, C, K, N): launches a MoE layer}) of a train step
+    at TRAIN_BATCH x TRAIN_SEQ tokens."""
+    from repro_torch.models.moe import capacity
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+    c = capacity(cfg, TRAIN_BATCH * TRAIN_SEQ, e)
+    shapes: dict[tuple, int] = {}
+    for shape_of, n in TRAIN_PRODUCTS.values():
+        key = shape_of(e, c, d, f)
+        shapes[key] = shapes.get(key, 0) + n
+    return c, shapes
+
+
+def train_gmm_autograd(torch, e, c, d, f, which: str) -> dict:
+    """One ``gmm`` of the MoE FFN with its backward through the kernel
+    (``GmmFunction``) against autograd through ``gmm_plain`` on the card,
+    out, dx and dw each within 2^-7 of its largest value; the backward's
+    time (two operand copies and two products) by CUDA events."""
+    from repro_torch.kernels import moe_gmm
+    k, n = (d, f) if which == "gate/up" else (f, d)
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    x = torch.randn(e, c, k, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(e, k, n, generator=gen, device="cuda") / k ** 0.5) \
+        .to(torch.bfloat16)
+    dy = torch.randn(e, c, n, generator=gen, device="cuda").to(torch.bfloat16)
+    got = {}
+    for name, fn in (("kernel", moe_gmm.gmm), ("plain", moe_gmm.gmm_plain)):
+        xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        before = dict(moe_gmm.path_launches)
+        y = fn(xr, wr)
+        dx, dw = torch.autograd.grad(y, (xr, wr), dy, retain_graph=True)
+        torch.cuda.synchronize()
+        paths = {p: moe_gmm.path_launches[p] - before[p] for p in before}
+        got[name] = (y, dx, dw, paths, xr, wr)
+    errs = {}
+    for i, part in enumerate(("out", "dx", "dw")):
+        a, b = got["kernel"][i].detach().float(), got["plain"][i].detach().float()
+        errs[part] = float((a - b).abs().max()) / float(b.abs().max())
+    y, xr, wr = got["kernel"][0], got["kernel"][4], got["kernel"][5]
+    bwd_ms, _, _ = time_ms(torch, lambda: torch.autograd.grad(
+        y, (xr, wr), dy, retain_graph=True), iters=10)
+    rec = {"product": which, "x": [e, c, k], "w": [e, k, n],
+           "paths": got["kernel"][3], "rel_err": errs, "tol": 2.0 ** -7,
+           "backward_ms": bwd_ms}
+    rec["ok"] = max(errs.values()) <= 2.0 ** -7 \
+        and rec["paths"] == {"wgmma": 3, "fma": 0}
+    return rec
+
+
+def train_kernel_cases(torch, cfg) -> dict[tuple, dict]:
+    """(15a) gmm at the train step's calls (each distinct (E, C, K, N)
+    once: forward gate/up and dx down share one, forward down and dx
+    gate/up another), timed beside ``torch.bmm`` and the bound, and the
+    Function's forward and backward against the plain version's autograd
+    for both projections."""
+    c, shapes = train_shapes(cfg)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+    recs, failed = {}, []
+    for key in shapes:
+        rec = check_gmm(torch, *key, "bfloat16", iters=10)
+        log("kernel " + json.dumps(rec))
+        failed += [] if rec["ok"] and rec["path"] == "wgmma" \
+            else [rec["shape"]]
+        recs[key] = rec
+        torch.cuda.empty_cache()
+    for name, (shape_of, _) in TRAIN_PRODUCTS.items():
+        rec = recs[shape_of(e, c, d, f)]
+        log(f"train gmm {name}: x{tuple(shape_of(e, c, d, f)[:3])} "
+            f"path {rec['path']}, {rec['ms']:.4f} ms (bmm "
+            f"{rec['library_ms']:.4f}, plain {rec['plain_ms']:.4f}, bound "
+            f"{rec['bound_ms']:.4f} {rec['bound_by']})")
+    for which in ("gate/up", "down"):
+        rec = train_gmm_autograd(torch, e, c, d, f, which)
+        log("train gmm autograd " + json.dumps(rec))
+        failed += [] if rec["ok"] else [f"autograd {which}"]
+        torch.cuda.empty_cache()
+    if failed:
+        raise SmokeFailure(f"gmm's training products disagree with the "
+                           f"plain version or left wgmma: {failed}")
+    return recs
+
+
+def train_smoke_card_vs_cpu(torch, arch: str) -> None:
+    """(15b) three train steps of ``arch``'s smoke model (f32 compute:
+    gmm's fma path) on the card against the CPU, the same master weights
+    and batches: losses within rtol 1e-5, params within atol 1e-4 (TF32
+    off; index-put backwards sum with atomics on the card)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = smoke_config(arch)
+    master = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                         cast=False)
+    gen = torch.Generator().manual_seed(1)
+    batches = [torch.randint(0, cfg.vocab_size, (BATCH, 16), generator=gen,
+                             dtype=torch.int32) for _ in range(3)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda p: p.clone().to(dev), master)
+        state = adamw_init(params)
+        step = make_train_step(cfg, AdamWConfig(lr=1e-2), cosine_schedule(1, 3))
+        ops.reset_launch_counts()
+        losses = []
+        for toks in batches:
+            toks = toks.to(dev)
+            params, state, met = step(params, state,
+                                      {"tokens": toks, "labels": toks})
+            losses.append(float(met["loss"]))
+        out[dev] = (losses, tree_leaves(params), ops.launch_counts()["gmm"])
+    n_moe = sum(s.ffn == "moe" for s in block_specs(cfg))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(out["cuda"][0],
+                                                      out["cpu"][0]))
+    p_err = max(float((a.cpu() - b).abs().max())
+                for a, b in zip(out["cuda"][1], out["cpu"][1]))
+    log(f"train smoke {cfg.name} (f32): losses card {out['cuda'][0]} vs CPU "
+        f"{out['cpu'][0]}, rel err {loss_err:.3g} (tol 1e-5); params max "
+        f"abs err {p_err:.3g} (tol 1e-4); gmm launches {out['cuda'][2]} "
+        f"(expected {3 * 12 * n_moe})")
+    if loss_err > 1e-5 or p_err > 1e-4 or out["cuda"][2] != 3 * 12 * n_moe:
+        raise SmokeFailure(f"train smoke {arch}: card disagrees with the CPU")
+
+
+def train_resume(torch) -> None:
+    """(15b) ``python -m repro_torch.launch.train --smoke`` on the card with
+    a checkpoint directory under build/: a run that ``--simulate-failure``
+    ends (exit 42) in a subprocess, the re-launch that resumes from its
+    checkpoint, and an uninterrupted run; the resumed losses within rtol
+    1e-5 of the uninterrupted run's (bitwise on the CPU, the tests)."""
+    import os
+    import shutil
+
+    from repro_torch.launch import train
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--smoke", "--arch", GRANITE, "--device", "cuda", "--steps", "6",
+            "--batch", "2", "--seq", "32", "--ckpt-every", "2",
+            "--log-every", "1", "--ckpt-dir", str(ckpt)]
+    t = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          *argv, "--simulate-failure", "3"], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=300)
+    sub_s = time.perf_counter() - t
+    for line in res.stdout.splitlines():
+        log(f"train (killed run): {line}")
+    if res.returncode != train.FAILURE_EXIT_CODE \
+            or "[failure-sim] hard exit at step 3" not in res.stdout:
+        raise SmokeFailure(f"launch.train --simulate-failure exited "
+                           f"{res.returncode}: {res.stderr[-2000:]}")
+    resumed = train.main(argv)
+    full = train.main(argv[:-2])
+    shutil.rmtree(ckpt, ignore_errors=True)
+    err = max(abs(a - b) / abs(b) for a, b in zip(resumed["losses"],
+                                                 full["losses"][2:]))
+    log(f"train resume ({GRANITE} smoke on the card): killed run exit "
+        f"{res.returncode} in {sub_s:.1f}s; resumed losses "
+        f"{resumed['losses']} vs uninterrupted {full['losses'][2:]}: rel err "
+        f"{err:.3g} (tol 1e-5); uninterrupted loss {full['losses'][0]:.4f} "
+        f"-> {full['final_loss']:.4f}")
+    if len(resumed["losses"]) != 4 or err > 1e-5:
+        raise SmokeFailure("launch.train's resume does not repeat the "
+                           "uninterrupted run")
+
+
+def train_step_bound(cfg, n_params: int) -> dict:
+    """The least time a full-width train step could take, from the config:
+    bf16 tensor work (forward; backward twice the forward; unit remat's
+    second forward of every layer) at 989 TFLOP/s, plus AdamW's bytes (p,
+    g, m and v read, p, m and v written, g read again for the norm; f32)
+    at 3.35 TB/s.  Only the work a step needs is counted: the causal
+    attention's S(S+1)/2 query-key pairs a head (the port computes every
+    chunk pair, masked or not), and the expert products over the T * K
+    routed rows (the port runs the capacity-padded E * C)."""
+    t = TRAIN_BATCH * TRAIN_SEQ
+    d, f = cfg.d_model, cfg.d_ff_expert
+    layers = cfg.n_layers
+    gmm = 3 * 2 * t * cfg.top_k * d * f
+    proj = 2 * t * d * (cfg.q_dim + 2 * cfg.kv_dim) + 2 * t * cfg.q_dim * d
+    pairs = TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    attn = 2 * 2 * pairs * cfg.head_dim
+    router = 2 * t * d * cfg.n_experts
+    head = 2 * t * d * cfg.padded_vocab
+    layer = gmm + proj + attn + router
+    fwd = layers * layer + head
+    flops = 3 * fwd + layers * layer
+    adam_bytes = 8 * 4 * n_params
+    ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    bytes_ms = adam_bytes / HBM_BYTES_PER_S * 1e3
+    return {"gmm_gflop_layer": gmm / 1e9, "proj_gflop_layer": proj / 1e9,
+            "attn_gflop_layer": attn / 1e9, "head_gflop": head / 1e9,
+            "forward_tflop": fwd / 1e12, "step_tflop": flops / 1e12,
+            "adamw_gb": adam_bytes / 1e9, "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "bound_ms": ops_ms + bytes_ms}
+
+
+def profiled_train_step(torch, step_fn, params, state, batch) -> dict:
+    """One train step under the profiler, its device time split by region:
+    marker launches (one-cycle spins, in stream order) open and close the
+    forward, backward and AdamW phases, every ``GmmFunction`` forward and
+    backward (operand copies included) and every attention call (forward
+    and remat recompute by a wrapper of ``flash_attention``, backward by
+    hooks on its output and inputs); each kernel goes to the innermost
+    open region."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import attention as attn
+    marks: list[str] = []
+
+    def mark(label):
+        torch.cuda._sleep(1)
+        marks.append(label)
+
+    real_fwd, real_bwd = moe_gmm.GmmFunction.forward, moe_gmm.GmmFunction.backward
+    real_attn, real_loss = attn.flash_attention, steps_mod.loss_fn
+    real_adam = steps_mod.adamw_update
+
+    def gmm_fwd(ctx, x, w):
+        mark("+gmm forward")
+        out = real_fwd(ctx, x, w)
+        mark("-")
+        return out
+
+    def gmm_bwd(ctx, dy):
+        mark("+gmm backward")
+        out = real_bwd(ctx, dy)
+        mark("-")
+        return out
+
+    def flash(cfg, q, k, v, qpos, kpos):
+        mark("+attention forward")
+        out = real_attn(cfg, q, k, v, qpos, kpos)
+        mark("-")
+        if out.requires_grad:
+            left = [sum(t.requires_grad for t in (q, k, v))]
+
+            def closed(grad):
+                left[0] -= 1
+                if left[0] == 0:
+                    mark("-")
+            out.register_hook(lambda g: mark("+attention backward"))
+            for t in (q, k, v):
+                if t.requires_grad:
+                    t.register_hook(closed)
+        return out
+
+    def loss(*args, **kw):
+        mark("+forward")
+        out = real_loss(*args, **kw)
+        mark("-")
+        mark("+backward")
+        return out
+
+    def adam(*args, **kw):
+        mark("-")
+        mark("+adamw")
+        out = real_adam(*args, **kw)
+        mark("-")
+        return out
+    moe_gmm.GmmFunction.forward = staticmethod(gmm_fwd)
+    moe_gmm.GmmFunction.backward = staticmethod(gmm_bwd)
+    attn.flash_attention = flash
+    steps_mod.loss_fn, steps_mod.adamw_update = loss, adam
+    try:
+        with primed_profile(torch) as prof:
+            t0 = time.perf_counter()
+            params, state, met = step_fn(params, state, batch)
+            float(met["loss"])
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        moe_gmm.GmmFunction.forward = staticmethod(real_fwd)
+        moe_gmm.GmmFunction.backward = staticmethod(real_bwd)
+        attn.flash_attention = real_attn
+        steps_mod.loss_fn, steps_mod.adamw_update = real_loss, real_adam
+    kernels = sorted((evt for evt in prof.events()
+                      if evt.device_type == DeviceType.CUDA),
+                     key=lambda evt: evt.time_range.start)
+    spins = [i for i, evt in enumerate(kernels) if PRIMER_KERNEL in evt.name]
+    split: dict[str, float] | None = None
+    if len(spins) >= len(marks):
+        marker_at = dict(zip(spins[len(spins) - len(marks):], marks))
+        first = min(marker_at)
+        split, stack, launches = {}, [], 0
+        for i, evt in enumerate(kernels[first:], start=first):
+            if i in marker_at:
+                if marker_at[i] != "-":
+                    stack.append(marker_at[i][1:])
+                elif stack:
+                    stack.pop()
+                else:
+                    split = None         # markers out of order
+                    break
+            elif PRIMER_KERNEL not in evt.name:
+                region = stack[-1] if stack else "outside"
+                split[region] = split.get(region, 0.0) \
+                    + evt.device_time_total / 1e3
+                launches += 1
+    if split is None:
+        raise SmokeFailure(f"train profile: {len(spins)} spin records for "
+                           f"{len(marks)} markers, or markers out of order: "
+                           f"the step's device time cannot be split")
+    busy = sum(split.values())
+    log(f"train profile ({len(marks)} markers): step {wall_ms:.1f} ms wall "
+        f"under the profiler, kernels {busy:.1f} ms ({launches} launches) -> "
+        f"busy {busy / wall_ms:.1%}")
+    for region, ms in sorted(split.items(), key=lambda kv: -kv[1]):
+        log(f"train profile:   {ms:9.2f} ms {ms / busy:6.1%}  {region}")
+    top = {}
+    for evt in kernels[first:]:
+        if PRIMER_KERNEL not in evt.name:
+            top[evt.name] = top.get(evt.name, 0.0) + evt.device_time_total / 1e3
+    for name, ms in sorted(top.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"train profile kernel: {ms:9.2f} ms  {name[:90]}")
+    return {"wall_ms": wall_ms, "kernel_ms": busy, "launches": launches,
+            "split": split}
+
+
+def train_full_width(torch, card: str) -> dict:
+    """(15c) granite-moe-3b-a800m trained at published width: f32 master
+    weights drawn on the card, TRAIN_BATCH x TRAIN_SEQ tokens a step from
+    ``SyntheticTokens``, ``make_train_step`` with AdamW on a cosine
+    schedule.  Gates: every loss, ce, aux and grad norm finite, the last
+    loss below the first, gmm TRAIN_STEPS x 384 launches all on wgmma and
+    no decode_attention.  Prints seconds a step, tok/s, the bound, peak
+    memory and a profiled step.  Returns gmm launches by call shape over
+    the TRAIN_STEPS steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens, make_batch
+    from repro_torch.kernels import moe_gmm, ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(GRANITE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda", cast=False)
+    state = adamw_init(params)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    static_gib = torch.cuda.memory_allocated() / 2**30
+    draw_s = time.perf_counter() - t
+    bnd = train_step_bound(cfg, n_params)
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH, seed=0))
+    step_fn = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR),
+                              cosine_schedule(TRAIN_WARMUP, TRAIN_STEPS))
+    batches = [{k: torch.as_tensor(v, device="cuda")
+                for k, v in make_batch(cfg, data, s).items()}
+               for s in range(TRAIN_STEPS + 1)]
+    c, shapes = train_shapes(cfg)
+    n_moe = sum(s.ffn == "moe" for s in block_specs(cfg))
+    per_step = sum(shapes.values()) * n_moe
+    calls: dict[tuple, int] = {}
+    real = moe_gmm._product
+
+    def counted(x, w):
+        key = (*x.shape, w.shape[2])
+        calls[key] = calls.get(key, 0) + 1
+        return real(x, w)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    moe_gmm._product = counted
+    rows, secs = [], []
+    try:
+        for s in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            params, state, met = step_fn(params, state, batches[s])
+            m = {k: float(v) for k, v in met.items()}
+            secs.append(time.perf_counter() - t)
+            rows.append(m)
+            log(f"train {cfg.name} step {s}: loss {m['loss']:.4f} ce "
+                f"{m['ce']:.4f} aux {m['aux']:.4f} gnorm {m['grad_norm']:.4f} "
+                f"{secs[-1]:.3f}s ({TRAIN_BATCH * TRAIN_SEQ / secs[-1]:,.0f} "
+                f"tok/s)")
+    finally:
+        moe_gmm._product = real
+    counts, paths = ops.launch_counts(), dict(moe_gmm.path_launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steady = sorted(secs[1:])[len(secs[1:]) // 2]
+    log(f"train {cfg.name} at published width on {card}: {n_params / 1e9:.3f}"
+        f" B params, {n_params * 16 / 2**30:.2f} GiB of f32 params, grads and "
+        f"moments (params + moments {static_gib:.2f} GiB drawn in "
+        f"{draw_s:.1f}s); {TRAIN_BATCH}x{TRAIN_SEQ} tokens a step, C = {c}; "
+        f"median step (1-{TRAIN_STEPS - 1}) {steady:.3f}s = "
+        f"{TRAIN_BATCH * TRAIN_SEQ / steady:,.0f} tok/s, step 0 "
+        f"{secs[0]:.3f}s; bound {bnd['bound_ms']:.1f} ms = "
+        f"{bnd['step_tflop']:.2f} TFLOP at 989 TFLOP/s ({bnd['ops_ms']:.1f} "
+        f"ms: forward {bnd['forward_tflop']:.2f} TFLOP = {cfg.n_layers} x "
+        f"(gmm over T*K routed rows {bnd['gmm_gflop_layer']:.1f} + q/k/v/o "
+        f"{bnd['proj_gflop_layer']:.1f} + causal attention "
+        f"{bnd['attn_gflop_layer']:.1f} GFLOP + router) + head "
+        f"{bnd['head_gflop']:.0f} GFLOP; x3 for forward and backward, + one "
+        f"remat forward of the layers) + AdamW {bnd['adamw_gb']:.1f} GB at "
+        f"3.35 TB/s ({bnd['bytes_ms']:.1f} ms) -> "
+        f"{TRAIN_BATCH * TRAIN_SEQ / bnd['bound_ms'] * 1e3:,.0f} tok/s; "
+        f"step at {bnd['bound_ms'] / 1e3 / steady:.1%} of the bound; peak "
+        f"memory {peak_gib:.2f} GiB")
+    want_calls = {k: n * n_moe * TRAIN_STEPS for k, n in shapes.items()}
+    log(f"train launches over {TRAIN_STEPS} steps: {json.dumps(counts)}; gmm "
+        f"by path {json.dumps(paths)}; gmm by call (E, C, K, N) "
+        f"{json.dumps({str(k): v for k, v in calls.items()})}; expected "
+        f"{per_step} gmm a step")
+    finite = all(math.isfinite(v) for row in rows for v in row.values())
+    if not finite or rows[-1]["loss"] >= rows[0]["loss"]:
+        raise SmokeFailure(f"train {cfg.name}: losses not finite or not "
+                           f"falling: {[r['loss'] for r in rows]}")
+    if counts["gmm"] != per_step * TRAIN_STEPS \
+            or paths != {"wgmma": per_step * TRAIN_STEPS, "fma": 0} \
+            or counts["decode_attention"] != 0 or calls != want_calls:
+        raise SmokeFailure(f"train {cfg.name}: launches {counts}, paths "
+                           f"{paths}, calls {calls}; expected {want_calls}")
+    prof = profiled_train_step(torch, step_fn, params, state,
+                               batches[TRAIN_STEPS])
+    del params, state, batches
+    torch.cuda.empty_cache()
+    return {"calls": calls, "counts": counts, "secs": secs, "peak": peak_gib,
+            "profile": prof}
+
+
+def phase_train(torch, card: str) -> list[tuple[str, dict, int]]:
+    """Phase 15 (a-c).  Returns the kernel rows (name, record, launches over
+    15c's run) of 15a's shapes."""
+    from repro_torch.configs import get_config
+    seconds = {}
+
+    def step(name, fn, *args):
+        t = time.perf_counter()
+        got = fn(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return got
+
+    cfg = get_config(GRANITE)
+    recs = step("15a", train_kernel_cases, torch, cfg)
+    for arch in (GRANITE, ARCH):
+        step("15b " + arch, train_smoke_card_vs_cpu, torch, arch)
+    step("15b resume", train_resume, torch)
+    run = step("15c", train_full_width, torch, card)
+    log(f"phase 15 seconds {json.dumps(seconds)}")
+    return [("gmm", rec, run["calls"].get(key, 0)) for key, rec in recs.items()]
 
 
 # --------------------------------------------------------------------- #
@@ -3919,6 +4423,8 @@ def main() -> int:
     arch_cases, arch_counts = timed("archs", phase_archs, torch, card)
     torch.cuda.empty_cache()
     rec_rows, rec_counts = timed("recurrent", phase_recurrent, torch, card)
+    torch.cuda.empty_cache()
+    train_rows = timed("train", phase_train, torch, card)
     fleet_counts, captured, in_run, world = timed("fleet", phase_fleet, torch)
     main_cases.update(timed("fleet_kernels", phase_fleet_kernels, torch,
                             captured, in_run))
@@ -3934,7 +4440,8 @@ def main() -> int:
     main_cases["admission_ctrl"] = ctrl_rec
     mixed = [name for name, rec in (*main_cases.items(), *deep_cases.items(),
                                     *arch_cases.items(),
-                                    *((n, r) for n, r, _ in rec_rows))
+                                    *((n, r) for n, r, _ in rec_rows),
+                                    *((n, r) for n, r, _ in train_rows))
              if not rec["hidden"]]
     if mixed:
         raise SmokeFailure(f"kernel device time not separable from the "
@@ -3970,6 +4477,9 @@ def main() -> int:
              for key, rec in arch_cases.items()]
     # jamba's shapes (phase 14c), each with its launches in the block runs.
     runs += [({name: rec}, {name: n}) for name, rec, n in rec_rows]
+    # The train step's gmm calls (phase 15a), each with its launches over
+    # phase 15c's run.
+    runs += [({name: rec}, {name: n}) for name, rec, n in train_rows]
     kernels = []
     for cases, launches in runs:
         for name, rec in cases.items():

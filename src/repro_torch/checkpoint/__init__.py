@@ -1,0 +1,6 @@
+"""Checkpoints with an atomic write protocol (counterpart of
+``repro.checkpoint``)."""
+from .store import (CheckpointManager, latest_step, restore_pytree,
+                    save_pytree)
+
+__all__ = ["CheckpointManager", "latest_step", "restore_pytree", "save_pytree"]

@@ -11,7 +11,9 @@ own dtype, so tied embeddings (no ``head``), the QKV bias leaves
 (``b_q``, ``b_k``, ``b_v``), EP-slotted expert stacks ((V, d, f/frag)
 and (V, f/frag, d)), blocks without ``norm2`` and ``ffn`` (``ffn="none"``)
 and the recurrent mixers' f32 leaves arrive in the structure the port's
-``init_params`` draws for the same config.
+``init_params`` draws for the same config.  Any tree of the parameters'
+structure crosses the same way: the reference's grads and its AdamW
+moments (``mu``, ``nu``) become the port's.
 
 The fleet simulator's state crosses the same way: ``plan_from_arrays``,
 ``schedule_from_arrays``, ``requests_from_arrays`` and

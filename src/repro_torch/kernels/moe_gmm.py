@@ -11,6 +11,17 @@ tensors; on a CUDA tensor it launches the kernel or raises.  The kernel
 has two paths, picked by ``gmm_path`` from shapes and alignment alone
 before the launch: ``"wgmma"`` (bf16 tensor-core tiles fed by TMA) and
 ``"fma"`` (CUDA-core tiles, for f32 and for bf16 shapes TMA cannot take).
+
+``gmm`` is differentiable (the reference's ``gmm`` has no VJP; its
+training path runs einsums).  When grad mode is on and x or w requires a
+grad, the call goes through ``GmmFunction``, whose backward runs both
+products through the same kernel on transposed operands:
+``dx = gmm(dy, wᵀ)`` with wᵀ (E, N, K) and ``dw = gmm(xᵀ, dy)`` with xᵀ
+(E, K, C).  The transposes are ``.contiguous()`` copies (a K-major
+operand path that reads them in place is later work); on CPU tensors the
+same products run ``gmm_plain``.  Otherwise (serve, ``torch.no_grad``)
+``gmm`` launches directly, with no autograd node.  ``launches`` and
+``path_launches`` count every launch, the backward's included.
 """
 from __future__ import annotations
 
@@ -97,8 +108,8 @@ def _library():
     return lib
 
 
-def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Grouped matmul (E,C,K) x (E,K,N) -> (E,C,N) in x.dtype."""
+def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One product: ``gmm_plain`` for CPU tensors, else one kernel launch."""
     global launches
     if x.device.type == "cpu" and w.device.type == "cpu":
         return gmm_plain(x, w)
@@ -120,3 +131,31 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     launches += 1
     path_launches[path] += 1
     return out
+
+
+class GmmFunction(torch.autograd.Function):
+    """``gmm`` with a backward through the same kernel (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _product(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _product(dy, w.transpose(1, 2).contiguous())
+        if ctx.needs_input_grad[1]:
+            dw = _product(x.transpose(1, 2).contiguous(), dy)
+        return dx, dw
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Grouped matmul (E,C,K) x (E,K,N) -> (E,C,N) in x.dtype;
+    differentiable in x and w."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return GmmFunction.apply(x, w)
+    return _product(x, w)

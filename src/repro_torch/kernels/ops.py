@@ -68,7 +68,10 @@ def expert_ffn(params: dict, xs: torch.Tensor, compute_dtype) -> torch.Tensor:
     """Batched SwiGLU over expert buckets through ``gmm``: (E,C,d)->(E,C,d).
 
     silu(gmm(x, Wg)) * gmm(x, Wu), then gmm(., Wd), as
-    ``repro.kernels.ops.expert_ffn_pallas`` chains it.
+    ``repro.kernels.ops.expert_ffn_pallas`` chains it.  ``gmm`` is
+    differentiable, so training's backward runs its dx and dw products
+    through the kernel too; silu, the gate product and the casts are
+    PyTorch.
     """
     xs = xs.to(compute_dtype).contiguous()
     wg = params["w_gate"].to(compute_dtype)

@@ -5,8 +5,11 @@ Counterpart of ``repro.models.attention``.  Forward and prefill run
 ``attn_q_chunk`` x ``attn_kv_chunk`` blocks (``_flash_fwd``), so the
 S x S score matrix is never materialized: f32 scores, running max, sum
 and accumulator, probabilities cast to the value dtype before the PV
-product.  It is plain PyTorch, as the reference's is plain jnp, and
-forward only (``_flash_vjp_fn`` waits for training).  Decode on a CUDA
+product.  It is plain PyTorch, as the reference's is plain jnp.  Its
+backward is autograd through ``_flash_fwd`` (the reference's scan-AD),
+or with ``cfg.flash_vjp`` the reference's custom VJP, ``_flash_vjp_fn``:
+probabilities recomputed chunk by chunk from the saved log-sum-exp, so
+no (qc, kc) block is kept for the backward.  Decode on a CUDA
 device goes through the hand-written ``decode_attention`` kernel
 whenever the reference's kernel guard holds (no sliding window, no
 softcap); on the CPU it does so only when ``cfg.use_pallas_decode`` asks
@@ -17,6 +20,8 @@ in place, where the reference writes it functionally (``.at[].set`` /
 ``dynamic_update_slice``) and relies on buffer donation.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -79,9 +84,12 @@ def flash_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     """Causal online-softmax attention, chunked along both S axes:
     q (B,S,Hq,hd), k/v (B,S,Hkv,hd), positions (B,S) -> (B,S,Hq,hd).
 
-    Forward only: the reference's ``cfg.flash_vjp`` backward
-    (``_flash_vjp_fn``) waits for training.
+    With ``cfg.flash_vjp`` the backward is ``_flash_vjp_fn``'s; otherwise
+    autograd differentiates ``_flash_fwd``.
     """
+    if cfg.flash_vjp:
+        out, _ = _flash_vjp_fn(cfg)(q, k, v, q_positions, kv_positions)
+        return out
     out, _ = _flash_fwd(cfg, q, k, v, q_positions, kv_positions)
     return out
 
@@ -147,6 +155,97 @@ def _flash_fwd(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     out = torch.cat(outs, dim=3)                               # (B,Hkv,G,S,hd)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, hd)
     return out, torch.cat(lses, dim=3)
+
+
+def _flash_vjp_fn(cfg: ModelConfig):
+    """Custom-VJP flash attention for ``cfg``: a function of (q, k, v,
+    qpos, kpos) that returns (out, lse), with O(qc * kc) backward
+    temporaries (``_FlashVJP``).  Raises under a logit softcap, whose
+    derivative the backward does not implement, as the reference does.
+    """
+    if cfg.attn_logit_softcap > 0:
+        raise NotImplementedError(
+            "flash_vjp does not implement the softcap derivative")
+    return functools.partial(_FlashVJP.apply, cfg)
+
+
+class _FlashVJP(torch.autograd.Function):
+    """The forward is ``_flash_fwd`` and saves (q, k, v, positions, out,
+    lse).  The backward walks KV chunks outer and q chunks inner, as the
+    reference's two scans: P recomputed from ``lse``, ``delta = sum(do *
+    out)`` per query, dk and dv accumulated in f32 over the q chunks and
+    dq in f32 over the KV chunks.  Chunk intermediates (do, P, dS) are
+    rounded to the model dtype and multiplied in f32, as the reference's
+    einsums with ``preferred_element_type=f32``.  No grad flows into lse.
+    """
+
+    @staticmethod
+    def forward(ctx, cfg, q, k, v, qpos, kpos):
+        out, lse = _flash_fwd(cfg, q, k, v, qpos, kpos)
+        ctx.cfg = cfg
+        ctx.save_for_backward(q, k, v, qpos, kpos, out, lse)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, qpos, kpos, out, lse = ctx.saved_tensors
+        return (None, *_flash_bwd(ctx.cfg, q, k, v, qpos, kpos, out, lse, do),
+                None, None)
+
+
+def _flash_bwd(cfg: ModelConfig, q, k, v, qpos, kpos, out, lse, do):
+    """(dq, dk, dv) of ``_flash_fwd``'s out (see ``_FlashVJP``)."""
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    qc = _pick_chunk(s, cfg.attn_q_chunk)
+    kc = _pick_chunk(s, cfg.attn_kv_chunk)
+    scale = hd ** -0.5
+    f32 = torch.float32
+    wdt = q.dtype
+
+    def grouped(x):                      # (B,S,Hq,hd) -> (B,Hkv,G,S,hd)
+        return x.reshape(b, s, hkv, g, hd).permute(0, 2, 3, 1, 4)
+
+    qg = grouped(q)
+    dog = grouped(do.to(wdt))
+    # delta_i = sum_d do * out per query (rescales dp -> ds)
+    delta = torch.sum(do.to(f32) * out.to(f32), dim=-1)       # (B,S,Hq)
+    delta = delta.reshape(b, s, hkv, g).permute(0, 2, 3, 1)   # (B,Hkv,G,S)
+    kt = k.permute(0, 2, 1, 3)                                # (B,Hkv,S,hd)
+    vt = v.permute(0, 2, 1, 3)
+    dq = [torch.zeros((b, hkv, g, qc, hd), dtype=f32, device=q.device)
+          for _ in range(0, s, qc)]
+    dks, dvs = [], []
+    for k0 in range(0, s, kc):
+        k_blk = kt[:, :, k0:k0 + kc].to(f32)                 # (B,Hkv,kc,hd)
+        v_blk = vt[:, :, k0:k0 + kc].to(f32)
+        kpb = kpos[:, k0:k0 + kc]
+        dk_blk = torch.zeros((b, hkv, kc, hd), dtype=f32, device=q.device)
+        dv_blk = torch.zeros_like(dk_blk)
+        for i, q0 in enumerate(range(0, s, qc)):
+            q_blk = qg[:, :, :, q0:q0 + qc].to(f32).reshape(b, hkv, g * qc, hd)
+            do_blk = dog[:, :, :, q0:q0 + qc].to(f32).reshape(b, hkv, g * qc, hd)
+            sco = torch.matmul(q_blk, k_blk.transpose(-1, -2)) \
+                .reshape(b, hkv, g, qc, kc) * scale
+            mask = _mask_block(cfg, qpos[:, q0:q0 + qc], kpb)[:, None, None]
+            p = torch.where(mask, torch.exp(sco - lse[..., q0:q0 + qc, None]),
+                            torch.zeros_like(sco))
+            p_w = p.to(wdt).to(f32).reshape(b, hkv, g * qc, kc)
+            dv_blk = dv_blk + torch.matmul(p_w.transpose(-1, -2), do_blk)
+            dp = torch.matmul(do_blk, v_blk.transpose(-1, -2)) \
+                .reshape(b, hkv, g, qc, kc)
+            ds = (p * (dp - delta[..., q0:q0 + qc, None]) * scale) \
+                .to(wdt).to(f32).reshape(b, hkv, g * qc, kc)
+            dq[i] = dq[i] + torch.matmul(ds, k_blk).reshape(b, hkv, g, qc, hd)
+            dk_blk = dk_blk + torch.matmul(ds.transpose(-1, -2), q_blk)
+        dks.append(dk_blk)
+        dvs.append(dv_blk)
+    dq = torch.cat(dq, dim=3).permute(0, 3, 1, 2, 4).reshape(b, s, hq, hd)
+    dk = torch.cat(dks, dim=2).permute(0, 2, 1, 3)
+    dv = torch.cat(dvs, dim=2).permute(0, 2, 1, 3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_forward(cfg: ModelConfig, params: dict, x: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Composable LM: init / forward / prefill / decode_step.
+"""Composable LM: init / forward / loss / prefill / decode_step.
 
 Counterpart of ``repro.models.model``: attention, Mamba, mLSTM and sLSTM
 mixers with dense, MoE or no FFN.  The reference scans over stacked
@@ -27,16 +27,27 @@ Inputs are a batch dict as in the reference: "tokens" (B, S_t) and/or
 "embeds" (B, S_e, d) from a stub frontend (``frontends.py``), embeddings
 first; ``decode_step`` takes ``embeds`` (B, 1, d) in place of tokens.
 
-Not yet ported: ``Parallel``/sharded execution, ``loss_fn`` and
-``remat`` (training).
+Training: ``loss_fn`` is the reference's next-token cross-entropy plus
+the MoE aux loss.  With ``cfg.remat == "unit"`` and a grad to take,
+``forward`` runs each pattern unit under non-reentrant
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` around
+its scan body): a unit's activations are recomputed in the backward, and
+the recompute routes the same copies to the same experts (``route``
+sorts stably; ``gmm`` sums K in a fixed order).  Training draws the
+uncast model (``init_params(cast=False)``): f32 master weights, cast to
+the compute dtype at each use, as the reference trains.
+
+Not yet ported: ``Parallel``/sharded execution.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..tree import tree_leaves
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
@@ -103,13 +114,15 @@ def _block_init(gen, cfg: ModelConfig, spec: LayerSpec, dtype, device) -> dict:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
-                device="cuda") -> dict:
-    """Random weights drawn in ``cfg.param_dtype`` on ``device``, each block
-    cast by :func:`cast_for_compute` as soon as it is drawn.
+                device="cuda", cast: bool = True) -> dict:
+    """Random weights drawn in ``cfg.param_dtype`` on ``device``.
 
-    ``generator`` must live on ``device``; None seeds one with 0.  The
-    values are those of drawing the whole model in ``param_dtype`` and
-    casting it after; the peak is the cast model plus one block.
+    With ``cast`` (serve) each block is cast by :func:`cast_for_compute`
+    as soon as it is drawn: the values are those of drawing the whole
+    model in ``param_dtype`` and casting it after, and the peak is the
+    cast model plus one block.  ``cast=False`` (training) keeps every
+    leaf in ``param_dtype``, the reference's master weights.
+    ``generator`` must live on ``device``; None seeds one with 0.
     """
     check_supported(cfg)
     dev = resolve_device(device)
@@ -119,7 +132,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     dtype = dtype_of(cfg.param_dtype)
 
     def drawn(node: dict) -> dict:
-        return cast_for_compute(cfg, node)
+        return cast_for_compute(cfg, node) if cast else node
 
     params: dict = drawn({
         "embed": embedding_init(gen, cfg.padded_vocab, cfg.d_model, dtype, dev),
@@ -227,6 +240,27 @@ def _logits(cfg, params, x):
 # ===================================================================== #
 
 
+def _apply_unit(cfg, unit_params, x, positions, cdt):
+    """One pattern unit of the forward pass: (x, aux, counts (E,)), the aux
+    and counts summed over its MoE blocks in the reference's order."""
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    counts = torch.zeros((max(cfg.n_experts, 1),), dtype=torch.float32,
+                         device=x.device)
+    for spec, bp in zip(cfg.pattern, unit_params):
+        x, _, aux = _apply_block(cfg, spec, bp, x, positions, cdt, None,
+                                 "forward")
+        if aux is not None:
+            aux_sum = aux_sum + aux["load_balance_loss"] \
+                + 1e-3 * aux["router_z_loss"]
+            counts = counts + aux["expert_counts"]
+    return x, aux_sum, counts
+
+
+def _takes_grad(params: dict) -> bool:
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_leaves(params["layers"]))
+
+
 def forward(cfg: ModelConfig, params: dict, batch: dict,
             return_router_stats: bool = False):
     """Forward pass: returns (logits (B,S,V_padded), aux_loss).
@@ -234,29 +268,57 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
     With ``return_router_stats`` also returns per-unit expert-selection
     counts (n_scan_units, n_experts): the activation statistics that feed
     the SpaceMoE placement planner (Eq. 14 plug-in); the dense first
-    block has no row.
+    block has no row.  Units run under ``checkpoint`` when
+    ``cfg.remat == "unit"`` and a grad is to be taken (module docstring).
     """
     cdt = dtype_of(cfg.compute_dtype)
     x, positions = _embed_inputs(cfg, params, batch, cdt)
-    n_e = max(cfg.n_experts, 1)
+    n_units = n_scan_units(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    counts = torch.zeros((n_scan_units(cfg), n_e), dtype=torch.float32,
-                         device=x.device)
+    counts = torch.zeros((n_units, max(cfg.n_experts, 1)),
+                         dtype=torch.float32, device=x.device)
     if cfg.first_layer_dense:
         x, _, _ = _apply_block(cfg, _first_spec(cfg), params["first"], x,
                                positions, cdt, None, "forward")
+    remat = cfg.remat == "unit" and _takes_grad(params)
     width = len(cfg.pattern)
-    for i, (spec, bp) in enumerate(zip(layer_specs(cfg), params["layers"])):
-        x, _, aux = _apply_block(cfg, spec, bp, x, positions, cdt, None,
-                                 "forward")
-        if aux is not None:
-            aux_total = aux_total + aux["load_balance_loss"] \
-                + 1e-3 * aux["router_z_loss"]
-            counts[i // width] += aux["expert_counts"]
+    for u in range(n_units):
+        unit = params["layers"][u * width:(u + 1) * width]
+        if remat:
+            x, aux, counts_u = checkpoint(_apply_unit, cfg, unit, x,
+                                          positions, cdt, use_reentrant=False,
+                                          preserve_rng_state=False)
+        else:
+            x, aux, counts_u = _apply_unit(cfg, unit, x, positions, cdt)
+        aux_total = aux_total + aux
+        counts[u] = counts_u
     logits = _logits(cfg, params, x)
     if return_router_stats:
         return logits, aux_total, counts
     return logits, aux_total
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
+            aux_weight: float = 0.01):
+    """Next-token cross-entropy (+ MoE aux): (loss, {"ce", "aux"}).
+
+    batch["labels"]: (B, S) int, -1 => ignore.  The log-softmax runs in
+    f32 over the padded vocab, as the reference's.  (The reference's data
+    pipeline gives the input tokens themselves as labels, unshifted.)
+    """
+    logits, aux = forward(cfg, params, batch)
+    labels = batch["labels"]
+    s = min(logits.shape[1], labels.shape[1])
+    logits = logits[:, -s:].float()
+    labels = labels[:, -s:].long()
+    logp = torch.log_softmax(logits, dim=-1)
+    valid = labels >= 0
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    denom = torch.clamp(valid.sum(), min=1)
+    ce = nll.sum() / denom
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def _block_cache(cfg, spec: LayerSpec, batch: int, max_len: int, cdt, dev):

@@ -195,6 +195,44 @@ def dispatch_indices(idx: torch.Tensor, n_experts: int, cap: int):
     return slot_token, slot_valid, copy_slot, copy_kept
 
 
+class _PairedGather(torch.autograd.Function):
+    """``src[index] * valid``, differentiated by the paired gather.
+
+    The dispatch (token -> slot) and combine (slot -> copy) gathers are
+    each other's adjoints: every kept copy fills exactly one slot.  So the
+    grad of one is the other gather, ``d_out[back_index] * back_valid``,
+    summed over the ``group`` consecutive rows that share a source row
+    (a token's K * frag copies).  Autograd's own backward of an index
+    (an index_put with accumulate) would instead add up every unfilled
+    slot and dropped copy, which all point at row 0: at
+    granite-moe-3b-a800m's training shapes that was about 16,000 rows
+    accumulated one after another, 106 ms a layer on the H100.
+    """
+
+    @staticmethod
+    def forward(ctx, src, index, valid, back_index, back_valid, group):
+        ctx.save_for_backward(back_index, back_valid)
+        ctx.group, ctx.rows = group, src.shape[0]
+        return src[index] * valid[:, None].to(src.dtype)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        back_index, back_valid = ctx.saved_tensors
+        d_src = d_out[back_index] * back_valid[:, None].to(d_out.dtype)
+        if ctx.group > 1:
+            d_src = d_src.reshape(ctx.rows, ctx.group, -1).sum(dim=1)
+        return d_src, None, None, None, None, None
+
+
+def _gather(src, index, valid, back_index, back_valid, group: int):
+    """``src[index] * valid``: through ``_PairedGather`` when a grad is to
+    be taken, else as it is (serve)."""
+    if torch.is_grad_enabled() and src.requires_grad:
+        return _PairedGather.apply(src, index, valid, back_index, back_valid,
+                                   group)
+    return src[index] * valid[:, None].to(src.dtype)
+
+
 def expert_ffn(params: dict, xs: torch.Tensor, compute_dtype) -> torch.Tensor:
     """Batched SwiGLU over expert buckets through the gmm kernel:
     xs (E, C, d) -> (E, C, d)."""
@@ -231,10 +269,12 @@ def moe_apply_local(cfg: ModelConfig, params: dict, x: torch.Tensor,
         v_idx, n_b, cap)
     # copy j of the flattened (T*K*frag,) list is token j // (K*frag):
     # gather the tokens directly instead of materializing the copies.
-    buckets = xt[slot_token // (k * frag)] * slot_valid[:, None].to(compute_dtype)
+    buckets = _gather(xt, slot_token // (k * frag), slot_valid, copy_slot,
+                      copy_kept, k * frag)
     outs = expert_ffn(params, buckets.reshape(n_b, cap, d), compute_dtype)
     flat_out = outs.reshape(n_b * cap, d)
-    gathered = flat_out[copy_slot] * copy_kept[:, None].to(compute_dtype)
+    gathered = _gather(flat_out, copy_slot, copy_kept, slot_token,
+                       slot_valid, 1)
     y = _combine(gathered, weights, t, k, frag, compute_dtype)
     if cfg.n_shared_experts > 0:
         y = y + ffn_apply(params["shared"], xt, compute_dtype)

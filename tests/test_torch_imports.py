@@ -52,7 +52,10 @@ def test_port_files_were_found():
                     "granite_moe_3b_a800m", "qwen2_5_3b", "smollm_135m",
                     "minicpm_2b", "llava_next_mistral_7b", "musicgen_medium",
                     "mistral_large_123b", "jamba_1_5_large_398b",
-                    "xlstm_350m")]):
+                    "xlstm_350m")],
+                ("tree.py",), ("optim", "adamw.py"), ("optim", "schedules.py"),
+                ("data", "pipeline.py"), ("checkpoint", "store.py"),
+                ("launch", "steps.py"), ("launch", "train.py")):
         assert ROOT.joinpath("src", "repro_torch", *rel) in PORT_FILES
 
 
@@ -62,6 +65,17 @@ def test_serve_import_loads_no_jax():
             "repro_torch.distributed, repro_torch.configs, "
             "repro_torch.models.frontends, repro_torch.models.ssm, "
             "repro_torch.configs.shapes; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_train_import_loads_no_jax():
+    code = ("import sys, repro_torch.launch.train, repro_torch.optim, "
+            "repro_torch.data, repro_torch.checkpoint, repro_torch.tree; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -1187,3 +1187,101 @@ def test_jamba_mamba_moe_block_on_the_card_matches_the_cpu(cuda_device):
     for k, want in runs["cpu"][1].items():
         np.testing.assert_allclose(runs["cuda"][1][k].numpy(), want.numpy(),
                                    atol=2e-4, rtol=2e-4)
+
+
+# --------------------------------------------------------------------- #
+# gmm's backward products (training)
+# --------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("e,c,k,n", [
+    (3, 40, 64, 48),          # small (C a multiple of 8: dw on wgmma)
+    (40, 2048, 1536, 512),    # granite-moe-3b-a800m at batch 4 x 2048:
+    (40, 2048, 512, 1536),    # gate/up and down
+])
+def test_gmm_backward_matches_plain_autograd(cuda_device, e, c, k, n):
+    """forward, dx and dw through the kernel against autograd through
+    ``gmm_plain`` on the card, each within 2^-7 of its largest value (one
+    bf16 rounding of each, 2^-8 relative); three launches, all wgmma."""
+    x, w = _gmm_inputs(cuda_device, e, c, k, n, torch.bfloat16, seed=4)
+    w = (w.float() / k ** 0.5).to(torch.bfloat16)
+    dy = torch.randn(e, c, n, device=cuda_device).to(torch.bfloat16)
+    runs = []
+    for fn in (moe_gmm.gmm, moe_gmm.gmm_plain):
+        xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        before = dict(moe_gmm.path_launches)
+        y = fn(xr, wr)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        runs.append(([y.detach(), xr.grad, wr.grad],
+                     {p: moe_gmm.path_launches[p] - before[p] for p in before}))
+    (got, paths), (want, plain_paths) = runs
+    assert paths == {"wgmma": 3, "fma": 0}
+    assert plain_paths == {"wgmma": 0, "fma": 0}
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.bfloat16
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= scale * 2.0 ** -7, (err, scale)
+
+
+def test_gmm_backward_raises_rather_than_falling_back(cuda_device, monkeypatch):
+    """A failed launch in the backward raises; ``gmm_plain`` is never run
+    for CUDA tensors, and serve's no-grad call builds no autograd node."""
+    x, w = _gmm_inputs(cuda_device, 4, 8, 64, 64, torch.bfloat16)
+    with torch.no_grad():
+        assert moe_gmm.gmm(x, w).grad_fn is None
+    xr = x.clone().requires_grad_(True)
+    y = moe_gmm.gmm(xr, w)
+    assert type(y.grad_fn).__name__ == "GmmFunctionBackward"
+
+    class Failing:
+        @staticmethod
+        def repro_gmm(*args):
+            return 700                  # cudaErrorIllegalAddress
+
+    def plain(*args):
+        raise AssertionError("gmm_plain must not run for CUDA tensors")
+    monkeypatch.setattr(moe_gmm, "_library", lambda: Failing)
+    monkeypatch.setattr(moe_gmm, "gmm_plain", plain)
+    before = moe_gmm.launches
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        y.sum().backward()
+    assert moe_gmm.launches == before
+
+
+def test_granite_smoke_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """Three train steps of granite's smoke model (f32, so gmm's fma
+    path) on the card against the CPU: losses within rtol 1e-5, params
+    within atol 1e-4 (index-put backwards sum with atomics on the card,
+    in another order)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = smoke_config("granite-moe-3b-a800m")
+    master = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                         cast=False)
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16))
+                                .astype(np.int32)) for _ in range(3)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda p: p.clone().to(dev), master)
+        state = adamw_init(params)
+        step = make_train_step(cfg, AdamWConfig(lr=1e-2), cosine_schedule(1, 3))
+        ops.reset_launch_counts()
+        losses = []
+        for toks in batches:
+            toks = toks.to(dev)
+            params, state, met = step(params, state,
+                                      {"tokens": toks, "labels": toks})
+            losses.append(float(met["loss"]))
+        out[dev] = (losses, params, ops.launch_counts()["gmm"])
+    assert out["cpu"][2] == 0
+    assert out["cuda"][2] == 3 * 2 * 12      # 2 MoE layers x (3 + 3 + 6)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for a, b in zip(tree_leaves(out["cuda"][1]), tree_leaves(out["cpu"][1])):
+        np.testing.assert_allclose(_np(a), _np(b), atol=1e-4, rtol=1e-4)

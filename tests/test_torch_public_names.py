@@ -376,14 +376,14 @@ def test_core_covers_every_public_name_of_the_reference():
 
 def test_models_cover_the_references_public_names():
     """``repro_torch.models.__all__`` holds every name of the reference's
-    but ``Parallel`` and ``loss_fn`` (sharding and training, not yet
-    ported), the frontends' ``batch_specs`` and ``frontend_split``
+    but ``Parallel`` (sharding, not yet ported), the frontends'
+    ``batch_specs`` and ``frontend_split`` and training's ``loss_fn``
     among them."""
     import repro.models as jmodels
     import repro_torch.models as pm
     missing = set(jmodels.__all__) - set(pm.__all__)
-    assert missing == {"Parallel", "loss_fn"}
-    assert {"batch_specs", "frontend_split"} <= set(pm.__all__)
+    assert missing == {"Parallel"}
+    assert {"batch_specs", "frontend_split", "loss_fn"} <= set(pm.__all__)
     assert all(hasattr(pm, n) for n in pm.__all__)
 
 
@@ -394,3 +394,26 @@ def test_configs_names_are_the_references():
     import repro_torch.configs as pconfigs
     assert pconfigs.__all__ == jconfigs.__all__
     assert all(hasattr(pconfigs, n) for n in pconfigs.__all__)
+
+
+@pytest.mark.parametrize("package", ["optim", "data", "checkpoint"])
+def test_training_package_names_are_the_references(package):
+    """``optim``, ``data`` and ``checkpoint`` export the reference's
+    names, in order, and every name resolves."""
+    import importlib
+    want = importlib.import_module(f"repro.{package}").__all__
+    port = importlib.import_module(f"repro_torch.{package}")
+    assert port.__all__ == want
+    assert all(hasattr(port, n) for n in port.__all__)
+
+
+def test_launch_steps_and_train_names():
+    """The train step and the trainer's entry point under the reference's
+    names (``launch.steps.make_train_step``, ``launch.train.main``)."""
+    import repro.launch.steps as jsteps
+    import repro.launch.train as jtrain
+    import repro_torch.launch.steps as psteps
+    import repro_torch.launch.train as ptrain
+    for name in ("make_train_step", "make_serve_step"):
+        assert hasattr(jsteps, name) and hasattr(psteps, name)
+    assert callable(jtrain.main) and callable(ptrain.main)

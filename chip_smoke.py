@@ -219,12 +219,31 @@ Phases (any failure exits non-zero and prints no success line):
      and a profiled step with its device time split by region (gmm
      forward and backward, attention forward and backward, AdamW, the
      rest) and its busy share; a split that cannot be made fails;
- 16. the ``kernels`` JSON line (all six kernels, and gmm and
+ 16. sharding (run after 15): NCCL at world size 1 through
+     ``launch.mesh.make_host_mesh("cuda")``, torn down at the end;
+     (a) deepseek-moe-16b's MoE block at published width (64 experts of
+     2048 x 1408, top-6, 2 shared, bf16, drawn by the model's block
+     init): ``moe_apply_ep_replicated`` at decode x(4, 1, 2048) and
+     ``moe_apply_ep`` at prefill x(4, 2048, 2048) (gmm at C = 960)
+     through ``sharded_moe`` on the 1 x 1 mesh, and ``moe_apply_ep``'s
+     backward, with gmm launches (by call shape) and collective calls
+     counted over that run and required above 0; each output, aux and
+     the grads of w_gate, w_up, w_down, router and x against
+     ``moe_apply_local`` on the same inputs (bitwise, or within 2^-7 of
+     the largest value, reported); (b) granite-moe-3b-a800m at published
+     width: prefill and 4 decode steps through ``make_prefill_step`` and
+     ``make_serve_step`` with ``par`` on that mesh (gmm and
+     decode_attention launches above 0), the tokens identical to the same
+     steps with ``Parallel()``; (c) gmm at every (E, C, K, N) of (a)'s
+     run against its plain version, ``torch.bmm`` and its bound, on the
+     wgmma path;
+ 17. the ``kernels`` JSON line (all six kernels, and gmm and
      decode_attention again at deepseek-moe-16b's decode shape with
      phase 6d's launches, at phase 13's decode shapes with that
      phase's launches, at phase 14c's shapes with their launches
      there and gmm at phase 15a's shapes with their launches over
-     15c's run; launches counted over
+     15c's run, and gmm at phase 16c's shapes with their launches over
+     16a's run; launches counted over
      the serve run for gmm/decode_attention, over the fleet ``run()``
      for deposit/backlog_scan and over the AIMD ``run()`` for
      admission_window/admission_ctrl), the card line, then the result
@@ -792,7 +811,7 @@ def phase_profile(torch, n_steps: int = 4, arch: str = ARCH,
 
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_serve_step
-    from repro_torch.models import init_params, prefill, random_batch
+    from repro_torch.models import Parallel, init_params, prefill, random_batch
     cfg = get_config(arch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_params(cfg, gen, "cuda")
@@ -800,7 +819,7 @@ def phase_profile(torch, n_steps: int = 4, arch: str = ARCH,
     logits, cache = prefill(cfg, params,
                             {k: v for k, v in batch.items() if k != "labels"},
                             max_len=PROMPT + DECODE + 1)
-    step = make_serve_step(cfg)
+    step = make_serve_step(cfg, Parallel())
     tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
     pos = torch.full((BATCH,), PROMPT, dtype=torch.int32, device="cuda")
     emb = (torch.ones((BATCH, 1, cfg.d_model), device="cuda")
@@ -1348,8 +1367,9 @@ def jamba_block(torch, card: str, kind: str) -> dict:
     from repro_torch.kernels import moe_gmm, ops
     from repro_torch.kernels.ref import gmm_ref
     from repro_torch.models.layers import dtype_of
-    from repro_torch.models.model import (_apply_block, _block_cache,
-                                          _block_init, cast_for_compute)
+    from repro_torch.models.model import (Parallel, _apply_block,
+                                          _block_cache, _block_init,
+                                          cast_for_compute)
     cfg = get_config(JAMBA)
     spec = cfg.pattern[JAMBA_BLOCKS[kind]]
     cdt = dtype_of(cfg.compute_dtype)
@@ -1387,16 +1407,16 @@ def jamba_block(torch, card: str, kind: str) -> dict:
     ops.reset_launch_counts()
     ops.gmm = recording
     try:
-        y, cache, _ = _apply_block(cfg, spec, bp, x, positions, cdt, cache,
-                                   "prefill")
+        y, cache, _ = _apply_block(cfg, spec, bp, x, positions, Parallel(),
+                                   cdt, cache, "prefill")
         outs = [y]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(DECODE):
             pos = torch.full((BATCH,), PROMPT + i, dtype=torch.int32,
                              device="cuda")
-            y, cache, _ = _apply_block(cfg, spec, bp, xs[i], pos, cdt, cache,
-                                       "decode")
+            y, cache, _ = _apply_block(cfg, spec, bp, xs[i], pos, Parallel(),
+                                       cdt, cache, "decode")
             outs.append(y)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / DECODE
@@ -1595,7 +1615,7 @@ def train_smoke_card_vs_cpu(torch, arch: str) -> None:
     from repro_torch.configs import smoke_config
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import init_params
+    from repro_torch.models import Parallel, init_params
     from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
     from repro_torch.tree import tree_leaves, tree_map
     cfg = smoke_config(arch)
@@ -1608,7 +1628,8 @@ def train_smoke_card_vs_cpu(torch, arch: str) -> None:
     for dev in ("cpu", "cuda"):
         params = tree_map(lambda p: p.clone().to(dev), master)
         state = adamw_init(params)
-        step = make_train_step(cfg, AdamWConfig(lr=1e-2), cosine_schedule(1, 3))
+        step = make_train_step(cfg, Parallel(), AdamWConfig(lr=1e-2),
+                               cosine_schedule(1, 3))
         ops.reset_launch_counts()
         losses = []
         for toks in batches:
@@ -1839,7 +1860,7 @@ def train_full_width(torch, card: str) -> dict:
     from repro_torch.data import DataConfig, SyntheticTokens, make_batch
     from repro_torch.kernels import moe_gmm, ops
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import init_params
+    from repro_torch.models import Parallel, init_params
     from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
     from repro_torch.tree import tree_leaves
     cfg = get_config(GRANITE)
@@ -1857,7 +1878,7 @@ def train_full_width(torch, card: str) -> dict:
     data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
                                       seq_len=TRAIN_SEQ,
                                       global_batch=TRAIN_BATCH, seed=0))
-    step_fn = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR),
+    step_fn = make_train_step(cfg, Parallel(), AdamWConfig(lr=TRAIN_LR),
                               cosine_schedule(TRAIN_WARMUP, TRAIN_STEPS))
     batches = [{k: torch.as_tensor(v, device="cuda")
                 for k, v in make_batch(cfg, data, s).items()}
@@ -1952,6 +1973,208 @@ def phase_train(torch, card: str) -> list[tuple[str, dict, int]]:
     run = step("15c", train_full_width, torch, card)
     log(f"phase 15 seconds {json.dumps(seconds)}")
     return [("gmm", rec, run["calls"].get(key, 0)) for key, rec in recs.items()]
+
+
+# --------------------------------------------------------------------- #
+# Phase 16: the EP bodies over NCCL at world size 1
+# --------------------------------------------------------------------- #
+
+SHARD_PREFILL = 2048       # prefill tokens a row: capacity() gives C = 960
+SHARD_DECODE = 4           # granite's decode steps under a mesh
+EP_GRADS = ("w_gate", "w_up", "w_down", "router")
+
+
+def ep_grads(torch, fn, ffn, x, cot) -> tuple[dict, object]:
+    """(grads of sum(y * cot) for EP_GRADS and x, y) of ``fn(params, x)``,
+    the sum in f32."""
+    live = {k: v.detach().requires_grad_() if k in EP_GRADS else v
+            for k, v in ffn.items()}
+    x = x.detach().requires_grad_()
+    y, _ = fn(live, x)
+    grads = torch.autograd.grad((y.float() * cot.float()).sum(),
+                                [live[k] for k in EP_GRADS] + [x])
+    return dict(zip((*EP_GRADS, "x"), grads)), y.detach()
+
+
+def same(torch, got, want) -> dict:
+    """Bitwise flag and largest difference relative to ``want``'s largest."""
+    scale = float(want.float().abs().max()) or 1.0
+    return {"bitwise": bool(torch.equal(got, want)),
+            "rel_err": float((got.float() - want.float()).abs().max()) / scale}
+
+
+def sharding_ep_bodies(torch, mesh) -> tuple[dict, dict]:
+    """(16a) deepseek-moe-16b's MoE block at published width (64 experts of
+    2048 x 1408, top-6, 2 shared; drawn by the model's block init, cast to
+    bf16 as serve casts it): ``moe_apply_ep_replicated`` at decode (4, 1)
+    and ``moe_apply_ep`` at prefill (4, 2048) through ``sharded_moe`` on
+    the 1 x 1 NCCL mesh, forward and ``moe_apply_ep``'s backward (grads of
+    EP_GRADS and x), with the launch and collective counts of that run
+    (every gmm call counted by its (E, C, K, N)); then
+    ``moe_apply_local`` on the same inputs, each
+    output and grad bitwise or within 2^-7 of its largest value.  Returns
+    (the counts by gmm shape, the record)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import moe_gmm, ops
+    from repro_torch.models import Parallel
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.model import (_block_init, apply_ep,
+                                          cast_for_compute)
+    from repro_torch.models.moe import capacity, moe_apply_local
+    cfg = get_config(DEEPSEEK)
+    cdt = dtype_of(cfg.compute_dtype)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    ffn = cast_for_compute(cfg, _block_init(
+        gen, cfg, cfg.pattern[0], dtype_of(cfg.param_dtype), "cuda"))["ffn"]
+    x_dec = torch.randn(BATCH, 1, cfg.d_model, generator=gen,
+                        device="cuda").to(cdt)
+    x_pre, cot = (torch.randn(BATCH, SHARD_PREFILL, cfg.d_model, generator=gen,
+                              device="cuda").to(cdt) for _ in range(2))
+    par = Parallel(mesh=mesh)
+    calls: dict[tuple, int] = {}
+    real = moe_gmm._product
+
+    def counted(x, w):
+        key = (*x.shape, w.shape[2])
+        calls[key] = calls.get(key, 0) + 1
+        return real(x, w)
+
+    def ep(mode):
+        return lambda p, x: apply_ep(cfg, p, x, par, cdt, mode)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    collectives.reset_counts()
+    moe_gmm._product = counted
+    try:
+        with torch.no_grad():
+            y_rep, aux_rep = ep("ep_rep")(ffn, x_dec)
+            y_ep, aux_ep = ep("ep")(ffn, x_pre)
+        g_ep, y_ep_g = ep_grads(torch, ep("ep"), ffn, x_pre, cot)
+        torch.cuda.synchronize()
+    finally:
+        moe_gmm._product = real
+    launches, coll = ops.launch_counts(), dict(collectives.calls)
+    paths = dict(moe_gmm.path_launches)
+    with torch.no_grad():
+        y_loc_dec, aux_loc_dec = moe_apply_local(cfg, ffn, x_dec, cdt)
+        y_loc, aux_loc = moe_apply_local(cfg, ffn, x_pre, cdt)
+    g_loc, _ = ep_grads(torch, lambda p, x: moe_apply_local(cfg, p, x, cdt),
+                        ffn, x_pre, cot)
+    checks = {"ep_rep decode y": same(torch, y_rep, y_loc_dec),
+              "ep prefill y": same(torch, y_ep, y_loc),
+              "ep prefill y (grad run)": same(torch, y_ep_g, y_loc)}
+    for k in aux_loc:
+        checks[f"ep_rep aux {k}"] = same(torch, aux_rep[k], aux_loc_dec[k])
+        checks[f"ep aux {k}"] = same(torch, aux_ep[k], aux_loc[k])
+    for k in g_loc:
+        checks[f"ep grad {k}"] = same(torch, g_ep[k], g_loc[k])
+    times = {
+        "ep_rep_decode_ms": event_ms(torch, lambda: ep("ep_rep")(ffn, x_dec),
+                                     iters=10),
+        "local_decode_ms": event_ms(torch, lambda: moe_apply_local(
+            cfg, ffn, x_dec, cdt), iters=10),
+        "ep_prefill_ms": event_ms(torch, lambda: ep("ep")(ffn, x_pre),
+                                  iters=5),
+        "local_prefill_ms": event_ms(torch, lambda: moe_apply_local(
+            cfg, ffn, x_pre, cdt), iters=5)}
+    rec = {"capacity_prefill": capacity(cfg, BATCH * SHARD_PREFILL,
+                                        cfg.n_experts),
+           "launches": launches, "collectives": coll,
+           "gmm_calls": {"x".join(map(str, k)): n for k, n in calls.items()},
+           "paths": paths, "checks": checks,
+           **times}
+    log("sharding 16a " + json.dumps(rec))
+    bad = [k for k, c in checks.items()
+           if not c["bitwise"] and c["rel_err"] > 2.0 ** -7]
+    if bad:
+        raise SmokeFailure(f"EP bodies differ from moe_apply_local: {bad}")
+    if launches["gmm"] == 0 or coll["all_to_all"] == 0 \
+            or coll["all_reduce"] == 0:
+        raise SmokeFailure(f"EP run reached no gmm or no collective: "
+                           f"{launches} {coll}")
+    return calls, rec
+
+
+def sharding_serve(torch, mesh) -> dict:
+    """(16b) granite-moe-3b-a800m at published width: prefill and
+    SHARD_DECODE decode steps through ``make_prefill_step`` and
+    ``make_serve_step`` with ``par`` on the 1 x 1 mesh (launches counted
+    over that run), then the same with ``Parallel()``: the tokens must be
+    identical."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import Parallel, init_params, random_batch
+    cfg = get_config(GRANITE)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    batch = random_batch(cfg, BATCH, PROMPT, seed=0, device="cuda")
+    prompt = {k: v for k, v in batch.items() if k != "labels"}
+    tokens, counts = {}, {}
+    for name, par in (("mesh", Parallel(mesh=mesh)), ("plain", Parallel())):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        logits, cache = make_prefill_step(cfg, par, PROMPT + SHARD_DECODE + 1)(
+            params, prompt)
+        step = make_serve_step(cfg, par)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        pos = torch.full((BATCH,), PROMPT, dtype=torch.int32, device="cuda")
+        out = [tok]
+        for _ in range(SHARD_DECODE):
+            tok, logits, cache = step(params, cache, tok, pos, None)
+            pos = pos + 1
+            out.append(tok)
+        torch.cuda.synchronize()
+        counts[name] = ops.launch_counts()
+        tokens[name] = torch.cat(out, dim=1)
+    rec = {"tokens_equal": bool(torch.equal(tokens["mesh"], tokens["plain"])),
+           "launches": counts["mesh"],
+           "finite": bool(torch.isfinite(logits.float()).all())}
+    log("sharding 16b " + json.dumps(rec))
+    if not rec["tokens_equal"] or not rec["finite"] \
+            or counts["mesh"]["gmm"] == 0 \
+            or counts["mesh"]["decode_attention"] == 0:
+        raise SmokeFailure(f"granite's serve steps under the 1 x 1 mesh: {rec}")
+    return rec
+
+
+def phase_sharding(torch, card: str) -> list[tuple[str, dict, int]]:
+    """Phase 16 (a-c): NCCL at world size 1 through ``make_host_mesh``,
+    torn down at the end.  Returns the kernel rows (name, record,
+    launches over 16a's run) of 16c's gmm shapes."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    seconds = {}
+
+    def step(name, fn, *args):
+        t = time.perf_counter()
+        got = fn(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return got
+
+    mesh = make_host_mesh("cuda")
+    try:
+        if (mesh.shape, mesh.size) != ({"data": 1, "model": 1}, 1):
+            raise SmokeFailure(f"host mesh {mesh.shape}, {mesh.size} ranks")
+        calls, _ = step("16a", sharding_ep_bodies, torch, mesh)
+        torch.cuda.empty_cache()
+        step("16b", sharding_serve, torch, mesh)
+        torch.cuda.empty_cache()
+        recs = {}
+        t = time.perf_counter()
+        for key in calls:                        # (16c) gmm at 16a's calls
+            rec = check_gmm(torch, *key, "bfloat16", iters=10)
+            log("kernel " + json.dumps(rec))
+            if not rec["ok"] or rec["path"] != "wgmma":
+                raise SmokeFailure(f"gmm at {rec['shape']}: {rec}")
+            recs[key] = rec
+        seconds["16c"] = round(time.perf_counter() - t, 1)
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 16 seconds {json.dumps(seconds)} ({card})")
+    return [("gmm", rec, calls[key]) for key, rec in recs.items()]
 
 
 # --------------------------------------------------------------------- #
@@ -4425,6 +4648,8 @@ def main() -> int:
     rec_rows, rec_counts = timed("recurrent", phase_recurrent, torch, card)
     torch.cuda.empty_cache()
     train_rows = timed("train", phase_train, torch, card)
+    torch.cuda.empty_cache()
+    shard_rows = timed("sharding", phase_sharding, torch, card)
     fleet_counts, captured, in_run, world = timed("fleet", phase_fleet, torch)
     main_cases.update(timed("fleet_kernels", phase_fleet_kernels, torch,
                             captured, in_run))
@@ -4441,7 +4666,8 @@ def main() -> int:
     mixed = [name for name, rec in (*main_cases.items(), *deep_cases.items(),
                                     *arch_cases.items(),
                                     *((n, r) for n, r, _ in rec_rows),
-                                    *((n, r) for n, r, _ in train_rows))
+                                    *((n, r) for n, r, _ in train_rows),
+                                    *((n, r) for n, r, _ in shard_rows))
              if not rec["hidden"]]
     if mixed:
         raise SmokeFailure(f"kernel device time not separable from the "
@@ -4480,6 +4706,9 @@ def main() -> int:
     # The train step's gmm calls (phase 15a), each with its launches over
     # phase 15c's run.
     runs += [({name: rec}, {name: n}) for name, rec, n in train_rows]
+    # The EP bodies' gmm calls (phase 16c), each with its launches over
+    # phase 16a's run.
+    runs += [({name: rec}, {name: n}) for name, rec, n in shard_rows]
     kernels = []
     for cases, launches in runs:
         for name, rec in cases.items():

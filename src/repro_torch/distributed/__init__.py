@@ -1,9 +1,10 @@
-"""Fault tolerance (counterpart of ``repro.distributed``): elastic
-re-placement on device failure, straggler mitigation and the weight
-migration between two placements.  The reference's ``ShardingRules`` is
-jax-mesh code and has no counterpart here."""
+"""Fault tolerance and sharding (counterpart of ``repro.distributed``):
+elastic re-placement on device failure, straggler mitigation, the weight
+migration between two placements, and ``ShardingRules``' partition specs
+(with the collectives of the sharded paths in ``collectives``)."""
 from .elastic import (Migration, migration, replan_on_failure,
                       replan_with_stragglers)
+from .sharding import ShardingRules
 
 __all__ = ["Migration", "migration", "replan_on_failure",
-           "replan_with_stragglers"]
+           "replan_with_stragglers", "ShardingRules"]

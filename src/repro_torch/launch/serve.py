@@ -63,7 +63,7 @@ from ..core import (ActivationModel, ComputeConfig, Constellation,
                     plan_expert_devices, rand_intra_cg_plan, sample_topology,
                     simulate_token_generation_legacy, spacemoe_plan)
 from ..distributed import migration, replan_on_failure
-from ..models import forward, init_params, prefill, random_batch
+from ..models import Parallel, forward, init_params, prefill, random_batch
 from ..models.moe import apply_placement
 from .steps import make_serve_step
 
@@ -248,8 +248,9 @@ def _serve(cfg, params, args, device) -> tuple[dict, dict]:
                          device=device)
     prompt = {k: v for k, v in batch.items() if k != "labels"}
     max_len = args.prompt_len + args.decode_tokens + 1
-    logits, cache = prefill(cfg, params, prompt, max_len=max_len)
-    serve_step = make_serve_step(cfg)
+    par = Parallel(mesh=None)
+    logits, cache = prefill(cfg, params, prompt, max_len=max_len, par=par)
+    serve_step = make_serve_step(cfg, par)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     pos = torch.full((args.batch,), args.prompt_len, dtype=torch.int32,
                      device=device)

@@ -28,7 +28,7 @@ from .. import resolve_device
 from ..checkpoint import CheckpointManager
 from ..configs import get_config, smoke_config
 from ..data import DataConfig, SyntheticTokens, make_batch
-from ..models import init_params
+from ..models import Parallel, init_params
 from ..optim import AdamWConfig, adamw_init, cosine_schedule, wsd_schedule
 from ..tree import tree_leaves
 from .steps import make_train_step
@@ -62,7 +62,8 @@ def main(argv=None) -> dict:
     sched = (cosine_schedule if args.schedule == "cosine" else wsd_schedule)(
         args.warmup, args.steps)
     opt_cfg = AdamWConfig(lr=args.lr)
-    step_fn = make_train_step(cfg, opt_cfg, sched)
+    par = Parallel(mesh=None)           # host run: single-shard math
+    step_fn = make_train_step(cfg, par, opt_cfg, sched)
 
     data = SyntheticTokens(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq, global_batch=args.batch,

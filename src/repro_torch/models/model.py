@@ -37,11 +37,20 @@ sorts stably; ``gmm`` sums K in a fixed order).  Training draws the
 uncast model (``init_params(cast=False)``): f32 master weights, cast to
 the compute dtype at each use, as the reference trains.
 
-Not yet ported: ``Parallel``/sharded execution.
+Parallelism: ``Parallel`` names a mesh (``launch.mesh``) and picks the
+MoE mode as the reference's does; under a mesh of more than one rank
+along the model axis the MoE blocks run the EP bodies through
+``moe.sharded_moe`` with the reference's specs (batch over the data
+axes, tokens over the model axis for "ep", replicated for "ep_rep").
+Every other weight is used whole on every rank: the reference's tensor
+parallelism comes from XLA propagating its weight shardings, which a
+per-rank PyTorch program does not have.  The numbers are the
+reference's; the memory saving of sharded weights is not.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -54,6 +63,38 @@ from . import ssm
 from .config import LayerSpec, ModelConfig
 from .layers import (dtype_of, embed, embedding_init, ffn_apply, ffn_init,
                      lm_head, normal_init, rmsnorm, rmsnorm_init)
+from ..distributed.sharding import PartitionSpec as P
+
+
+@dataclasses.dataclass(frozen=True)
+class Parallel:
+    """How a step function should distribute work (None => single shard)."""
+
+    mesh: object | None = None               # a launch.mesh.Mesh
+    data_axes: tuple[str, ...] = ("data",)   # batch axes ("pod","data") multi-pod
+    model_axis: str = "model"
+    moe_mode: str = "auto"    # "auto" | "ep" | "ep_rep" | "local"
+
+    @property
+    def model_size(self) -> int:
+        if self.mesh is None:
+            return 1
+        return self.mesh.shape[self.model_axis]
+
+    def resolve_moe(self, cfg: ModelConfig, seq_len: int) -> str:
+        if self.mesh is None or self.model_size == 1:
+            return "local"
+        if self.moe_mode != "auto":
+            return self.moe_mode
+        n_buckets = cfg.n_experts
+        sl = moe_mod.slotting_for(cfg)
+        if sl is not None:
+            n_buckets = sl.n_virtual
+        if n_buckets % self.model_size == 0:
+            if seq_len % self.model_size == 0:
+                return "ep"        # sequence-sharded all-to-all dispatch
+            return "ep_rep"        # replicated-token EP (decode)
+        return "local"             # TP over d_ff via weight sharding
 
 # Parameters the reference keeps and uses in f32 whatever the dtypes: the
 # router, the norm scales, Mamba's decay and dt bias, mLSTM's gates and
@@ -177,11 +218,10 @@ def cast_for_compute(cfg: ModelConfig, params):
 
 
 _RECURRENT = {"mamba": (ssm.mamba_forward, ssm.mamba_decode),
-              "mlstm": (ssm.mlstm_forward, ssm.mlstm_decode),
-              "slstm": (ssm.slstm_forward, ssm.slstm_decode)}
+              "mlstm": (ssm.mlstm_forward, ssm.mlstm_decode)}
 
 
-def _apply_mixer(cfg, spec, mp, x, positions, cdt, cache, mode):
+def _apply_mixer(cfg, spec, mp, x, positions, par, cdt, cache, mode):
     """Returns (y, cache): the KV cache written in place, or the new
     recurrent state (prefill and decode run the same step)."""
     if spec.mixer == "attn":
@@ -190,18 +230,64 @@ def _apply_mixer(cfg, spec, mp, x, positions, cdt, cache, mode):
         if mode == "prefill":
             return attn.attention_prefill(cfg, mp, x, positions, cache, cdt)
         return attn.attention_decode(cfg, mp, x, positions, cache, cdt)
+    if spec.mixer == "slstm":
+        if mode == "forward":
+            return ssm.slstm_forward(cfg, mp, x, cdt), None
+        return ssm.slstm_decode(cfg, mp, x, cache, cdt)
     fwd, dec = _RECURRENT[spec.mixer]
     if mode == "forward":
-        return fwd(cfg, mp, x, cdt), None
-    return dec(cfg, mp, x, cache, cdt)
+        return fwd(cfg, mp, x, cdt, par), None
+    return dec(cfg, mp, x, cache, cdt, par)
 
 
-def _apply_block(cfg, spec, bp, x, positions, cdt, cache, mode):
+def _apply_moe(cfg, bp_ffn, x, par: Parallel, cdt):
+    """The MoE block: local math, or the EP body ``par`` resolves to."""
+    mode = par.resolve_moe(cfg, x.shape[1])
+    if mode == "local":
+        return moe_mod.moe_apply_local(cfg, bp_ffn, x, cdt)
+    return apply_ep(cfg, bp_ffn, x, par, cdt, mode)
+
+
+def apply_ep(cfg, bp_ffn, x, par: Parallel, cdt, mode: str):
+    """The EP body ``mode`` ("ep" or "ep_rep") over ``par``'s mesh through
+    ``moe.sharded_moe``, with the reference's in/out specs
+    (``repro/models/model.py:_apply_moe``); at any model-axis size, one
+    included."""
+    mesh = par.mesh
+    n_data = math.prod(mesh.shape[a] for a in par.data_axes)
+    batch_axes = par.data_axes if len(par.data_axes) > 1 else par.data_axes[0]
+    if x.shape[0] % n_data != 0:     # e.g. long-context batch=1 decode
+        batch_axes = None
+    in_params_spec = {k: P(par.model_axis) for k in ("w_gate", "w_up", "w_down")}
+    in_params_spec["router"] = P()
+    if "shared" in bp_ffn:
+        in_params_spec["shared"] = {k: P() for k in bp_ffn["shared"]}
+    aux_spec = {"load_balance_loss": P(), "router_z_loss": P(),
+                "expert_counts": P()}
+    if mode == "ep":
+        # sequence-sharded dispatch: tokens split over the EP axis
+        x_spec = P(batch_axes, par.model_axis, None)
+        body = moe_mod.moe_apply_ep
+    elif mode == "ep_rep":
+        # replicated tokens (decode): local experts + all-reduce combine
+        x_spec = P(batch_axes, None, None)
+        body = moe_mod.moe_apply_ep_replicated
+    else:
+        raise ValueError(mode)
+    sharded = moe_mod.sharded_moe(
+        lambda p, xx: body(cfg, p, x_local=xx, axis_name=par.model_axis,
+                           compute_dtype=cdt, mesh=mesh),
+        mesh=mesh, in_specs=(in_params_spec, x_spec),
+        out_specs=(x_spec, aux_spec))
+    return sharded(bp_ffn, x)
+
+
+def _apply_block(cfg, spec, bp, x, positions, par, cdt, cache, mode):
     """Returns (x, cache, aux); aux is the MoE router's aux dict or None."""
     aux = None
     h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
-    y, cache = _apply_mixer(cfg, spec, bp["mixer"], h, positions, cdt, cache,
-                            mode)
+    y, cache = _apply_mixer(cfg, spec, bp["mixer"], h, positions, par, cdt,
+                            cache, mode)
     x = x + y
     if spec.ffn == "none":
         return x, cache, aux
@@ -209,7 +295,7 @@ def _apply_block(cfg, spec, bp, x, positions, cdt, cache, mode):
     if spec.ffn == "dense":
         x = x + ffn_apply(bp["ffn"], h, cdt)
     else:
-        out, aux = moe_mod.moe_apply_local(cfg, bp["ffn"], h, cdt)
+        out, aux = _apply_moe(cfg, bp["ffn"], h, par, cdt)
         x = x + out
     return x, cache, aux
 
@@ -240,14 +326,14 @@ def _logits(cfg, params, x):
 # ===================================================================== #
 
 
-def _apply_unit(cfg, unit_params, x, positions, cdt):
+def _apply_unit(cfg, unit_params, x, positions, par, cdt):
     """One pattern unit of the forward pass: (x, aux, counts (E,)), the aux
     and counts summed over its MoE blocks in the reference's order."""
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     counts = torch.zeros((max(cfg.n_experts, 1),), dtype=torch.float32,
                          device=x.device)
     for spec, bp in zip(cfg.pattern, unit_params):
-        x, _, aux = _apply_block(cfg, spec, bp, x, positions, cdt, None,
+        x, _, aux = _apply_block(cfg, spec, bp, x, positions, par, cdt, None,
                                  "forward")
         if aux is not None:
             aux_sum = aux_sum + aux["load_balance_loss"] \
@@ -262,7 +348,7 @@ def _takes_grad(params: dict) -> bool:
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict,
-            return_router_stats: bool = False):
+            par: Parallel = Parallel(), return_router_stats: bool = False):
     """Forward pass: returns (logits (B,S,V_padded), aux_loss).
 
     With ``return_router_stats`` also returns per-unit expert-selection
@@ -279,17 +365,18 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
                          dtype=torch.float32, device=x.device)
     if cfg.first_layer_dense:
         x, _, _ = _apply_block(cfg, _first_spec(cfg), params["first"], x,
-                               positions, cdt, None, "forward")
+                               positions, par, cdt, None, "forward")
     remat = cfg.remat == "unit" and _takes_grad(params)
     width = len(cfg.pattern)
     for u in range(n_units):
         unit = params["layers"][u * width:(u + 1) * width]
         if remat:
             x, aux, counts_u = checkpoint(_apply_unit, cfg, unit, x,
-                                          positions, cdt, use_reentrant=False,
+                                          positions, par, cdt,
+                                          use_reentrant=False,
                                           preserve_rng_state=False)
         else:
-            x, aux, counts_u = _apply_unit(cfg, unit, x, positions, cdt)
+            x, aux, counts_u = _apply_unit(cfg, unit, x, positions, par, cdt)
         aux_total = aux_total + aux
         counts[u] = counts_u
     logits = _logits(cfg, params, x)
@@ -299,14 +386,14 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
-            aux_weight: float = 0.01):
+            par: Parallel = Parallel(), aux_weight: float = 0.01):
     """Next-token cross-entropy (+ MoE aux): (loss, {"ce", "aux"}).
 
     batch["labels"]: (B, S) int, -1 => ignore.  The log-softmax runs in
     f32 over the padded vocab, as the reference's.  (The reference's data
     pipeline gives the input tokens themselves as labels, unshifted.)
     """
-    logits, aux = forward(cfg, params, batch)
+    logits, aux = forward(cfg, params, batch, par)
     labels = batch["labels"]
     s = min(logits.shape[1], labels.shape[1])
     logits = logits[:, -s:].float()
@@ -344,21 +431,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
-def _run_stack(cfg, params, cache, x, positions, cdt, mode):
+def _run_stack(cfg, params, cache, x, positions, par, cdt, mode):
     """Every block in order, each layer's cache entry replaced by what its
     block returns (the same KV cache, or the new recurrent state)."""
     if cfg.first_layer_dense:
         x, cache["first"], _ = _apply_block(
-            cfg, _first_spec(cfg), params["first"], x, positions, cdt,
+            cfg, _first_spec(cfg), params["first"], x, positions, par, cdt,
             cache["first"], mode)
     layers = cache["layers"]
     for i, (spec, bp) in enumerate(zip(layer_specs(cfg), params["layers"])):
-        x, layers[i], _ = _apply_block(cfg, spec, bp, x, positions, cdt,
+        x, layers[i], _ = _apply_block(cfg, spec, bp, x, positions, par, cdt,
                                        layers[i], mode)
     return x
 
 
-def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int):
+def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int,
+            par: Parallel = Parallel()):
     """Run the prompt through the stack: (last-token logits (B, V), cache).
 
     Attention blocks write K/V for positions [0, S); recurrent blocks
@@ -367,13 +455,14 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int):
     cdt = dtype_of(cfg.compute_dtype)
     x, positions = _embed_inputs(cfg, params, batch, cdt)
     cache = init_cache(cfg, x.shape[0], max_len, x.device)
-    x = _run_stack(cfg, params, cache, x, positions, cdt, "prefill")
+    x = _run_stack(cfg, params, cache, x, positions, par, cdt, "prefill")
     logits = _logits(cfg, params, x[:, -1:, :])
     return logits[:, 0, :], cache
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 tokens: torch.Tensor | None, pos: torch.Tensor,
+                par: Parallel = Parallel(),
                 embeds: torch.Tensor | None = None):
     """One autoregressive step; updates ``cache`` in place.
 
@@ -386,6 +475,6 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
         x = embeds.to(cdt)
     else:
         x = embed(params["embed"], tokens, cdt)
-    x = _run_stack(cfg, params, cache, x, pos, cdt, "decode")
+    x = _run_stack(cfg, params, cache, x, pos, par, cdt, "decode")
     logits = _logits(cfg, params, x)
     return logits[:, 0, :], cache

@@ -22,7 +22,13 @@ copy goes to every fragment of its expert, and the fragments' outputs
 are summed before the top-K weights.  On one device the V buckets run
 through ``gmm`` as one stack.
 
-Not ported yet: the expert-parallel ``moe_apply_ep*`` paths.
+Expert parallelism (``moe_apply_ep``, ``moe_apply_ep_replicated``) runs
+on ``torch.distributed`` inside ``sharded_moe``, which keeps
+``shard_map``'s contract: global tensors in, each rank's block through the
+body, global tensors out.  The bodies take the reference's arguments and
+the mesh whose ``axis_name`` they exchange over (a ``shard_map`` body
+finds it in its context).  Their all-to-all and all-reduce are
+``distributed.collectives``' (differentiable, counted).
 """
 from __future__ import annotations
 
@@ -31,6 +37,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..distributed import collectives
+from ..distributed.sharding import assemble, local_shard
 from ..kernels import ops
 from .config import ModelConfig
 from .layers import ffn_apply, ffn_init, normal_init, out_proj_init
@@ -255,29 +263,143 @@ def _combine(gathered: torch.Tensor, weights: torch.Tensor, t: int, k: int,
     return torch.einsum("tkd,tk->td", per_copy, weights.to(compute_dtype))
 
 
+def _dispatch(cfg, xt, v_idx, n_buckets: int, cap: int, frag: int):
+    """(buckets (n_buckets*cap, d), the combine gather's index arguments).
+
+    Copy j of the flattened (T*K*frag,) list is token j // (K*frag): the
+    tokens are gathered directly instead of materializing the copies."""
+    k = cfg.top_k
+    slot_token, slot_valid, copy_slot, copy_kept = dispatch_indices(
+        v_idx, n_buckets, cap)
+    buckets = _gather(xt, slot_token // (k * frag), slot_valid, copy_slot,
+                      copy_kept, k * frag)
+    return buckets, (copy_slot, copy_kept, slot_token, slot_valid)
+
+
 def moe_apply_local(cfg: ModelConfig, params: dict, x: torch.Tensor,
                     compute_dtype) -> tuple[torch.Tensor, dict]:
     """Single-device MoE: x (B, S, d) -> (B, S, d).  With slotting the
     V virtual buckets (E' * frag) run as one stack."""
     b, s, d = x.shape
     t = b * s
-    k = cfg.top_k
     xt = x.reshape(t, d).to(compute_dtype)
     weights, idx, aux = route(cfg, params["router"], xt)
     v_idx, n_b, cap, frag = _plan(cfg, idx, t)
-    slot_token, slot_valid, copy_slot, copy_kept = dispatch_indices(
-        v_idx, n_b, cap)
-    # copy j of the flattened (T*K*frag,) list is token j // (K*frag):
-    # gather the tokens directly instead of materializing the copies.
-    buckets = _gather(xt, slot_token // (k * frag), slot_valid, copy_slot,
-                      copy_kept, k * frag)
+    buckets, back = _dispatch(cfg, xt, v_idx, n_b, cap, frag)
     outs = expert_ffn(params, buckets.reshape(n_b, cap, d), compute_dtype)
-    flat_out = outs.reshape(n_b * cap, d)
-    gathered = _gather(flat_out, copy_slot, copy_kept, slot_token,
-                       slot_valid, 1)
-    y = _combine(gathered, weights, t, k, frag, compute_dtype)
+    gathered = _gather(outs.reshape(n_b * cap, d), *back, 1)
+    y = _combine(gathered, weights, t, cfg.top_k, frag, compute_dtype)
     if cfg.n_shared_experts > 0:
         y = y + ffn_apply(params["shared"], xt, compute_dtype)
+    return y.reshape(b, s, d), aux
+
+
+# --------------------------------------------------------------------- #
+# Expert-parallel paths (run inside sharded_moe over the EP axis)
+# --------------------------------------------------------------------- #
+
+def _tree_map(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, tree[k], specs[k]) for k in tree}
+    if isinstance(tree, tuple):
+        return tuple(_tree_map(fn, t, s) for t, s in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def sharded_moe(fn, mesh, in_specs, out_specs):
+    """``fn`` over every rank's blocks, with ``shard_map``'s contract.
+
+    The returned function takes global tensors (trees of dicts shaped as
+    ``in_specs``), gives ``fn`` this rank's block of each
+    (``sharding.local_shard``), and returns the global tensors whose
+    blocks ``fn`` returned on the ranks (``sharding.assemble``, by
+    ``out_specs``).  An output spec that leaves a mesh axis out keeps the
+    block of the first rank along it: for ``P()`` the first rank's value,
+    which is what the reference's ``shard_map(check_vma=False)`` returns
+    for the per-shard ``aux``.  The backward is ``shard_map``'s transpose
+    (``sharding.assemble``).  In a process group of one rank every block
+    is the whole tensor, and no copy is made.
+    """
+    def sharded(*args):
+        local = _tree_map(lambda t, s: local_shard(t, s, mesh), args,
+                          tuple(in_specs))
+        out = fn(*local)
+        return _tree_map(lambda t, s: assemble(t, s, mesh), out,
+                         tuple(out_specs))
+
+    return sharded
+
+
+def _axis(mesh, axis_name: str):
+    """(size, this rank's index, process group) of ``axis_name``."""
+    return (mesh.shape[axis_name], mesh.coordinate()[axis_name],
+            mesh.group(axis_name))
+
+
+def moe_apply_ep(cfg: ModelConfig, params: dict, x_local: torch.Tensor,
+                 axis_name: str, compute_dtype,
+                 mesh) -> tuple[torch.Tensor, dict]:
+    """EP MoE body.  ``x_local``: this rank's (B_loc, S_loc, d) slice; the
+    expert stacks hold only the local group (E_loc, ...); ``axis_name``
+    is the EP axis of ``mesh``.
+
+    Route, bucket by *global* slot, all-to-all (split by owner rank),
+    the local expert FFN (``gmm``), reverse all-to-all, combine.
+    """
+    n_dev, _, group = _axis(mesh, axis_name)
+    b, s, d = x_local.shape
+    t = b * s
+    loc = params["w_gate"].shape[0]          # local buckets (experts/slots)
+    xt = x_local.reshape(t, d).to(compute_dtype)
+    weights, idx, aux = route(cfg, params["router"], xt)
+    v_idx, n_b, cap, frag = _plan(cfg, idx, t)
+    if n_b != loc * n_dev:
+        raise ValueError(f"bucket count {n_b} != {loc}x{n_dev} local stacks")
+    buckets, back = _dispatch(cfg, xt, v_idx, n_b, cap, frag)
+    # dest-rank major; after the exchange dim 0 indexes the source rank.
+    recv = collectives.all_to_all(buckets.reshape(n_dev, loc, cap, d), group)
+    recv = recv.transpose(0, 1).reshape(loc, n_dev * cap, d)
+    outs = expert_ffn(params, recv, compute_dtype)            # (loc, n*C, d)
+    back_out = outs.reshape(loc, n_dev, cap, d).transpose(0, 1)
+    home = collectives.all_to_all(back_out, group)
+    gathered = _gather(home.reshape(n_b * cap, d), *back, 1)
+    y = _combine(gathered, weights, t, cfg.top_k, frag, compute_dtype)
+    if cfg.n_shared_experts > 0:
+        y = y + ffn_apply(params["shared"], xt, compute_dtype)
+    return y.reshape(b, s, d), aux
+
+
+def moe_apply_ep_replicated(cfg: ModelConfig, params: dict,
+                            x_local: torch.Tensor, axis_name: str,
+                            compute_dtype, mesh) -> tuple[torch.Tensor, dict]:
+    """EP for replicated activations (decode).
+
+    Every rank of the EP axis holds the same tokens, routes them all and
+    computes only its local expert group; copies bound elsewhere go to a
+    trash bucket (local id ``loc``) whose output is zero, and one
+    all-reduce of (T, d) combines.  The shared experts run replicated.
+    """
+    n_dev, my, group = _axis(mesh, axis_name)
+    b, s, d = x_local.shape
+    t = b * s
+    loc = params["w_gate"].shape[0]
+    xt = x_local.reshape(t, d).to(compute_dtype)
+    weights, idx, aux = route(cfg, params["router"], xt)
+    v_idx, n_b, cap, frag = _plan(cfg, idx, t)
+    if n_b != loc * n_dev:
+        raise ValueError(f"bucket count {n_b} != {loc}x{n_dev} local stacks")
+    is_mine = (v_idx // loc) == my
+    local_idx = torch.where(is_mine, v_idx - my * loc,
+                            torch.full_like(v_idx, loc))
+    buckets, back = _dispatch(cfg, xt, local_idx, loc + 1, cap, frag)
+    outs = expert_ffn(params, buckets.reshape(loc + 1, cap, d)[:loc],
+                      compute_dtype)
+    outs = torch.cat([outs, outs.new_zeros((1, cap, d))])   # zero trash bucket
+    gathered = _gather(outs.reshape((loc + 1) * cap, d), *back, 1)
+    y = _combine(gathered, weights, t, cfg.top_k, frag, compute_dtype)
+    y = collectives.all_reduce(y, group)
+    if cfg.n_shared_experts > 0:
+        y = y + ffn_apply(params["shared"], xt, compute_dtype)  # replicated
     return y.reshape(b, s, d), aux
 
 
@@ -317,4 +439,5 @@ def apply_placement(moe_params: dict, slot_to_expert: np.ndarray) -> dict:
 __all__ = ["Slotting", "make_slotting", "slotting_for", "slotted_weights",
            "virtual_indices", "moe_init", "route", "capacity",
            "dispatch_indices", "expert_ffn", "moe_apply_local",
+           "sharded_moe", "moe_apply_ep", "moe_apply_ep_replicated",
            "apply_placement"]

@@ -19,17 +19,50 @@ are f32 whatever the compute dtype (the f32 leaves ``a_log``,
 ``dt_bias``, ``w_gates``, ``b_gates``, ``r_h`` and ``b`` stay f32 under
 ``model.cast_for_compute``).
 
-The reference's ``_pin`` (a sharding constraint on the scan's inputs and
-carries, a no-op without a mesh) waits for sharding.
+The reference's ``_pin`` puts a sharding constraint on the Mamba scan's
+inputs and carry; here ``_pin`` computes the same spec (``pin_spec``)
+and returns its input: a per-rank program has no layout to constrain,
+and the reference's constraint changes no value.  ``mamba_*`` and
+``mlstm_*`` take ``par`` as the reference's do.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
+from ..distributed.sharding import PartitionSpec
 from .config import ModelConfig
 from .layers import normal_init, out_proj_init
+
+
+def pin_spec(shape, par, *dims) -> PartitionSpec | None:
+    """The reference's ``_pin`` spec for a tensor of ``shape`` (None
+    without a mesh).  dims entries: "b" batch axes, "m" model axis, None
+    replicated, each divisibility-guarded."""
+    if par is None or getattr(par, "mesh", None) is None:
+        return None
+    mesh = par.mesh
+    n_data = math.prod(mesh.shape[a] for a in par.data_axes)
+    n_model = mesh.shape[par.model_axis]
+    baxes = par.data_axes if len(par.data_axes) > 1 else par.data_axes[0]
+    spec = []
+    for dim, want in zip(shape, dims):
+        if want == "b" and n_data > 1 and dim % n_data == 0:
+            spec.append(baxes)
+        elif want == "m" and dim % n_model == 0 and n_model > 1:
+            spec.append(par.model_axis)
+        else:
+            spec.append(None)
+    return PartitionSpec(*spec)
+
+
+def _pin(x: torch.Tensor, par, *dims) -> torch.Tensor:
+    """``x`` as it is; its spec would be ``pin_spec`` (module docstring)."""
+    pin_spec(x.shape, par, *dims)
+    return x
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -75,7 +108,8 @@ def _mamba_scan_step(a_neg, carry, xt, dt, b_t, c_t):
     return h, y
 
 
-def _mamba_inner(cfg, params, xz, conv_state, ssm_state, compute_dtype):
+def _mamba_inner(cfg, params, xz, conv_state, ssm_state, compute_dtype,
+                 par=None):
     """Shared conv+SSM core.  xz: (B, S, 2*di).  States carried across calls.
 
     conv_state: (B, dc-1, di) trailing inputs; ssm_state: (B, di, N).
@@ -93,12 +127,17 @@ def _mamba_inner(cfg, params, xz, conv_state, ssm_state, compute_dtype):
     xc = sum(xpad[:, i:i + s, :] * conv_w[i] for i in range(dc))
     xc = F.silu(xc + params["conv_b"].to(x.dtype))
     new_conv_state = xpad[:, s:, :] if dc > 1 else conv_state
+    xc = _pin(xc, par, "b", None, "m")
 
     proj = xc @ params["w_x_proj"].to(x.dtype)                # (B,S,r+2N)
     r = cfg.mamba_dt_rank
     dt_r, b_ssm, c_ssm = torch.split(proj, [r, n, n], dim=-1)
+    b_ssm = _pin(b_ssm, par, "b", None, None)
+    c_ssm = _pin(c_ssm, par, "b", None, None)
     dt = softplus((dt_r @ params["w_dt"].to(x.dtype)).float()
                   + params["dt_bias"])                        # (B,S,di) f32
+    dt = _pin(dt, par, "b", None, "m")
+    ssm_state = _pin(ssm_state, par, "b", "m", None)
     a_neg = -torch.exp(params["a_log"])                       # (di, N)
 
     h = ssm_state
@@ -113,11 +152,11 @@ def _mamba_inner(cfg, params, xz, conv_state, ssm_state, compute_dtype):
     return y, new_conv_state.float(), h
 
 
-def mamba_forward(cfg, params, x, compute_dtype):
+def mamba_forward(cfg, params, x, compute_dtype, par=None):
     st = mamba_init_state(cfg, x.shape[0], x.device)
     xz = x.to(compute_dtype) @ params["w_in"].to(compute_dtype)
     y, _, _ = _mamba_inner(cfg, params, xz, st["conv"], st["ssm"],
-                           compute_dtype)
+                           compute_dtype, par)
     return y @ params["w_out"].to(compute_dtype)
 
 
@@ -131,11 +170,11 @@ def mamba_init_state(cfg: ModelConfig, batch: int, device="cuda") -> dict:
     }
 
 
-def mamba_decode(cfg, params, x, state, compute_dtype):
+def mamba_decode(cfg, params, x, state, compute_dtype, par=None):
     """x: (B, S, d) -> (y (B,S,d), new state); S = 1 in decode."""
     xz = x.to(compute_dtype) @ params["w_in"].to(compute_dtype)
     y, conv, ssm = _mamba_inner(cfg, params, xz, state["conv"], state["ssm"],
-                                compute_dtype)
+                                compute_dtype, par)
     return y @ params["w_out"].to(compute_dtype), {"conv": conv, "ssm": ssm}
 
 
@@ -197,7 +236,7 @@ def _mlstm_step(carry, inp):
     return (c, n, m_new), h
 
 
-def _mlstm_core(cfg, params, x, state, compute_dtype):
+def _mlstm_core(cfg, params, x, state, compute_dtype, par=None):
     b, s, _ = x.shape
     nh = cfg.n_heads
     dh = cfg.d_inner // nh
@@ -226,15 +265,15 @@ def _mlstm_core(cfg, params, x, state, compute_dtype):
     return y, {"c": c, "n": n, "m": m}
 
 
-def mlstm_forward(cfg, params, x, compute_dtype):
+def mlstm_forward(cfg, params, x, compute_dtype, par=None):
     y, _ = _mlstm_core(cfg, params, x,
                        mlstm_init_state(cfg, x.shape[0], x.device),
-                       compute_dtype)
+                       compute_dtype, par)
     return y
 
 
-def mlstm_decode(cfg, params, x, state, compute_dtype):
-    return _mlstm_core(cfg, params, x, state, compute_dtype)
+def mlstm_decode(cfg, params, x, state, compute_dtype, par=None):
+    return _mlstm_core(cfg, params, x, state, compute_dtype, par)
 
 
 # ===================================================================== #

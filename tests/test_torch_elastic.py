@@ -35,11 +35,12 @@ def _migration_equal(a, b):
 
 
 def test_distributed_names_match_reference():
-    """Every name of ``repro.distributed`` but the jax-mesh
+    """Every name of ``repro.distributed``: the elastic ones and
     ``ShardingRules``."""
-    assert set(pd.__all__) == set(rd.__all__) - {"ShardingRules"}
+    assert set(pd.__all__) == set(rd.__all__)
     for n in pd.__all__:
-        assert getattr(pd, n).__module__ == "repro_torch.distributed.elastic"
+        sub = "sharding" if n == "ShardingRules" else "elastic"
+        assert getattr(pd, n).__module__ == f"repro_torch.distributed.{sub}"
 
 
 @pytest.mark.parametrize("shape,failed,origin", [

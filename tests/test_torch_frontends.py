@@ -120,7 +120,7 @@ def test_serve_step_takes_embeds():
                                    {"embeds": jnp.asarray(emb[:, :4])}, 8)
     tlog, tcache = tmodels.prefill(tc, tparams,
                                    {"embeds": torch.from_numpy(emb[:, :4])}, 8)
-    jstep, tstep = jmake_serve_step(jc, Parallel()), tmake_serve_step(tc)
+    jstep, tstep = jmake_serve_step(jc, Parallel()), tmake_serve_step(tc, tmodels.Parallel())
     jtok = jnp.zeros((2, 1), jnp.int32)
     ttok = torch.zeros((2, 1), dtype=torch.int32)
     for i in (4, 5):

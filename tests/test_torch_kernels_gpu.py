@@ -1151,8 +1151,8 @@ def test_jamba_mamba_moe_block_on_the_card_matches_the_cpu(cuda_device):
     outputs and the carried Mamba state at 2e-4 (summation order)."""
     from repro_torch.configs import smoke_config
     from repro_torch.kernels import ops
-    from repro_torch.models.model import (_apply_block, _block_cache,
-                                          _block_init)
+    from repro_torch.models.model import (Parallel, _apply_block,
+                                          _block_cache, _block_init)
     cfg = smoke_config("jamba-1.5-large-398b")
     spec = cfg.pattern[0]
     assert (spec.mixer, spec.ffn) == ("mamba", "moe")
@@ -1168,13 +1168,14 @@ def test_jamba_mamba_moe_block_on_the_card_matches_the_cpu(cuda_device):
         cache = _block_cache(cfg, spec, 4, 12, torch.float32, torch.device(dev))
         pos = torch.arange(8, dtype=torch.int32, device=dev)[None].expand(4, 8)
         ops.reset_launch_counts()
-        y, cache, _ = _apply_block(cfg, spec, p, x.to(dev), pos,
+        y, cache, _ = _apply_block(cfg, spec, p, x.to(dev), pos, Parallel(),
                                    torch.float32, cache, "prefill")
         outs = [y]
         for i in range(3):
             pos = torch.full((4,), 8 + i, dtype=torch.int32, device=dev)
             y, cache, _ = _apply_block(cfg, spec, p, steps[i].to(dev), pos,
-                                       torch.float32, cache, "decode")
+                                       Parallel(), torch.float32, cache,
+                                       "decode")
             outs.append(y)
         if dev == "cuda":
             torch.cuda.synchronize()
@@ -1258,7 +1259,7 @@ def test_granite_smoke_train_step_on_the_card_matches_the_cpu(cuda_device):
     from repro_torch.configs import smoke_config
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import init_params
+    from repro_torch.models import Parallel, init_params
     from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
     from repro_torch.tree import tree_leaves, tree_map
     cfg = smoke_config("granite-moe-3b-a800m")
@@ -1271,7 +1272,8 @@ def test_granite_smoke_train_step_on_the_card_matches_the_cpu(cuda_device):
     for dev in ("cpu", "cuda"):
         params = tree_map(lambda p: p.clone().to(dev), master)
         state = adamw_init(params)
-        step = make_train_step(cfg, AdamWConfig(lr=1e-2), cosine_schedule(1, 3))
+        step = make_train_step(cfg, Parallel(), AdamWConfig(lr=1e-2),
+                               cosine_schedule(1, 3))
         ops.reset_launch_counts()
         losses = []
         for toks in batches:

@@ -375,16 +375,54 @@ def test_core_covers_every_public_name_of_the_reference():
 
 
 def test_models_cover_the_references_public_names():
-    """``repro_torch.models.__all__`` holds every name of the reference's
-    but ``Parallel`` (sharding, not yet ported), the frontends'
-    ``batch_specs`` and ``frontend_split`` and training's ``loss_fn``
-    among them."""
+    """``repro_torch.models.__all__`` holds every name of the reference's,
+    ``Parallel``, the frontends' ``batch_specs`` and ``frontend_split``
+    and training's ``loss_fn`` among them; ``models.moe`` has the EP
+    bodies and their wrapper."""
     import repro.models as jmodels
     import repro_torch.models as pm
+    import repro_torch.models.moe as pmoe
     missing = set(jmodels.__all__) - set(pm.__all__)
-    assert missing == {"Parallel"}
-    assert {"batch_specs", "frontend_split", "loss_fn"} <= set(pm.__all__)
+    assert missing == set()
+    assert {"Parallel", "batch_specs", "frontend_split",
+            "loss_fn"} <= set(pm.__all__)
     assert all(hasattr(pm, n) for n in pm.__all__)
+    for name in ("sharded_moe", "moe_apply_ep", "moe_apply_ep_replicated"):
+        assert name in pmoe.__all__ and callable(getattr(pmoe, name))
+
+
+def _defined_names(module) -> set[str]:
+    """The public functions and classes a module defines itself."""
+    return {n for n, v in vars(module).items()
+            if not n.startswith("_") and callable(v)
+            and getattr(v, "__module__", None) == module.__name__}
+
+
+@pytest.mark.parametrize("sub", ["launch.mesh", "launch.steps",
+                                 "distributed.sharding"])
+def test_sharding_and_launch_names_are_the_references(sub):
+    """``launch.mesh``, ``launch.steps`` and ``distributed.sharding`` define
+    every public function and class the reference's modules define, and
+    ``distributed`` exports the reference's names."""
+    import importlib
+    ref = importlib.import_module(f"repro.{sub}")
+    port = importlib.import_module(f"repro_torch.{sub}")
+    assert _defined_names(ref) <= _defined_names(port), \
+        _defined_names(ref) - _defined_names(port)
+    import repro.distributed as jdist
+    import repro_torch.distributed as pdist
+    assert pdist.__all__ == jdist.__all__
+
+
+def test_dry_run_tools_are_the_ones_left():
+    """The reference's launch modules without a counterpart are the dry-run
+    tools (roofline, dryrun, hlo_analysis), left for the last slice."""
+    from pathlib import Path
+    import repro.launch.steps as jsteps
+    import repro_torch.launch.steps as psteps
+    ref = {p.stem for p in Path(jsteps.__file__).parent.glob("*.py")}
+    port = {p.stem for p in Path(psteps.__file__).parent.glob("*.py")}
+    assert ref - port == {"roofline", "dryrun", "hlo_analysis"}
 
 
 def test_configs_names_are_the_references():

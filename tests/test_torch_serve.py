@@ -70,7 +70,7 @@ def test_serve_steps_match_reference():
     tlog, tcache = tmodels.prefill(tc, tparams,
                                    {"tokens": torch.from_numpy(np.array(prompt["tokens"]))},
                                    max_len=12)
-    jstep, tstep = jmake_serve_step(jc, Parallel()), tmake_serve_step(tc)
+    jstep, tstep = jmake_serve_step(jc, Parallel()), tmake_serve_step(tc, tmodels.Parallel())
     jtok = jnp.argmax(jlog, -1)[:, None].astype(jnp.int32)
     ttok = torch.argmax(tlog, -1).to(torch.int32)[:, None]
     for i in range(3):

@@ -62,6 +62,7 @@ from repro_torch.data import DataConfig, SyntheticTokens, make_batch
 from repro_torch.kernels import moe_gmm
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.steps import make_train_step
+from repro_torch.models import Parallel
 from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -161,7 +162,8 @@ def test_train_steps_match_reference(micro_batches):
     jstate, state = jax_adamw_init(jparams), adamw_init(params)
     jstep = jax.jit(jax_train_step(jc, jmodels.Parallel(), JAdamW(lr=1e-2),
                                    jax_cosine(1, 3), micro_batches))
-    step = make_train_step(tc, AdamWConfig(lr=1e-2), cosine_schedule(1, 3),
+    step = make_train_step(tc, Parallel(), AdamWConfig(lr=1e-2),
+                           cosine_schedule(1, 3),
                            micro_batches)
     for i in range(3):
         batch = _batch(jc, b=4, seed=10 + i, labels="tokens")
@@ -225,7 +227,8 @@ def test_bf16_train_steps_match_reference(micro_batches):
     jstate, state = jax_adamw_init(jparams), adamw_init(params)
     jstep = jax.jit(jax_train_step(jc, jmodels.Parallel(), JAdamW(lr=1e-2),
                                    jax_cosine(1, 3), micro_batches))
-    step = make_train_step(tc, AdamWConfig(lr=1e-2), cosine_schedule(1, 3),
+    step = make_train_step(tc, Parallel(), AdamWConfig(lr=1e-2),
+                           cosine_schedule(1, 3),
                            micro_batches)
     tols = {"loss": 2e-4, "ce": 2e-4, "aux": 1e-3, "grad_norm": 2e-3}
     for i in range(3):
@@ -254,7 +257,8 @@ def test_bf16_full_width_schedule_matches_reference():
     jstate, state = jax_adamw_init(jparams), adamw_init(params)
     jstep = jax.jit(jax_train_step(jc, jmodels.Parallel(), JAdamW(lr=3e-4),
                                    jax_cosine(2, 6)))
-    step = make_train_step(tc, AdamWConfig(lr=3e-4), cosine_schedule(2, 6))
+    step = make_train_step(tc, Parallel(), AdamWConfig(lr=3e-4),
+                           cosine_schedule(2, 6))
     data = SyntheticTokens(DataConfig(vocab_size=tc.vocab_size, seq_len=64,
                                       global_batch=4, seed=0))
     losses, jlosses = [], []
@@ -272,7 +276,7 @@ def test_micro_batches_must_divide_the_batch():
     cfg = tcfgs.smoke_config("smollm-135m")
     params = tmodels.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
                                  cast=False)
-    step = make_train_step(cfg, micro_batches=3)
+    step = make_train_step(cfg, Parallel(), micro_batches=3)
     with pytest.raises(ValueError, match="not divisible by 3"):
         step(params, adamw_init(params), _as_torch(_batch(cfg, b=4)))
 

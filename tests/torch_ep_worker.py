@@ -1,0 +1,153 @@
+"""One rank of the port's expert-parallel checks over gloo (CPU).
+
+    python tests/torch_ep_worker.py RANK WORLD DIR
+
+``tests/test_torch_ep.py`` starts WORLD of these (PYTHONPATH=src), after
+writing ``DIR/inputs.pkl``: the reference's weights as numpy trees and
+the inputs, made from numpy seeds.  Each rank joins a gloo group through
+``file://DIR/rendezvous``, runs every case on a (2, 4) ("data", "model")
+mesh (the train step on a (1, 8) one), and writes its results to
+``DIR/rank{RANK}.pkl`` as numpy arrays.  Imports no JAX.
+"""
+from __future__ import annotations
+
+import dataclasses
+import pickle
+import sys
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import smoke_config
+from repro_torch.convert import params_from_jax
+from repro_torch.distributed import collectives
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.steps import _value_and_grad, make_train_step
+from repro_torch.models import Parallel, loss_fn
+from repro_torch.models import model as model_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.tree import tree_leaves, tree_map
+
+F32 = torch.float32
+
+
+def _np(tree):
+    return tree_map(lambda t: t.detach().numpy().copy(), tree)
+
+
+def _cfg(case: dict):
+    return dataclasses.replace(smoke_config(case["arch"]), **case["replace"])
+
+
+def _layer(cfg, moe_ffn, x, cot, par):
+    """(y, aux, grads of sum(y * cot), the router's grad of the aux term)
+    of one MoE block under ``par``."""
+    live = tree_map(lambda t: t.detach().clone().requires_grad_(True), moe_ffn)
+    named = {k: live[k] for k in ("w_gate", "w_up", "w_down", "router")}
+    named.update({f"shared/{k}": v for k, v in live.get("shared", {}).items()})
+    y, aux = model_mod._apply_moe(cfg, live, x, par, F32)
+    grads = torch.autograd.grad((y * cot).sum(), list(named.values()),
+                                retain_graph=True)
+    term = aux["load_balance_loss"] + 1e-3 * aux["router_z_loss"]
+    aux_grad, = torch.autograd.grad(term, live["router"])
+    return {"y": y.detach().numpy(), "aux": _np(aux),
+            "grads": {k: g.numpy() for k, g in zip(named, grads)},
+            "aux_grad": aux_grad.numpy()}
+
+
+def run_layers(inputs, mesh) -> dict:
+    out = {}
+    for name, case in inputs["layers"].items():
+        cfg = _cfg(case)
+        params = params_from_jax(cfg, case["params"], "cpu")
+        moe_ffn = params["layers"][0]["ffn"]
+        x, cot = torch.from_numpy(case["x"]), torch.from_numpy(case["cot"])
+        res = {"local": _layer(cfg, moe_ffn, x, cot, Parallel())}
+        for mode in case["modes"]:
+            par = Parallel(mesh=mesh, moe_mode=mode)
+            res[mode] = _layer(cfg, moe_ffn, x, cot, par)
+        res["resolved"] = Parallel(mesh=mesh).resolve_moe(cfg, x.shape[1])
+        out[name] = res
+    return out
+
+
+def _captured_aux(cfg, params, batch, blocks) -> float:
+    """The aux term the sharded loss should hold: the single-shard run's
+    MoE inputs, each block's router aux on the first rank's slice."""
+    seen = []
+    local = moe_mod.moe_apply_local
+
+    def record(cfg_, p, x, cdt):
+        seen.append((p, x.detach()))
+        return local(cfg_, p, x, cdt)
+
+    moe_mod.moe_apply_local = record
+    try:
+        loss_fn(cfg, params, batch)
+    finally:
+        moe_mod.moe_apply_local = local
+    total = 0.0
+    for p, h in seen:
+        _, aux = local(cfg, p, h[blocks], F32)
+        total += float(aux["load_balance_loss"] + 1e-3 * aux["router_z_loss"])
+    return total
+
+
+def run_loss(inputs, mesh) -> dict:
+    out = {}
+    for name, case in inputs["loss"].items():
+        cfg = _cfg(case)
+        params = params_from_jax(cfg, case["params"], "cpu")
+        batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+        with torch.no_grad():
+            sharded, met = loss_fn(cfg, params, batch, Parallel(mesh=mesh))
+            single, smet = loss_fn(cfg, params, batch)
+            first = _captured_aux(cfg, params, batch, case["first_block"])
+        out[name] = {"loss": sharded.numpy(), "ce": met["ce"].numpy(),
+                     "aux": met["aux"].numpy(), "single": single.numpy(),
+                     "single_ce": smet["ce"].numpy(), "first_aux": first}
+    return out
+
+
+def run_train(inputs, mesh) -> dict:
+    case = inputs["train"]
+    cfg = _cfg(case)
+    batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    out = {}
+    for name, par in (("single", Parallel()),
+                      ("sharded", Parallel(mesh=mesh, moe_mode="ep_rep"))):
+        params = params_from_jax(cfg, case["params"], "cpu")
+        _, grads = _value_and_grad(cfg, par, params, batch)
+        state = adamw_init(params)
+        step = make_train_step(cfg, par, AdamWConfig(lr=case["lr"]))
+        params, state, met = step(params, state, batch)
+        out[name] = {"params": [t.numpy() for t in tree_leaves(params)],
+                     "grads": [g.numpy() for g in tree_leaves(grads)],
+                     "metrics": {k: float(v) for k, v in met.items()}}
+    return out
+
+
+def main(rank: int, world: int, folder: Path) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{folder}/rendezvous",
+                            rank=rank, world_size=world)
+    try:
+        inputs = pickle.loads((folder / "inputs.pkl").read_bytes())
+        mesh = make_mesh((2, 4), ("data", "model"), "cpu")
+        res = {"coordinate": mesh.coordinate(),
+               "group_sizes": {a: dist.get_world_size(mesh.group(a))
+                               for a in mesh.axis_names}}
+        res["layers"] = run_layers(inputs, mesh)
+        res["loss"] = run_loss(inputs, mesh)
+        res["train"] = run_train(inputs, make_mesh((1, 8), ("data", "model"),
+                                                   "cpu"))
+        res["calls"] = dict(collectives.calls)
+        (folder / f"rank{rank}.pkl").write_bytes(pickle.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), Path(sys.argv[3]))

@@ -42,7 +42,9 @@ Phases (any failure exits non-zero and prints no success line):
      cast block by block): tok/s against the 32.3 GB weights bound,
      peak memory, gmm 1,458 launches all on wgmma, decode_attention 448,
      finite logits, tokens in range, the placement cost line;
-  6e. the profile of phase 6 for deepseek-moe-16b;
+  6e. the profile of phase 6 for deepseek-moe-16b, then (for phase 17a)
+     4 of its decode steps timed without the profiler and one counted by
+     ``launch.op_analysis`` with the launch counters reset;
   6f. calibration: ``core.calibrate(impl="cuda")`` for deepseek-moe-16b and
      llama-moe-3.5b at the committed tables' ctx_len and batches (gmm
      and decode_attention launched, ``verify_table`` True), the measured
@@ -237,7 +239,18 @@ Phases (any failure exits non-zero and prints no success line):
      steps with ``Parallel()``; (c) gmm at every (E, C, K, N) of (a)'s
      run against its plain version, ``torch.bmm`` and its bound, on the
      wgmma path;
- 17. the ``kernels`` JSON line (all six kernels, and gmm and
+ 17. the dry run (run after 16): (a) 6e's counted deepseek-moe-16b decode
+     step (batch 4, cache 49, on the card) against the same step counted
+     on ``meta`` tensors: flops, bytes and kernel counts equal, and the
+     card's gmm and decode_attention launch counters equal to the kernel
+     counts; (b) ``python -m repro_torch.launch.dryrun --arch
+     deepseek-moe-16b --shape decode_32k --mesh pod --out build/dryrun``
+     in a subprocess (a fake group of 256 ranks; no CUDA) writes an
+     ``ok`` record; (c) the roofline bound of (a)'s step from its counted
+     bytes and flops beside its measured ms a step, and
+     ``roofline.train_step_bound`` of 15c's granite step beside its
+     measured seconds a step;
+ 18. the ``kernels`` JSON line (all six kernels, and gmm and
      decode_attention again at deepseek-moe-16b's decode shape with
      phase 6d's launches, at phase 13's decode shapes with that
      phase's launches, at phase 14c's shapes with their launches
@@ -275,9 +288,9 @@ BATCH, PROMPT, DECODE = 4, 32, 16
 # per expert (measure_components' rows_per_expert).
 CALIBRATED = ("deepseek-moe-16b", "llama-moe-3.5b")
 CAL_ROWS = 32
-# H100 SXM data sheet: HBM rate and dense peak rates by type.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float64": 34e12}
+# The H100's rates (the data sheet's) and the step bounds are
+# repro_torch.launch.roofline's: HBM_BW, PEAK_FLOPS_BY_DTYPE,
+# serve_weight_bytes, train_step_bound.
 # Thinning fractions of the fleet sweep (benchmarks/bench_fleet.py).
 FLEET_FRACTIONS = (0.1, 0.15, 0.2, 0.25, 0.3, 0.35, 0.4, 0.5, 0.6, 0.8, 1.0)
 # Latency targets of the admission sweep, times the zero-load p99 TTFT
@@ -457,8 +470,9 @@ def event_ms(torch, fn, iters: int = 1, warm: bool = True) -> float:
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
-    t_mem = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
+    from repro_torch.launch import roofline as rl
+    t_mem = nbytes / rl.HBM_BW
+    t_ops = flops / rl.PEAK_FLOPS_BY_DTYPE[dtype]
     return (max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else "operations")
 
 
@@ -667,72 +681,12 @@ def phase_small(torch, arch: str = ARCH, slotted: bool = False) -> None:
 # --------------------------------------------------------------------- #
 
 
-def block_specs(cfg) -> list:
-    """Every block's spec in order, the dense first block included."""
-    from repro_torch.models.model import _first_spec, layer_specs
-    return ([_first_spec(cfg)] if cfg.first_layer_dense else []) \
-        + layer_specs(cfg)
-
-
-def n_ffn_layers(cfg) -> tuple[int, int]:
-    """(MoE layers, dense-FFN layers after the dense first block)."""
-    from repro_torch.models.model import layer_specs
-    specs = layer_specs(cfg)
-    n_moe = sum(spec.ffn == "moe" for spec in specs)
-    return n_moe, sum(spec.ffn == "dense" for spec in specs)
-
-
-def mixer_bytes(cfg, mixer: str, batch: int = BATCH) -> tuple[int, int]:
-    """(weight bytes, state bytes) one decode step of one ``mixer`` block
-    moves: its bf16 weights and f32 parameters read once, its f32
-    recurrent state read and written once (the KV cache is counted by
-    ``decode_attention``'s own bound)."""
-    d, di, nh = cfg.d_model, cfg.d_inner, cfg.n_heads
-    dh = di // nh
-    n, r, dc = cfg.mamba_d_state, cfg.mamba_dt_rank, cfg.mamba_d_conv
-    if mixer == "attn":
-        return (2 * d * cfg.q_dim + 2 * d * cfg.kv_dim) * 2, 0
-    if mixer == "mamba":
-        bf16 = 2 * d * di + dc * di + 2 * di + di * (r + 2 * n) + r * di + di * d
-        return bf16 * 2 + (di + di * n) * 4, \
-            2 * batch * ((dc - 1) * di + di * n) * 4
-    if mixer == "mlstm":
-        return 5 * d * di * 2 + (2 * d * nh + 2 * nh) * 4, \
-            2 * batch * nh * (dh * dh + dh + 1) * 4
-    return (4 * d * di + di * d) * 2 + (nh * dh * 4 * dh + 4 * di) * 4, \
-        2 * batch * 4 * nh * dh * 4
-
-
-def serve_weight_bytes(cfg) -> dict[str, float]:
-    """Bytes a decode step must move once: every bf16 weight (every routed
-    expert: the buckets cover every expert; the shared experts, the dense
-    first block, the dense FFNs, each kind of mixer, the LM head or the
-    tied embedding table, of which the step gathers B rows), the
-    recurrent mixers' f32 parameters, and their f32 state read and
-    written (``state``: mLSTM's (B, NH, dh, dh) memory above all)."""
-    n_moe, n_dense = n_ffn_layers(cfg)
-    d, f = cfg.d_model, cfg.d_ff_expert
-    parts = {
-        "experts": n_moe * cfg.n_experts * 3 * d * f * 2,
-        "shared": n_moe * 3 * d * f * cfg.n_shared_experts * 2,
-        "first": (3 * d * (cfg.first_dense_d_ff or cfg.d_ff) * 2
-                  if cfg.first_layer_dense else 0),
-        "ffn": n_dense * 3 * d * cfg.d_ff * 2,
-        "attention": 0, "mamba": 0, "mlstm": 0, "slstm": 0, "state": 0,
-        "head": d * cfg.padded_vocab * 2,
-    }
-    for spec in block_specs(cfg):
-        weights, state = mixer_bytes(cfg, spec.mixer)
-        parts["attention" if spec.mixer == "attn" else spec.mixer] += weights
-        parts["state"] += state
-    return parts
-
-
 def serve_launches(cfg, passes: int = 2 + DECODE,
                    decode_steps: int = DECODE) -> dict[str, int]:
     """gmm: 3 per MoE layer per pass (serve's: calibrate, prefill, each
     decode step; none without MoE); decode_attention: one per attention
     block per decode step (none for the recurrent mixers)."""
+    from repro_torch.launch.roofline import block_specs, n_ffn_layers
     n_moe, _ = n_ffn_layers(cfg)
     n_attn = sum(spec.mixer == "attn" for spec in block_specs(cfg))
     return {"gmm": 3 * n_moe * passes,
@@ -745,6 +699,7 @@ def phase_serve(torch, card: str, arch: str = ARCH, extra: tuple = (),
     so every gmm launch takes the fma path) with the checks of phase 5."""
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.kernels import moe_gmm, ops
+    from repro_torch.launch import roofline as rl
     from repro_torch.launch import serve
     cfg = smoke_config(arch) if smoke else get_config(arch)
     argv = ["--arch", arch, "--batch", str(BATCH), "--prompt-len",
@@ -763,9 +718,9 @@ def phase_serve(torch, card: str, arch: str = ARCH, extra: tuple = (),
     log(f"placement cost: {json.dumps(out.get('dispatch_cost'))}")
     if "space_latency_s" in out:
         log(f"space-sim s/token: {json.dumps(out['space_latency_s'])}")
-    parts = serve_weight_bytes(cfg)
+    parts = rl.serve_weight_bytes(cfg, BATCH)
     total = sum(parts.values())
-    step_ms = total / HBM_BYTES_PER_S * 1e3
+    step_ms = total / rl.HBM_BW * 1e3
     log(f"decode-step bound: {total / 1e9:.3f} GB of weights and state ("
         + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in parts.items() if v)
         + f") -> {step_ms:.3f} ms at 3.35 TB/s -> "
@@ -801,15 +756,21 @@ def phase_serve(torch, card: str, arch: str = ARCH, extra: tuple = (),
 
 
 def phase_profile(torch, n_steps: int = 4, arch: str = ARCH,
-                  ranges: dict | None = None) -> dict:
+                  ranges: dict | None = None, count: bool = False) -> dict:
     """Profile ``n_steps`` decode steps.  ``ranges`` maps a label to
     (module, function name): during the profile that function runs inside
     ``record_function(label)``, and each label's kernel time a step is
     reported.  Returns the step's wall and kernel ms, launches and each
-    label's kernel ms a step."""
+    label's kernel ms a step.  With ``count`` (phase 17a, on these
+    weights) it then times ``n_steps`` steps without the profiler (CUDA
+    events) and counts one more under ``op_analysis.analyze`` with the
+    launch counters reset: under "count" the ``OpCost``, the launches, the
+    ms a step and the step's inputs' shapes."""
     from torch.profiler import record_function
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import op_analysis
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models import Parallel, init_params, prefill, random_batch
     cfg = get_config(arch)
@@ -870,8 +831,24 @@ def phase_profile(torch, n_steps: int = 4, arch: str = ARCH,
     for label, ms in in_range.items():
         log(f"profile: {label} {ms:.4f} ms/step of kernels, "
             f"{ms / busy_ms:.1%} of the step's kernel time")
-    return {"wall_ms": wall_ms, "kernel_ms": busy_ms,
-            "launches": sum(k[1] for k in kernels), "ranges": in_range}
+    out = {"wall_ms": wall_ms, "kernel_ms": busy_ms,
+           "launches": sum(k[1] for k in kernels), "ranges": in_range}
+    if count:
+        state = {"tok": tok, "pos": pos, "cache": cache}
+
+        def one():
+            state["tok"], _, state["cache"] = step(
+                params, state["cache"], state["tok"], state["pos"], emb)
+            state["pos"] = state["pos"] + 1
+        step_ms = event_ms(torch, one, iters=n_steps, warm=False)
+        ops.reset_launch_counts()
+        cost, _ = op_analysis.analyze(step, params, state["cache"],
+                                      state["tok"], state["pos"], emb)
+        torch.cuda.synchronize()
+        out["count"] = {"cost": cost, "launches": ops.launch_counts(),
+                        "step_ms": step_ms,
+                        "cache_len": state["cache"]["layers"][0]["k"].shape[1]}
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -1298,6 +1275,7 @@ def phase_xlstm(torch, card: str) -> dict[str, int]:
     (``ssm._mlstm_memory``) as a labelled range, beside the update timed
     alone.  Returns the serve run's launch counts."""
     from repro_torch.configs import get_config
+    from repro_torch.launch.roofline import block_specs
     from repro_torch.models import ssm
     counts = phase_serve(torch, card, XLSTM)
     label = "mlstm_state_update"
@@ -1366,6 +1344,7 @@ def jamba_block(torch, card: str, kind: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import moe_gmm, ops
     from repro_torch.kernels.ref import gmm_ref
+    from repro_torch.launch import roofline as rl
     from repro_torch.models.layers import dtype_of
     from repro_torch.models.model import (Parallel, _apply_block,
                                           _block_cache, _block_init,
@@ -1388,7 +1367,7 @@ def jamba_block(torch, card: str, kind: str) -> dict:
             return [x for v in node.values() for x in leaves(v)]
         return [node]
     nbytes = sum(w.numel() * w.element_size() for w in leaves(bp))
-    _, state_bytes = mixer_bytes(cfg, spec.mixer)
+    _, state_bytes = rl.mixer_bytes(cfg, spec.mixer, BATCH)
     x = torch.randn(BATCH, PROMPT, cfg.d_model, generator=gen,
                     device="cuda").to(cdt)
     xs = torch.randn(DECODE, BATCH, 1, cfg.d_model, generator=gen,
@@ -1437,7 +1416,7 @@ def jamba_block(torch, card: str, kind: str) -> dict:
         by_shape[key] = by_shape.get(key, 0) + 1
         del ref
     finite = all(bool(torch.isfinite(o).all()) for o in outs)
-    step_bound = (nbytes + state_bytes) / HBM_BYTES_PER_S * 1e3
+    step_bound = (nbytes + state_bytes) / rl.HBM_BW * 1e3
     ffn = (f"{cfg.n_experts} experts of {cfg.d_ff_expert}"
            if spec.ffn == "moe" else f"d_ff {cfg.d_ff}")
     log(f"jamba block {kind} ({spec.mixer} + {spec.ffn}, d_model "
@@ -1614,6 +1593,7 @@ def train_smoke_card_vs_cpu(torch, arch: str) -> None:
     off; index-put backwards sum with atomics on the card)."""
     from repro_torch.configs import smoke_config
     from repro_torch.kernels import ops
+    from repro_torch.launch.roofline import block_specs
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import Parallel, init_params
     from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
@@ -1691,37 +1671,6 @@ def train_resume(torch) -> None:
     if len(resumed["losses"]) != 4 or err > 1e-5:
         raise SmokeFailure("launch.train's resume does not repeat the "
                            "uninterrupted run")
-
-
-def train_step_bound(cfg, n_params: int) -> dict:
-    """The least time a full-width train step could take, from the config:
-    bf16 tensor work (forward; backward twice the forward; unit remat's
-    second forward of every layer) at 989 TFLOP/s, plus AdamW's bytes (p,
-    g, m and v read, p, m and v written, g read again for the norm; f32)
-    at 3.35 TB/s.  Only the work a step needs is counted: the causal
-    attention's S(S+1)/2 query-key pairs a head (the port computes every
-    chunk pair, masked or not), and the expert products over the T * K
-    routed rows (the port runs the capacity-padded E * C)."""
-    t = TRAIN_BATCH * TRAIN_SEQ
-    d, f = cfg.d_model, cfg.d_ff_expert
-    layers = cfg.n_layers
-    gmm = 3 * 2 * t * cfg.top_k * d * f
-    proj = 2 * t * d * (cfg.q_dim + 2 * cfg.kv_dim) + 2 * t * cfg.q_dim * d
-    pairs = TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
-    attn = 2 * 2 * pairs * cfg.head_dim
-    router = 2 * t * d * cfg.n_experts
-    head = 2 * t * d * cfg.padded_vocab
-    layer = gmm + proj + attn + router
-    fwd = layers * layer + head
-    flops = 3 * fwd + layers * layer
-    adam_bytes = 8 * 4 * n_params
-    ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    bytes_ms = adam_bytes / HBM_BYTES_PER_S * 1e3
-    return {"gmm_gflop_layer": gmm / 1e9, "proj_gflop_layer": proj / 1e9,
-            "attn_gflop_layer": attn / 1e9, "head_gflop": head / 1e9,
-            "forward_tflop": fwd / 1e12, "step_tflop": flops / 1e12,
-            "adamw_gb": adam_bytes / 1e9, "ops_ms": ops_ms,
-            "bytes_ms": bytes_ms, "bound_ms": ops_ms + bytes_ms}
 
 
 def profiled_train_step(torch, step_fn, params, state, batch) -> dict:
@@ -1859,6 +1808,8 @@ def train_full_width(torch, card: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticTokens, make_batch
     from repro_torch.kernels import moe_gmm, ops
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.roofline import block_specs
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import Parallel, init_params
     from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
@@ -1874,7 +1825,7 @@ def train_full_width(torch, card: str) -> dict:
     n_params = sum(p.numel() for p in tree_leaves(params))
     static_gib = torch.cuda.memory_allocated() / 2**30
     draw_s = time.perf_counter() - t
-    bnd = train_step_bound(cfg, n_params)
+    bnd = rl.train_step_bound(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
     data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
                                       seq_len=TRAIN_SEQ,
                                       global_batch=TRAIN_BATCH, seed=0))
@@ -1950,12 +1901,13 @@ def train_full_width(torch, card: str) -> dict:
     del params, state, batches
     torch.cuda.empty_cache()
     return {"calls": calls, "counts": counts, "secs": secs, "peak": peak_gib,
-            "profile": prof}
+            "profile": prof, "n_params": n_params, "step_s": steady}
 
 
-def phase_train(torch, card: str) -> list[tuple[str, dict, int]]:
+def phase_train(torch, card: str) -> tuple[list[tuple[str, dict, int]], dict]:
     """Phase 15 (a-c).  Returns the kernel rows (name, record, launches over
-    15c's run) of 15a's shapes."""
+    15c's run) of 15a's shapes, and 15c's parameter count and median
+    seconds a step."""
     from repro_torch.configs import get_config
     seconds = {}
 
@@ -1972,7 +1924,111 @@ def phase_train(torch, card: str) -> list[tuple[str, dict, int]]:
     step("15b resume", train_resume, torch)
     run = step("15c", train_full_width, torch, card)
     log(f"phase 15 seconds {json.dumps(seconds)}")
-    return [("gmm", rec, run["calls"].get(key, 0)) for key, rec in recs.items()]
+    return [("gmm", rec, run["calls"].get(key, 0)) for key, rec in recs.items()], \
+        {"n_params": run["n_params"], "step_s": run["step_s"]}
+
+
+# --------------------------------------------------------------------- #
+# Phase 17: the dry run (launch/dryrun.py, op_analysis, roofline)
+# --------------------------------------------------------------------- #
+
+
+def phase_dryrun(torch, card: str, counted: dict, train_run: dict) -> None:
+    """(a) phase 6e's deepseek-moe-16b decode step as counted on the card
+    (``phase_profile(count=True)``) against the same step counted on
+    ``meta`` tensors: flops, bytes and kernel counts equal, and the
+    card's launch counters equal to the kernel counts; (b) ``python -m
+    repro_torch.launch.dryrun`` for deepseek-moe-16b at decode_32k on the
+    pod mesh in a subprocess (the fake group of 256 ranks on this
+    machine's torch) writes an ``ok`` record; (c) the roofline bound of
+    (a)'s step from its counted flops and bytes beside its ms a step,
+    and ``roofline.train_step_bound`` of phase 15c's step beside its
+    seconds a step."""
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import op_analysis
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import Parallel, init_cache, init_params
+    cfg = get_config(DEEPSEEK)
+    on_card, launches = counted["cost"], counted["launches"]
+    params = init_params(cfg, torch.Generator(), "meta")
+    cache = init_cache(cfg, BATCH, counted["cache_len"], "meta")
+    tok = torch.empty((BATCH, 1), dtype=torch.int32, device="meta")
+    pos = torch.empty((BATCH,), dtype=torch.int32, device="meta")
+    t = time.perf_counter()
+    on_meta, _ = op_analysis.analyze(make_serve_step(cfg, Parallel()), params,
+                                     cache, tok, pos, None)
+    meta_s = time.perf_counter() - t
+    same = {"flops": on_card.flops == on_meta.flops,
+            "bytes": on_card.bytes_accessed == on_meta.bytes_accessed,
+            "kernels": on_card.kernel_counts == on_meta.kernel_counts,
+            "ops": on_card.op_counts == on_meta.op_counts}
+    log(f"dryrun (a) {cfg.name} decode step at batch {BATCH}, cache "
+        f"{counted['cache_len']}: card {on_card.flops} flops, "
+        f"{on_card.bytes_accessed} bytes, kernels "
+        f"{json.dumps(on_card.kernel_counts)}, "
+        f"{sum(on_card.op_counts.values())} ops; meta {on_meta.flops} flops, "
+        f"{on_meta.bytes_accessed} bytes, kernels "
+        f"{json.dumps(on_meta.kernel_counts)}, "
+        f"{sum(on_meta.op_counts.values())} ops ({meta_s:.2f}s); equal "
+        f"{json.dumps(same)}; card launches {json.dumps(launches)}")
+    if not same["ops"]:
+        diff = {k: (on_card.op_counts.get(k), on_meta.op_counts.get(k))
+                for k in set(on_card.op_counts) | set(on_meta.op_counts)
+                if on_card.op_counts.get(k) != on_meta.op_counts.get(k)}
+        log(f"dryrun (a) ops that differ (card, meta): {json.dumps(diff)}")
+    kernels = on_card.kernel_counts
+    if not (same["flops"] and same["bytes"] and same["kernels"]) \
+            or kernels.get("gmm", 0) != launches["gmm"] \
+            or kernels.get("decode_attention", 0) != launches["decode_attention"] \
+            or not launches["gmm"] or not launches["decode_attention"]:
+        raise SmokeFailure(f"dryrun (a): counts on the card and on meta "
+                           f"differ ({same}) or disagree with the launch "
+                           f"counters {launches} / {kernels}")
+
+    out_dir = ROOT / "build" / "dryrun"
+    t = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DEEPSEEK,
+         "--shape", "decode_32k", "--mesh", "pod", "--out", str(out_dir),
+         "--force"], cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t
+    for line in res.stdout.splitlines():
+        log(f"dryrun (b) | {line}")
+    path = out_dir / f"{DEEPSEEK}__decode_32k__pod_16x16.json"
+    if res.returncode != 0 or not path.exists():
+        raise SmokeFailure(f"dryrun (b): exit {res.returncode}: "
+                           f"{res.stderr[-2000:]}")
+    rec = json.loads(path.read_text())
+    if rec["status"] != "ok":
+        raise SmokeFailure(f"dryrun (b): record {rec['status']}: "
+                           f"{rec.get('error')}")
+    mem, roof = rec["memory"], rec["roofline"]
+    log(f"dryrun (b) record: {wall:.1f}s wall, trace {rec['trace_s']}s; "
+        f"rank 0 {roof['flops_per_chip'] / 1e12:.4f} TFLOP, "
+        f"{roof['bytes_per_chip'] / 1e9:.3f} GB, collective "
+        f"{roof['coll_bytes_per_chip'] / 1e6:.3f} MB; useful "
+        f"{roof['useful_flops_ratio']:.6f}; dominant {roof['dominant']}; "
+        f"planned {mem['planned']['total'] / 2**30:.2f} GiB, held "
+        f"{mem['held']['total'] / 2**30:.2f} GiB, fits {mem['fits']}")
+
+    step = rl.derive_from_op_cost(on_card, 1, 0.0)
+    log(f"dryrun (c) {cfg.name} decode step (batch {BATCH}) bound from the "
+        f"counted step: {step.bound_time_s * 1e3:.4f} ms ({step.dominant}: "
+        f"{on_card.bytes_accessed / 1e9:.4f} GB at {rl.HBM_BW / 1e12} TB/s, "
+        f"{on_card.flops / 1e9:.3f} GFLOP at {rl.PEAK_FLOPS / 1e12:.0f} "
+        f"TFLOP/s); weights bound {sum(rl.serve_weight_bytes(cfg, BATCH).values()) / rl.HBM_BW * 1e3:.4f} ms; "
+        f"measured {counted['step_ms']:.3f} ms a step on {card}")
+    granite = get_config(GRANITE)
+    bnd = rl.train_step_bound(granite, train_run["n_params"], TRAIN_BATCH,
+                              TRAIN_SEQ)
+    log(f"dryrun (c) {granite.name} train step ({TRAIN_BATCH} x {TRAIN_SEQ}) "
+        f"bound {bnd['bound_ms']:.4f} ms ({bnd['step_tflop']:.4f} TFLOP, "
+        f"AdamW {bnd['adamw_gb']:.3f} GB); measured "
+        f"{train_run['step_s']:.3f} s a step on {card}")
 
 
 # --------------------------------------------------------------------- #
@@ -4640,16 +4696,18 @@ def main() -> int:
     timed("profile", phase_profile, torch)
     deep_counts = timed("serve_deepseek", phase_serve, torch, card, DEEPSEEK,
                         ("--space-sim",))
-    timed("profile_deepseek", phase_profile, torch, 4, DEEPSEEK)
+    deep_prof = timed("profile_deepseek", phase_profile, torch, 4, DEEPSEEK,
+                      None, True)
     torch.cuda.empty_cache()           # the 16B model's blocks go back
     timed("calibration", phase_calibration, torch)
     arch_cases, arch_counts = timed("archs", phase_archs, torch, card)
     torch.cuda.empty_cache()
     rec_rows, rec_counts = timed("recurrent", phase_recurrent, torch, card)
     torch.cuda.empty_cache()
-    train_rows = timed("train", phase_train, torch, card)
+    train_rows, train_run = timed("train", phase_train, torch, card)
     torch.cuda.empty_cache()
     shard_rows = timed("sharding", phase_sharding, torch, card)
+    timed("dryrun", phase_dryrun, torch, card, deep_prof["count"], train_run)
     fleet_counts, captured, in_run, world = timed("fleet", phase_fleet, torch)
     main_cases.update(timed("fleet_kernels", phase_fleet_kernels, torch,
                             captured, in_run))

@@ -9,19 +9,39 @@ the grads.  (Where every rank computes the same loss, ``assemble`` in
 copies, so the sum counts it once.)
 ``all_gather`` serves ``sharding.assemble``.  ``calls`` counts every
 call, backward ones included, so that a run can show that it reached
-the process group.  ``group=None`` is the default (world) group.
+the process group.  Under an active dry-run count each call also
+reports its op (by the reference's HLO name), result bytes and group
+size (``counting.note_collective``), which
+``launch.roofline.collective_stats`` prices.  ``group=None`` is the
+default (world) group.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
+from .. import counting
+
 calls = {"all_to_all": 0, "all_reduce": 0, "all_gather": 0}
+_HLO_NAMES = {"all_to_all": "all-to-all", "all_reduce": "all-reduce",
+              "all_gather": "all-gather"}
 
 
 def reset_counts() -> None:
     for k in calls:
         calls[k] = 0
+
+
+def _record(name: str, result_bytes: int, group) -> None:
+    calls[name] += 1
+    if counting.active():
+        counting.note_collective({
+            "op": _HLO_NAMES[name], "result_bytes": result_bytes,
+            "group_size": dist.get_world_size(group)})
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 def world_size() -> int:
@@ -33,14 +53,14 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
-    calls["all_to_all"] += 1
+    _record("all_to_all", _nbytes(out), group)
     return out
 
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     out = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, group=group)
-    calls["all_reduce"] += 1
+    _record("all_reduce", _nbytes(out), group)
     return out
 
 
@@ -90,7 +110,7 @@ def all_gather(x: torch.Tensor, group=None) -> list[torch.Tensor]:
     x = x.detach().contiguous()
     out = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(out, x, group=group)
-    calls["all_gather"] += 1
+    _record("all_gather", len(out) * _nbytes(x), group)
     return out
 
 

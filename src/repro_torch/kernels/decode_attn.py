@@ -14,7 +14,11 @@ place; only the last axis must be contiguous.  It splits S over blocks
 (``decode_splits``) and merges the splits in the same launch, through a
 workspace and a per-(b, h) counter (``_counters``).  ``decode_attention``
 runs the plain version for CPU tensors and the kernel for CUDA tensors;
-on a CUDA tensor it launches the kernel or raises.
+on a CUDA tensor it launches the kernel or raises.  On ``meta`` tensors
+(the dry run) it checks shapes and dtypes and returns an empty ``meta``
+result, launching and computing nothing; wherever it runs, a call
+reports its flops and bytes to an active dry-run count
+(``counting.kernel``).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import functools
 
 import torch
 
+from .. import counting
 from . import build
 
 NEG_INF = -1e30
@@ -83,6 +88,18 @@ def _check(q, k, v, pos) -> None:
     if dev.type != "cuda" or any(t.device != dev for t in (k, v, pos)):
         raise ValueError("decode_attention: q, k, v and pos must lie on one "
                          "CUDA device")
+    _check_operands(q, k, v, pos)
+    esize = q.element_size()
+    row_bytes = [n * esize for n in (q.shape[-1], *k.stride()[:3],
+                                     *v.stride()[:3])]
+    if any(n % 16 for n in (*row_bytes, k.data_ptr(), v.data_ptr())):
+        raise ValueError("decode_attention: the kernel copies K and V rows "
+                         "16 bytes at a time; head_dim, the strides of k and "
+                         "v and their data pointers must be multiples of 16 "
+                         "bytes")
+
+
+def _check_operands(q, k, v, pos) -> None:
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"decode_attention: dtypes {q.dtype}/{k.dtype}/"
                         f"{v.dtype}; the kernel takes float32 or bfloat16, "
@@ -103,13 +120,6 @@ def _check(q, k, v, pos) -> None:
             and k.stride(-1) == 1 and v.stride(-1) == 1):
         raise ValueError("decode_attention: q and pos must be contiguous, "
                          "and k, v contiguous along head_dim")
-    esize = q.element_size()
-    row_bytes = [n * esize for n in (hd, *k.stride()[:3], *v.stride()[:3])]
-    if any(n % 16 for n in (*row_bytes, k.data_ptr(), v.data_ptr())):
-        raise ValueError("decode_attention: the kernel copies K and V rows "
-                         "16 bytes at a time; head_dim, the strides of k and "
-                         "v and their data pointers must be multiples of 16 "
-                         "bytes")
 
 
 def _launcher():
@@ -122,12 +132,33 @@ def _launcher():
     return fn
 
 
+def attention_cost(q: torch.Tensor, k: torch.Tensor) -> tuple[int, int]:
+    """(flops, bytes) of one call over every cache row: its bound's
+    arithmetic (4 Hkv G hd a row; q read and out written, each row's K
+    and V read once, pos) with the rows of the whole cache, B x S, since
+    the rows up to ``pos`` are the data's (a count on ``meta`` has none)."""
+    b, hkv, g, hd = q.shape
+    rows = b * k.shape[2]
+    esize = q.element_size()
+    return 4 * hkv * g * hd * rows, \
+        2 * q.numel() * esize + 2 * hkv * rows * hd * esize + 4 * b
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos: torch.Tensor) -> torch.Tensor:
     """Returns (B, Hkv, G, hd) attention output in q.dtype."""
+    cost = attention_cost(q, k) if counting.active() else (0, 0)
+    with counting.kernel("decode_attention", *cost):
+        if all(t.device.type == "cpu" for t in (q, k, v, pos)):
+            return decode_attention_plain(q, k, v, pos)
+        if all(t.device.type == "meta" for t in (q, k, v, pos)):
+            _check_operands(q, k, v, pos)
+            return torch.empty_like(q)
+        return _launch(q, k, v, pos)
+
+
+def _launch(q, k, v, pos) -> torch.Tensor:
     global launches
-    if all(t.device.type == "cpu" for t in (q, k, v, pos)):
-        return decode_attention_plain(q, k, v, pos)
     _check(q, k, v, pos)
     b, hkv, g, hd = q.shape
     s = k.shape[2]

@@ -22,14 +22,22 @@ operand path that reads them in place is later work); on CPU tensors the
 same products run ``gmm_plain``.  Otherwise (serve, ``torch.no_grad``)
 ``gmm`` launches directly, with no autograd node.  ``launches`` and
 ``path_launches`` count every launch, the backward's included.
+
+On ``meta`` tensors (the dry run, ``launch/dryrun.py``) a product checks
+shapes and dtypes and returns an empty ``meta`` result: it launches and
+computes nothing.  Every product, wherever it runs, reports its flops
+and bytes (its bound's arithmetic) to an active dry-run count
+(``counting.kernel``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
+from .. import counting
 from . import build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -88,6 +96,10 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"gmm: x on {x.device}, w on {w.device}; the kernel "
                          "needs both on one CUDA device")
+    _check_operands(x, w)
+
+
+def _check_operands(x: torch.Tensor, w: torch.Tensor) -> None:
     if x.dtype not in DTYPE_CODES or w.dtype != x.dtype:
         raise TypeError(f"gmm: dtypes {x.dtype}/{w.dtype}; the kernel takes "
                         "float32 or bfloat16, the same for x and w")
@@ -108,11 +120,29 @@ def _library():
     return lib
 
 
+def product_cost(x: torch.Tensor, w: torch.Tensor) -> tuple[int, int]:
+    """(flops, bytes) of one product: 2 E C K N, and x, w and out once."""
+    n = w.shape[-1]
+    rows = math.prod(x.shape[:-1])
+    return 2 * rows * x.shape[-1] * n, \
+        (x.numel() + w.numel() + rows * n) * x.element_size()
+
+
 def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """One product: ``gmm_plain`` for CPU tensors, else one kernel launch."""
+    """One product: ``gmm_plain`` for CPU tensors, an empty result for
+    ``meta`` ones, else one kernel launch; reported to ``counting``."""
+    cost = product_cost(x, w) if counting.active() else (0, 0)
+    with counting.kernel("gmm", *cost):
+        if x.device.type == "cpu" and w.device.type == "cpu":
+            return gmm_plain(x, w)
+        if x.device.type == "meta" and w.device.type == "meta":
+            _check_operands(x, w)
+            return x.new_empty((x.shape[0], x.shape[1], w.shape[2]))
+        return _launch(x, w)
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     global launches
-    if x.device.type == "cpu" and w.device.type == "cpu":
-        return gmm_plain(x, w)
     _check(x, w)
     e, c, k = x.shape
     n = w.shape[2]

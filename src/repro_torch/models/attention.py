@@ -10,10 +10,13 @@ backward is autograd through ``_flash_fwd`` (the reference's scan-AD),
 or with ``cfg.flash_vjp`` the reference's custom VJP, ``_flash_vjp_fn``:
 probabilities recomputed chunk by chunk from the saved log-sum-exp, so
 no (qc, kc) block is kept for the backward.  Decode on a CUDA
-device goes through the hand-written ``decode_attention`` kernel
-whenever the reference's kernel guard holds (no sliding window, no
-softcap); on the CPU it does so only when ``cfg.use_pallas_decode`` asks
-for the kernel path, which there runs the kernel's plain version.
+device (and on ``meta``, where the dry run counts the card's program)
+goes through the hand-written ``decode_attention`` kernel whenever the
+reference's kernel guard holds (no sliding window, no softcap); on the
+CPU it does so only when ``cfg.use_pallas_decode`` asks for the kernel
+path, which there runs the kernel's plain version.  The chunk loops
+iterate ``counting.steps``: a dry-run count runs the first, one
+middle and the last chunk of each loop and multiplies the middle one.
 
 The KV cache keeps the reference's (B, S, Hkv, hd) layout and is written
 in place, where the reference writes it functionally (``.at[].set`` /
@@ -26,6 +29,7 @@ import functools
 import torch
 
 from ..kernels import ops
+from ..counting import pad, steps
 from .config import ModelConfig
 from .layers import apply_rope, normal_init, out_proj_init
 
@@ -126,14 +130,17 @@ def _flash_fwd(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     kt = k.permute(0, 2, 1, 3)
     vt = v.permute(0, 2, 1, 3)
     outs, lses = [], []
-    for q0 in range(0, s, qc):
+    n_q, n_k = s // qc, s // kc
+    for iq in steps(n_q):
+        q0 = iq * qc
         # (B, Hkv, G*qc, hd): each KV head's G query heads in one product.
         q_blk = qg[:, :, :, q0:q0 + qc].to(f32).reshape(b, hkv, g * qc, hd)
         qpos = q_positions[:, q0:q0 + qc]
         m = torch.full((b, hkv, g, qc), NEG_INF, dtype=f32, device=q.device)
         l = torch.zeros((b, hkv, g, qc), dtype=f32, device=q.device)
         acc = torch.zeros((b, hkv, g, qc, hd), dtype=f32, device=q.device)
-        for k0 in range(0, s, kc):
+        for ik in steps(n_k):
+            k0 = ik * kc
             k_blk = kt[:, :, k0:k0 + kc].to(f32)               # (B,Hkv,kc,hd)
             v_blk = vt[:, :, k0:k0 + kc]
             sco = torch.matmul(q_blk, k_blk.transpose(-1, -2)) \
@@ -152,9 +159,9 @@ def _flash_fwd(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         outs.append(out.to(q.dtype))
         lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
-    out = torch.cat(outs, dim=3)                               # (B,Hkv,G,S,hd)
+    out = torch.cat(pad(outs, n_q), dim=3)                     # (B,Hkv,G,S,hd)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, hd)
-    return out, torch.cat(lses, dim=3)
+    return out, torch.cat(pad(lses, n_q), dim=3)
 
 
 def _flash_vjp_fn(cfg: ModelConfig):
@@ -215,16 +222,19 @@ def _flash_bwd(cfg: ModelConfig, q, k, v, qpos, kpos, out, lse, do):
     delta = delta.reshape(b, s, hkv, g).permute(0, 2, 3, 1)   # (B,Hkv,G,S)
     kt = k.permute(0, 2, 1, 3)                                # (B,Hkv,S,hd)
     vt = v.permute(0, 2, 1, 3)
+    n_q, n_k = s // qc, s // kc
     dq = [torch.zeros((b, hkv, g, qc, hd), dtype=f32, device=q.device)
-          for _ in range(0, s, qc)]
+          for _ in range(n_q)]
     dks, dvs = [], []
-    for k0 in range(0, s, kc):
+    for ik in steps(n_k):
+        k0 = ik * kc
         k_blk = kt[:, :, k0:k0 + kc].to(f32)                 # (B,Hkv,kc,hd)
         v_blk = vt[:, :, k0:k0 + kc].to(f32)
         kpb = kpos[:, k0:k0 + kc]
         dk_blk = torch.zeros((b, hkv, kc, hd), dtype=f32, device=q.device)
         dv_blk = torch.zeros_like(dk_blk)
-        for i, q0 in enumerate(range(0, s, qc)):
+        for i in steps(n_q):
+            q0 = i * qc
             q_blk = qg[:, :, :, q0:q0 + qc].to(f32).reshape(b, hkv, g * qc, hd)
             do_blk = dog[:, :, :, q0:q0 + qc].to(f32).reshape(b, hkv, g * qc, hd)
             sco = torch.matmul(q_blk, k_blk.transpose(-1, -2)) \
@@ -243,8 +253,8 @@ def _flash_bwd(cfg: ModelConfig, q, k, v, qpos, kpos, out, lse, do):
         dks.append(dk_blk)
         dvs.append(dv_blk)
     dq = torch.cat(dq, dim=3).permute(0, 3, 1, 2, 4).reshape(b, s, hq, hd)
-    dk = torch.cat(dks, dim=2).permute(0, 2, 1, 3)
-    dv = torch.cat(dvs, dim=2).permute(0, 2, 1, 3)
+    dk = torch.cat(pad(dks, n_k), dim=2).permute(0, 2, 1, 3)
+    dv = torch.cat(pad(dvs, n_k), dim=2).permute(0, 2, 1, 3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -299,7 +309,8 @@ def attention_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
     s_max = ck.shape[1]
     hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
     qg = q.reshape(b, hkv, g, hd)
-    if (cfg.use_pallas_decode or x.is_cuda) and cfg.sliding_window == 0 \
+    if (cfg.use_pallas_decode or x.device.type != "cpu") \
+            and cfg.sliding_window == 0 \
             and cfg.attn_logit_softcap == 0:
         # The kernel reads the (B, S, Hkv, hd) cache through a transposed
         # view (strides), so no copy into kernel layout is made.

@@ -9,6 +9,8 @@ points:
 The reference scans over time with ``lax.scan``; here the scan is a
 Python loop over S that carries the decode state, so prefill and decode
 run the same step and cannot drift apart.  These mixers carry no KV cache.
+The loops iterate ``counting.steps``: a dry-run count runs the
+first, one middle and the last step and multiplies the middle one.
 
 Numerics are the reference's: ``softplus`` is ``logaddexp(x, 0)`` (not
 ``torch.nn.functional.softplus``, which switches to x above 20) and
@@ -34,6 +36,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..distributed.sharding import PartitionSpec
+from ..counting import pad, steps
 from .config import ModelConfig
 from .layers import normal_init, out_proj_init
 
@@ -142,11 +145,11 @@ def _mamba_inner(cfg, params, xz, conv_state, ssm_state, compute_dtype,
 
     h = ssm_state
     ys = []
-    for t in range(s):
+    for t in steps(s):
         h, y = _mamba_scan_step(a_neg, h, xc[:, t].float(), dt[:, t],
                                 b_ssm[:, t].float(), c_ssm[:, t].float())
         ys.append(y)
-    y = torch.stack(ys, dim=1).to(compute_dtype)              # (B,S,di)
+    y = torch.stack(pad(ys, s), dim=1).to(compute_dtype)      # (B,S,di)
     y = y + xc * params["d_skip"].to(compute_dtype)
     y = y * F.silu(z)
     return y, new_conv_state.float(), h
@@ -254,12 +257,12 @@ def _mlstm_core(cfg, params, x, state, compute_dtype, par=None):
 
     carry = (state["c"], state["n"], state["m"])
     hs = []
-    for t in range(s):
+    for t in steps(s):
         carry, h = _mlstm_step(carry, (q[:, t], k[:, t], v[:, t],
                                        log_i[:, t], log_f[:, t]))
         hs.append(h)
     c, n, m = carry
-    h = torch.stack(hs, dim=1).reshape(b, s, cfg.d_inner).to(compute_dtype)
+    h = torch.stack(pad(hs, s), dim=1).reshape(b, s, cfg.d_inner).to(compute_dtype)
     z = F.silu(xq @ params["w_z"].to(compute_dtype))
     y = (h * z) @ params["w_out"].to(compute_dtype)
     return y, {"c": c, "n": n, "m": m}
@@ -334,11 +337,11 @@ def _slstm_core(cfg, params, x, state, compute_dtype):
            ).float() + params["b"]                           # (B,S,4di)
     carry = (state["c"], state["n"], state["h"], state["m"])
     hs = []
-    for t in range(s):
+    for t in steps(s):
         carry, h = _slstm_step(params["r_h"], carry, pre[:, t])
         hs.append(h)
     c, n, h, m = carry
-    y = torch.stack(hs, dim=1).reshape(b, s, cfg.d_inner).to(compute_dtype)
+    y = torch.stack(pad(hs, s), dim=1).reshape(b, s, cfg.d_inner).to(compute_dtype)
     y = y @ params["w_out"].to(compute_dtype)
     return y, {"c": c, "n": n, "h": h, "m": m}
 

@@ -315,6 +315,42 @@ def test_collectives_were_counted(gloo):
         assert min(res["calls"].values()) > 0, res["calls"]
 
 
+@pytest.fixture(scope="module")
+def fake(gloo):
+    """(d)'s loss and (e)'s step traced on ``meta`` as rank 0 of a fake
+    group of 8 ranks (``torch_ep_worker.py fake``)."""
+    folder, _, _ = gloo
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, str(ROOT / "tests" / "torch_ep_worker.py"), "fake",
+         str(WORLD), str(folder)], env=env, cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return pickle.loads((folder / "fake.pkl").read_bytes())
+
+
+@pytest.mark.parametrize("case", ["default", "cap8", "train"])
+def test_fake_group_counts_rank0s_collectives(gloo, fake, case):
+    """Rank 0 on a fake group of 8 ranks makes the collective calls of
+    rank 0 of the gloo run (op, result bytes, group size), for the
+    sharded loss (d) and the sharded train step with its backward (e);
+    ``op_analysis`` prices them as ``collective_stats`` prices the gloo
+    rank's records.  The calls are compared as a sorted list: autograd
+    runs independent branches of the backward (the grads of different
+    leaves) in another order on ``meta`` than on the CPU."""
+    from repro_torch.launch.roofline import collective_stats
+    _, _, ranks = gloo
+    want = (ranks[0]["train"]["sharded"] if case == "train"
+            else ranks[0]["loss"][case])["records"]
+    got = fake[case]
+    def key(rec):
+        return rec["op"], rec["result_bytes"], rec["group_size"]
+    assert want and sorted(got["records"], key=key) == sorted(want, key=key)
+    stats = collective_stats(want, WORLD)
+    assert got["cost"]["collective_counts"] == stats.counts
+    assert got["cost"]["collective_bytes"] == stats.bytes_per_chip
+
+
 _REFERENCE = r"""
 import os, pickle, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"

@@ -55,7 +55,9 @@ def test_port_files_were_found():
                     "xlstm_350m")],
                 ("tree.py",), ("optim", "adamw.py"), ("optim", "schedules.py"),
                 ("data", "pipeline.py"), ("checkpoint", "store.py"),
-                ("launch", "steps.py"), ("launch", "train.py")):
+                ("launch", "steps.py"), ("launch", "train.py"),
+                ("launch", "roofline.py"), ("launch", "dryrun.py"),
+                ("launch", "op_analysis.py"), ("counting.py",)):
         assert ROOT.joinpath("src", "repro_torch", *rel) in PORT_FILES
 
 
@@ -82,3 +84,23 @@ def test_train_import_loads_no_jax():
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_dryrun_import_loads_no_jax():
+    code = ("import sys, repro_torch.launch.dryrun, "
+            "repro_torch.launch.roofline, repro_torch.launch.op_analysis, "
+            "repro_torch.counting; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_fake_group_is_imported_in_dryrun_only():
+    """``torch.testing._internal`` (torch's test utilities, not a public
+    API) is imported by ``launch/dryrun.py`` alone."""
+    users = [p.relative_to(ROOT) for p in PORT_FILES
+             if "torch.testing._internal" in p.read_text()]
+    assert users == [Path("src/repro_torch/launch/dryrun.py")]

@@ -181,37 +181,49 @@ def _window_args(device):
 @pytest.mark.parametrize("op", ["gmm", "decode_attention", "deposit",
                                 "backlog_scan", "admission_window",
                                 "admission_ctrl"])
-def test_non_cpu_tensor_never_falls_back(op):
-    """A tensor off the CPU goes to the kernel's checks, which refuse a
-    non-CUDA device instead of running the plain version."""
+def test_non_cpu_tensor_never_falls_back(op, monkeypatch):
+    """A tensor off the CPU never runs the plain version.  ``gmm`` and
+    ``decode_attention`` take ``meta`` tensors (the dry run) and return an
+    empty ``meta`` result of the right shape, computing and launching
+    nothing; the other kernels' checks refuse a non-CUDA device."""
     meta = torch.device("meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        if op == "gmm":
-            moe_gmm.gmm(torch.empty(2, 3, 4, device=meta),
-                        torch.empty(2, 4, 5, device=meta))
-        elif op == "decode_attention":
-            decode_attn.decode_attention(
-                torch.empty(1, 1, 1, 8, device=meta),
-                torch.empty(1, 1, 4, 8, device=meta),
-                torch.empty(1, 1, 4, 8, device=meta),
-                torch.empty(1, dtype=torch.int32, device=meta))
-        elif op == "deposit":
-            deposit.deposit(torch.empty(3, dtype=torch.int64, device=meta),
-                            torch.empty(3, dtype=torch.int64, device=meta),
-                            torch.empty(3, dtype=torch.float64, device=meta),
-                            2, 4)
-        elif op == "backlog_scan":
-            backlog_scan.backlog_scan(torch.empty(5, 3, device=meta),
-                                      10.0, 0.05)
-        elif op == "admission_window":
-            admission_window.admission_window(*_window_args("meta"))
-        else:
-            admission_ctrl.admission_ctrl(
-                torch.empty(4, 1, 2, device=meta),
-                torch.empty(2, 3, device=meta), torch.empty(2, device=meta),
-                torch.empty(1, 2, 3, device=meta), torch.empty(1, device=meta),
-                torch.empty(1, device=meta), increase=0.1, decrease=0.6,
-                admit_min=0.05)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran")
+    if op == "gmm":
+        monkeypatch.setattr(moe_gmm, "gmm_plain", plain)
+        out = moe_gmm.gmm(torch.empty(2, 3, 4, device=meta),
+                          torch.empty(2, 4, 5, device=meta))
+        assert out.device == meta and out.shape == (2, 3, 5)
+    elif op == "decode_attention":
+        monkeypatch.setattr(decode_attn, "decode_attention_plain", plain)
+        out = decode_attn.decode_attention(
+            torch.empty(1, 1, 1, 8, device=meta),
+            torch.empty(1, 1, 4, 8, device=meta),
+            torch.empty(1, 1, 4, 8, device=meta),
+            torch.empty(1, dtype=torch.int32, device=meta))
+        assert out.device == meta and out.shape == (1, 1, 1, 8)
+    else:
+        with pytest.raises(ValueError, match="CUDA"):
+            if op == "deposit":
+                deposit.deposit(
+                    torch.empty(3, dtype=torch.int64, device=meta),
+                    torch.empty(3, dtype=torch.int64, device=meta),
+                    torch.empty(3, dtype=torch.float64, device=meta), 2, 4)
+            elif op == "backlog_scan":
+                backlog_scan.backlog_scan(torch.empty(5, 3, device=meta),
+                                          10.0, 0.05)
+            elif op == "admission_window":
+                admission_window.admission_window(*_window_args("meta"))
+            else:
+                admission_ctrl.admission_ctrl(
+                    torch.empty(4, 1, 2, device=meta),
+                    torch.empty(2, 3, device=meta),
+                    torch.empty(2, device=meta),
+                    torch.empty(1, 2, 3, device=meta),
+                    torch.empty(1, device=meta),
+                    torch.empty(1, device=meta), increase=0.1, decrease=0.6,
+                    admit_min=0.05)
     assert ops.launch_counts()[op] == 0
 
 

@@ -414,15 +414,39 @@ def test_sharding_and_launch_names_are_the_references(sub):
     assert pdist.__all__ == jdist.__all__
 
 
-def test_dry_run_tools_are_the_ones_left():
-    """The reference's launch modules without a counterpart are the dry-run
-    tools (roofline, dryrun, hlo_analysis), left for the last slice."""
+# The reference's launch modules and names the port renames: it has no
+# HLO to walk or parse and nothing to lower (``launch/op_analysis.py``).
+LAUNCH_RENAMED = {"hlo_analysis": "op_analysis"}
+DRY_RUN_RENAMED = {"parse_collectives": "collective_stats",
+                   "derive_from_hlo_cost": "derive_from_op_cost",
+                   "lower_cell": "trace_cell", "HloCost": "OpCost"}
+
+
+def test_every_launch_module_has_its_counterpart():
+    """Every module of the reference's ``launch/`` has a counterpart in
+    the port's, ``hlo_analysis`` as ``op_analysis``."""
     from pathlib import Path
     import repro.launch.steps as jsteps
     import repro_torch.launch.steps as psteps
     ref = {p.stem for p in Path(jsteps.__file__).parent.glob("*.py")}
     port = {p.stem for p in Path(psteps.__file__).parent.glob("*.py")}
-    assert ref - port == {"roofline", "dryrun", "hlo_analysis"}
+    assert {LAUNCH_RENAMED.get(m, m) for m in ref} <= port
+    assert {"roofline", "dryrun", "op_analysis"} <= port
+
+
+@pytest.mark.parametrize("sub", ["roofline", "dryrun", "hlo_analysis"])
+def test_dry_run_names_are_the_references(sub):
+    """The dry-run modules define every public function and class the
+    reference's define, under the names ``DRY_RUN_RENAMED`` gives where
+    the port counts ops in place of HLO."""
+    import importlib
+    ref = importlib.import_module(f"repro.launch.{sub}")
+    port = importlib.import_module(
+        f"repro_torch.launch.{LAUNCH_RENAMED.get(sub, sub)}")
+    want = {DRY_RUN_RENAMED.get(n, n) for n in _defined_names(ref)}
+    if sub == "hlo_analysis":    # the HLO parser's own pieces have no part
+        want &= {"analyze", "OpCost"}
+    assert want <= _defined_names(port), want - _defined_names(port)
 
 
 def test_configs_names_are_the_references():

@@ -1,13 +1,20 @@
 """One rank of the port's expert-parallel checks over gloo (CPU).
 
     python tests/torch_ep_worker.py RANK WORLD DIR
+    python tests/torch_ep_worker.py fake WORLD DIR
 
 ``tests/test_torch_ep.py`` starts WORLD of these (PYTHONPATH=src), after
 writing ``DIR/inputs.pkl``: the reference's weights as numpy trees and
 the inputs, made from numpy seeds.  Each rank joins a gloo group through
 ``file://DIR/rendezvous``, runs every case on a (2, 4) ("data", "model")
 mesh (the train step on a (1, 8) one), and writes its results to
-``DIR/rank{RANK}.pkl`` as numpy arrays.  Imports no JAX.
+``DIR/rank{RANK}.pkl`` as numpy arrays, with the collective records
+of the sharded loss (d) and the sharded train step (e), which run under
+``launch.op_analysis.analyze``.  With ``fake`` in place of a rank, one
+process joins a fake group of WORLD ranks as rank 0
+(``launch.dryrun.fake_group``) and runs (d) and (e) on ``meta`` tensors
+of the same shapes under ``launch.op_analysis.analyze``, writing their
+records and counts to ``DIR/fake.pkl``.  Imports no JAX.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import torch.distributed as dist
 from repro_torch.configs import smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.distributed import collectives
+from repro_torch.launch import op_analysis
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.steps import _value_and_grad, make_train_step
 from repro_torch.models import Parallel, loss_fn
@@ -101,13 +109,17 @@ def run_loss(inputs, mesh) -> dict:
         cfg = _cfg(case)
         params = params_from_jax(cfg, case["params"], "cpu")
         batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+        records = []
         with torch.no_grad():
-            sharded, met = loss_fn(cfg, params, batch, Parallel(mesh=mesh))
+            _, (sharded, met) = op_analysis.analyze(
+                loss_fn, cfg, params, batch, Parallel(mesh=mesh),
+                records=records)
             single, smet = loss_fn(cfg, params, batch)
             first = _captured_aux(cfg, params, batch, case["first_block"])
         out[name] = {"loss": sharded.numpy(), "ce": met["ce"].numpy(),
                      "aux": met["aux"].numpy(), "single": single.numpy(),
-                     "single_ce": smet["ce"].numpy(), "first_aux": first}
+                     "single_ce": smet["ce"].numpy(), "first_aux": first,
+                     "records": records}
     return out
 
 
@@ -122,15 +134,63 @@ def run_train(inputs, mesh) -> dict:
         _, grads = _value_and_grad(cfg, par, params, batch)
         state = adamw_init(params)
         step = make_train_step(cfg, par, AdamWConfig(lr=case["lr"]))
-        params, state, met = step(params, state, batch)
+        records = []
+        _, (params, state, met) = op_analysis.analyze(
+            step, params, state, batch, records=records)
         out[name] = {"params": [t.numpy() for t in tree_leaves(params)],
                      "grads": [g.numpy() for g in tree_leaves(grads)],
-                     "metrics": {k: float(v) for k, v in met.items()}}
+                     "metrics": {k: float(v) for k, v in met.items()},
+                     "records": records}
     return out
+
+
+def _meta(tree):
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), tree)
+
+
+def run_fake(inputs, world: int, folder: Path) -> None:
+    """(d)'s sharded loss and (e)'s sharded step on ``meta`` tensors as
+    rank 0 of a fake group, counted by ``op_analysis``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import init_params
+    dryrun.fake_group(world)
+    try:
+        out = {}
+        mesh = make_mesh((2, 4), ("data", "model"), "cpu")
+        for name, case in inputs["loss"].items():
+            cfg = _cfg(case)
+            params = init_params(cfg, torch.Generator(), "meta", cast=False)
+            batch = _meta({k: torch.from_numpy(v)
+                           for k, v in case["batch"].items()})
+            records = []
+            with torch.no_grad():
+                cost, _ = op_analysis.analyze(
+                    loss_fn, cfg, params, batch, Parallel(mesh=mesh),
+                    n_devices=world, records=records)
+            out[name] = {"records": records, "cost": cost.asdict()}
+        case = inputs["train"]
+        cfg = _cfg(case)
+        params = init_params(cfg, torch.Generator(), "meta", cast=False)
+        batch = _meta({k: torch.from_numpy(v) for k, v in case["batch"].items()})
+        step = make_train_step(cfg, Parallel(mesh=make_mesh(
+            (1, 8), ("data", "model"), "cpu"), moe_mode="ep_rep"),
+            AdamWConfig(lr=case["lr"]))
+        records = []
+        cost, _ = op_analysis.analyze(step, params, adamw_init(params), batch,
+                                      n_devices=world, records=records)
+        out["train"] = {"records": records, "cost": cost.asdict()}
+        (folder / "fake.pkl").write_bytes(pickle.dumps(out))
+    finally:
+        dist.destroy_process_group()
 
 
 def main(rank: int, world: int, folder: Path) -> None:
     torch.set_num_threads(1)
+    if rank < 0:
+        run_fake(pickle.loads((folder / "inputs.pkl").read_bytes()), world,
+                 folder)
+        return
     dist.init_process_group("gloo", init_method=f"file://{folder}/rendezvous",
                             rank=rank, world_size=world)
     try:
@@ -150,4 +210,5 @@ def main(rank: int, world: int, folder: Path) -> None:
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), Path(sys.argv[3]))
+    main(-1 if sys.argv[1] == "fake" else int(sys.argv[1]), int(sys.argv[2]),
+         Path(sys.argv[3]))

@@ -250,13 +250,44 @@ Phases (any failure exits non-zero and prints no success line):
      bytes and flops beside its measured ms a step, and
      ``roofline.train_step_bound`` of 15c's granite step beside its
      measured seconds a step;
- 18. the ``kernels`` JSON line (all six kernels, and gmm and
+ 18. tensor and data parallelism (run after 17): (a) values: 4
+     processes on the one card (each on ``cuda:0``, a gloo group through
+     ``file://build/tp``; gloo stages CUDA tensors through the host)
+     run deepseek-moe-16b at published width with 3 layers (the dense
+     first layer and 2 MoE layers; capacity 8, so that the EP bodies
+     drop no copy, and the single-shard run takes their per-shard aux)
+     on a (2, 2) mesh and qwen2.5-3b at
+     published width with 2 layers on a (1, 4) mesh, f32, each rank on
+     its blocks (``init_params(par=...)``): a prefill of 32 tokens, 8
+     decode steps fed the single-shard run's tokens, one train step; its
+     logits, cache blocks, loss, grad norm and updated param blocks are
+     held against the single-shard step this process ran on the card
+     first (shared with the ranks as CUDA tensors), within
+     ``TP_TOL`` of the largest single-shard value; gmm and
+     decode_attention launch on every rank; (b) memory and time: rank 0
+     of the 16 x 16 pod mesh in a fake group of 256 ranks (as phase 17's
+     dry run builds it), with real tensors on the card, for
+     mistral-large-123b and jamba-1.5-large-398b at published width and
+     depth (and granite-moe-3b-a800m and llama-moe-3.5b, whose "local"
+     MoE mode runs gmm on d_ff shards of 32 and 86): its blocks drawn
+     leaf by leaf and cast for compute, a global batch of 64 (4 rows a
+     data rank), a cache of 2,048, a prefill of 32 tokens, 16 decode
+     steps (granite and llama 4): held bytes against
+     ``memory_per_rank``'s planned for the same cast tree (within 1 %),
+     the draw's peak memory and seconds, the ms a step, the device busy
+     share (2 more steps under the profiler; mistral and jamba), the
+     launches; values are not checked (the other ranks are stand-ins;
+     run in a process of its own);
+     (c) gmm and decode_attention at (b)'s shapes against their plain
+     versions, ``torch.bmm`` / SDPA and their bounds;
+ 19. the ``kernels`` JSON line (all six kernels, and gmm and
      decode_attention again at deepseek-moe-16b's decode shape with
      phase 6d's launches, at phase 13's decode shapes with that
      phase's launches, at phase 14c's shapes with their launches
      there and gmm at phase 15a's shapes with their launches over
-     15c's run, and gmm at phase 16c's shapes with their launches over
-     16a's run; launches counted over
+     15c's run, gmm at phase 16c's shapes with their launches over
+     16a's run, and gmm and decode_attention at phase 18c's shapes with
+     their launches over 18b's runs; launches counted over
      the serve run for gmm/decode_attention, over the fleet ``run()``
      for deposit/backlog_scan and over the AIMD ``run()`` for
      admission_window/admission_ctrl), the card line, then the result
@@ -331,8 +362,9 @@ PRIMER_KERNEL = "spin_kernel"        # torch.cuda._sleep's kernel
 
 
 @contextlib.contextmanager
-def primed_profile(torch):
-    """``torch.profiler.profile`` over CPU and CUDA whose window opens with
+def primed_profile(torch, cpu: bool = True):
+    """``torch.profiler.profile`` over CPU (unless ``cpu`` is off: device
+    time only, far fewer records to sum) and CUDA whose window opens with
     PROFILE_PRIMER one-cycle spin launches and a synchronize, before the
     caller's work.  Late in this script the profiler has dropped the
     first few kernel records of a window (5 to 11 in repeated windows on
@@ -340,8 +372,10 @@ def primed_profile(torch):
     of phase 7's profiled ``run()``, which failed its check); the spins
     take that loss, and ``device_times`` leaves them out."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         for _ in range(PROFILE_PRIMER):
             torch.cuda._sleep(1)
         torch.cuda.synchronize()
@@ -538,19 +572,23 @@ def timed_record(torch, rec, kernel, plain, library, iters, turns=1) -> dict:
 
 
 def check_decode(torch, b, hkv, g, s, hd, dtype_name, pos_list, iters,
-                 layout="bhsd"):
+                 layout="bhsd", cache_heads=None):
     """``layout`` "bshd": k and v are transposed views of the model's
-    (B, S, Hkv, hd) cache, as ``models/attention.py`` passes them."""
+    (B, S, Hkv, hd) cache, as ``models/attention.py`` passes them; with
+    ``cache_heads`` the cache holds that many heads and k and v are views
+    of its first ``hkv`` (a rank's heads of a cache every rank holds
+    whole)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import build, decode_attn
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(s + g)
-    kv_shape = (b, hkv, s, hd) if layout == "bhsd" else (b, s, hkv, hd)
+    kv_shape = (b, hkv, s, hd) if layout == "bhsd" \
+        else (b, s, cache_heads or hkv, hd)
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                for shape in ((b, hkv, g, hd), kv_shape, kv_shape))
     if layout == "bshd":
-        k, v = k.transpose(1, 2), v.transpose(1, 2)
+        k, v = (t.narrow(2, 0, hkv).transpose(1, 2) for t in (k, v))
     pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
     got = decode_attn.decode_attention(q, k, v, pos)
     torch.cuda.synchronize()
@@ -2231,6 +2269,527 @@ def phase_sharding(torch, card: str) -> list[tuple[str, dict, int]]:
         dist.destroy_process_group()
     log(f"phase 16 seconds {json.dumps(seconds)} ({card})")
     return [("gmm", rec, calls[key]) for key, rec in recs.items()]
+
+
+# --------------------------------------------------------------------- #
+# Phase 18: tensor and data parallelism, each rank on its blocks
+# --------------------------------------------------------------------- #
+
+QWEN = "qwen2.5-3b"
+TP_RANKS = 4
+# (arch, layers, mesh) of 18a: deepseek's dense first layer and 2 MoE
+# layers (data split, heads, KV cache and vocab over "model", EP), and
+# qwen's k/v that cut a head and its tied vocab of 151,936 four ways.
+TP_CASES = ((DEEPSEEK, 3, (2, 2)), (QWEN, 2, (1, 4)))
+# The EP bodies keep the reference's per-shard semantics: each shard sizes
+# its capacity from its own tokens, and the aux is the first shard's value
+# with the mean of the shards' grads.  So deepseek runs at capacity 8 (no
+# copy dropped, on either side) and its single-shard run takes the same
+# aux (``ep_aux``).
+TP_DECODE, TP_LR = 8, 1e-2
+# 18a's tolerance, over the largest single-shard value of each tensor:
+# both runs are f32 on the card, and a rank's narrower blocks make cuBLAS
+# pick other tilings and split-K, so sums over K of up to 10,944 terms
+# (and the ranks' partial sums) are taken in another order.
+TP_TOL = 1e-4
+# 18b: rank 0 of the pod mesh; the last two archs (their gmm shapes only)
+# take POD_SHORT decode steps and no profile.
+POD_BATCH, POD_PROMPT, POD_CACHE, POD_DECODE = 64, 32, 2048, 16
+POD_ARCHS = ("mistral-large-123b", "jamba-1.5-large-398b", GRANITE, ARCH)
+POD_SHORT, POD_PROFILED = 4, 2
+
+
+def tp_cfg(arch: str, layers: int):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    extra = {"capacity_factor": 8.0} if cfg.has_moe else {}
+    return dataclasses.replace(cfg, n_layers=layers, compute_dtype="float32",
+                               **extra)
+
+
+@contextlib.contextmanager
+def ep_aux(torch, mesh_shape: tuple):
+    """``moe_apply_local`` with the aux of the EP bodies on ``mesh_shape``
+    (``sharded_moe``): the value the first shard's, the grad the mean of
+    the shards' (by data rows and, where the sequence splits over the
+    model axis as "ep" splits it, by sequence blocks)."""
+    from repro_torch.models import moe
+    real = moe.moe_apply_local
+
+    def local(cfg, p, x, cdt):
+        y, _ = real(cfg, p, x, cdt)
+        n_d, n_m = mesh_shape
+        b, s, d = x.shape
+        n_s = n_m if s % n_m == 0 else 1
+        auxes = []
+        for i in range(n_d):
+            for j in range(n_m):
+                xs = x[i * b // n_d:(i + 1) * b // n_d,
+                       (j % n_s) * s // n_s:(j % n_s + 1) * s // n_s]
+                auxes.append(moe.route(cfg, p["router"],
+                                       xs.reshape(-1, d).to(cdt))[2])
+        aux = {}
+        for k in auxes[0]:
+            mean = torch.stack([a[k] for a in auxes]).mean(0)
+            aux[k] = mean + (auxes[0][k] - mean).detach()
+        return y, aux
+    moe.moe_apply_local = local
+    try:
+        yield
+    finally:
+        moe.moe_apply_local = real
+
+
+def tp_single(torch, arch: str, layers: int, seed: int,
+              mesh_shape: tuple) -> dict:
+    """(18a) The single-shard run of one case on the card (the EP bodies'
+    aux on ``mesh_shape``, ``ep_aux``): its inputs and every result the
+    ranks are held to, as CUDA tensors."""
+    with ep_aux(torch, mesh_shape):
+        return _tp_single(torch, arch, layers, seed)
+
+
+def _tp_single(torch, arch: str, layers: int, seed: int) -> dict:
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                          make_train_step)
+    from repro_torch.models import Parallel, init_params, random_batch
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = tp_cfg(arch, layers)
+    par = Parallel()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                         "cuda", cast=False)
+    batch = random_batch(cfg, BATCH, PROMPT, seed=seed, device="cuda")
+    prompt = {k: v for k, v in batch.items() if k != "labels"}
+    out = {"batch": batch}
+    with torch.no_grad():
+        logits, cache = make_prefill_step(cfg, par, PROMPT + TP_DECODE + 1)(
+            params, prompt)
+        out["prefill"] = logits
+        step = make_serve_step(cfg, par)
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        pos = torch.full((BATCH,), PROMPT, dtype=torch.int32, device="cuda")
+        out["tokens"], out["decode"] = [tok], []
+        for _ in range(TP_DECODE):
+            tok, lg, cache = step(params, cache, tok, pos)
+            out["tokens"].append(tok)
+            out["decode"].append(lg)
+            pos = pos + 1
+        out["cache"] = cache
+    state = adamw_init(params)
+    params, state, met = make_train_step(cfg, par, AdamWConfig(lr=TP_LR))(
+        params, state, batch)
+    out.update(params=params, loss=met["loss"], grad_norm=met["grad_norm"])
+    del state
+    torch.cuda.synchronize()
+    return out
+
+
+def _abs_max(x) -> float:
+    lo, hi = x.aminmax()              # no temporary of x's size
+    return max(-float(lo), float(hi))
+
+
+def _tp_err(torch, got, want, scale=None, mask=None) -> float:
+    """max |got - want| (over ``mask``) over ``scale`` (max |want| by
+    default); one f32 temporary of the tensor's size."""
+    if got.shape != want.shape:
+        return float("inf")
+    if want.numel() == 0:
+        return 0.0
+    diff = (got.float() - want.float()).abs_()
+    if mask is not None:
+        diff.mul_(mask)
+    scale = scale or _abs_max(want) or 1.0
+    return float(diff.max()) / scale
+
+
+def _tp_worst(torch, got, whole, specs, mesh, masks=None) -> float:
+    """Largest ``_tp_err`` of the rank's blocks ``got`` against its blocks
+    of ``whole``, each over its whole leaf's largest value."""
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.tree import tree_leaves
+    wants = tree_leaves(shard_tree(whole, specs, mesh))
+    masks = masks or [None] * len(wants)
+    return max((_tp_err(torch, g, w, _abs_max(x), m)
+                for g, w, m, x in zip(tree_leaves(got), wants, masks,
+                                      tree_leaves(whole))), default=0.0)
+
+
+def tp_rank(rank: int, world: int, folder: str, case: int,
+            single: dict) -> None:
+    """(18a) One rank: join the gloo group, run case ``case`` on its
+    blocks, write ``rank{rank}.json`` (errors against the single-shard
+    results, launches, collective calls, memory, seconds)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                          make_train_step)
+    from repro_torch.models import Parallel, init_params
+    from repro_torch.models.model import gather_logits
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.tree import tree_leaves
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{folder}/rendezvous",
+                            rank=rank, world_size=world)
+    out = {}
+    try:
+        for arch, layers, shape in TP_CASES[case:case + 1]:
+            t0 = time.perf_counter()
+            cfg = tp_cfg(arch, layers)
+            mesh = make_mesh(shape, ("data", "model"), "cpu")
+            par = Parallel(mesh=mesh)
+            rules = par.rules(cfg)
+            ops.reset_launch_counts()
+            collectives.reset_counts()
+            params = init_params(
+                cfg, torch.Generator(device="cuda").manual_seed(
+                    single["seed"]), "cuda", cast=False, par=par)
+            batch = {k: par.rows(v) for k, v in single["batch"].items()}
+            prompt = {k: v for k, v in batch.items() if k != "labels"}
+            err = {}
+            memory = {"drawn_gib": torch.cuda.memory_allocated() / 2**30}
+            with torch.no_grad():
+                logits, cache = make_prefill_step(
+                    cfg, par, PROMPT + TP_DECODE + 1)(params, prompt)
+                err["prefill"] = _tp_err(torch, gather_logits(cfg, logits, par),
+                                         single["prefill"])
+                step = make_serve_step(cfg, par)
+                pos = torch.full((BATCH,), PROMPT, dtype=torch.int32,
+                                 device="cuda")
+                worst = 0.0
+                for i in range(TP_DECODE):
+                    _, lg, cache = step(params, cache, single["tokens"][i], pos)
+                    worst = max(worst, _tp_err(torch, lg, single["decode"][i]))
+                    pos = pos + 1
+                err["decode"] = worst
+                err["cache"] = _tp_worst(
+                    torch, cache, single["cache"],
+                    rules.cache_held_specs(single["cache"]), mesh)
+            del cache, logits
+            torch.cuda.empty_cache()
+            state = adamw_init(params)
+            params, state, met = make_train_step(cfg, par, AdamWConfig(
+                lr=TP_LR))(params, state, batch)
+            err["loss"] = _tp_err(torch, met["loss"], single["loss"])
+            err["grad_norm"] = _tp_err(torch, met["grad_norm"],
+                                       single["grad_norm"])
+            specs = rules.param_specs(single["params"])
+            # AdamW's first step moves a weight by lr * g / (|g| + eps):
+            # where |g| nears eps a rounding of g moves it far more than
+            # it moves g, so params are held where the rank's mu (0.1 g)
+            # is at least 1e-2 of its block's largest.
+            masks = [m.abs() >= 1e-2 * _abs_max(m)
+                     for m in tree_leaves(state["mu"])]
+            del state
+            err["params"] = _tp_worst(torch, params, single["params"], specs,
+                                      mesh, masks)
+            torch.cuda.synchronize()
+            memory["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            held = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+            out[f"{arch} {shape}"] = {
+                "err": err, "launches": ops.launch_counts(),
+                "collectives": dict(collectives.calls), "memory": memory,
+                "param_bytes": held, "seconds": time.perf_counter() - t0}
+            del params, masks
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    finally:
+        dist.destroy_process_group()
+    Path(folder, f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def phase_tp_values(torch, card: str) -> dict:
+    """(18a) Each case's single-shard run here, then TP_RANKS ranks in
+    processes of their own on the card, handed the single-shard results
+    as CUDA tensors (``torch.multiprocessing``)."""
+    import os
+    import shutil
+
+    import torch.multiprocessing as mp
+    single_s = ranks_s = 0.0
+    res = [{} for _ in range(TP_RANKS)]
+    for i, (arch, layers, shape) in enumerate(TP_CASES):
+        folder = ROOT / "build" / "tp" / str(i)
+        shutil.rmtree(folder, ignore_errors=True)
+        folder.mkdir(parents=True)
+        t0 = time.perf_counter()
+        single = tp_single(torch, arch, layers, 18 + i, shape)
+        single["seed"] = 18 + i
+        torch.cuda.empty_cache()     # the ranks need what this run freed
+        single_s += time.perf_counter() - t0
+        log(f"tp 18a {arch}: single-shard results held for the ranks "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        t0 = time.perf_counter()
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=tp_rank, args=(r, TP_RANKS, str(folder),
+                                                   i, single))
+                 for r in range(TP_RANKS)]
+        # Five processes share the card: segments that grow in place
+        # waste less of it than each process's split cached blocks.
+        alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            for p in procs:
+                p.start()
+        finally:
+            if alloc is None:
+                os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        for p in procs:
+            p.join(timeout=600)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        ranks_s += time.perf_counter() - t0
+        del single
+        torch.cuda.ipc_collect()      # what the ranks' handles kept alive
+        torch.cuda.empty_cache()
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise SmokeFailure(f"18a {arch}: rank exit codes {codes}")
+        for r in range(TP_RANKS):
+            res[r].update(json.loads((folder / f"rank{r}.json").read_text()))
+    bad = []
+    for r, got in enumerate(res):
+        for name, rec in got.items():
+            log(f"tp 18a rank {r} {name}: " + json.dumps(rec))
+            bad += [(r, name, k, v) for k, v in rec["err"].items()
+                    if not v <= TP_TOL]
+            if not rec["launches"]["decode_attention"]:
+                bad.append((r, name, "decode_attention launches", 0))
+            if name.startswith(DEEPSEEK) and not rec["launches"]["gmm"]:
+                bad.append((r, name, "gmm launches", 0))
+    log(f"tp 18a: single-shard runs {single_s:.1f}s, {TP_RANKS} ranks "
+        f"{ranks_s:.1f}s; tolerance {TP_TOL} ({card})")
+    if bad:
+        raise SmokeFailure(f"18a: ranks differ from the single-shard step: "
+                           f"{bad}")
+    return {"single_s": single_s, "ranks_s": ranks_s}
+
+
+def pod_rank0(torch, card: str, arch: str, mesh, gmm_calls: dict,
+              attn_calls: dict, n_decode: int = POD_DECODE,
+              profiled: int = POD_PROFILED) -> dict:
+    """(18b) One model at published width and depth as rank 0 of the pod
+    mesh (module docstring): ``n_decode`` steps timed, then ``profiled``
+    more under the profiler (none: no busy share)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import decode_attn, moe_gmm, ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import (cache_structs, make_prefill_step,
+                                          make_serve_step)
+    from repro_torch.models import Parallel, init_params
+    from repro_torch.models.model import gather_logits
+    start = time.perf_counter()
+    cfg = get_config(arch)
+    par = Parallel(mesh=mesh)
+    rules = par.rules(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda", cast=True, par=par)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    draw_peak = torch.cuda.max_memory_allocated() - base
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (POD_BATCH, POD_PROMPT),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    real_gmm, real_attn = moe_gmm._product, decode_attn._launch
+
+    def gmm_counted(x, w):
+        key = (arch, *x.shape, w.shape[2])
+        gmm_calls[key] = gmm_calls.get(key, 0) + 1
+        return real_gmm(x, w)
+
+    def attn_counted(q, k, v, pos):
+        key = (arch, *q.shape, k.shape[2], k.stride(2) // q.shape[-1])
+        attn_calls[key] = attn_calls.get(key, 0) + 1
+        return real_attn(q, k, v, pos)
+    ops.reset_launch_counts()
+    collectives.reset_counts()
+    moe_gmm._product, decode_attn._launch = gmm_counted, attn_counted
+    try:
+        t0 = time.perf_counter()
+        logits, cache = make_prefill_step(cfg, par, POD_CACHE)(
+            params, {"tokens": par.rows(tokens)})
+        tok = torch.argmax(gather_logits(cfg, logits, par), -1) \
+            .to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        step = make_serve_step(cfg, par)
+        pos = torch.full((POD_BATCH,), POD_PROMPT, dtype=torch.int32,
+                         device="cuda")
+        given = {"params": params, "cache": cache, "tokens": par.rows(tok),
+                 "pos": pos}
+        t0 = time.perf_counter()
+        for _ in range(n_decode):
+            tok, logits, cache = step(params, cache, tok, pos)
+            pos = pos + 1
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n_decode
+        launches = ops.launch_counts()
+        coll = dict(collectives.calls)
+        prof_ms = busy_ms = profile_s = None
+        if profiled:
+            with primed_profile(torch, cpu=False) as prof:
+                t0 = time.perf_counter()
+                for _ in range(profiled):
+                    tok, logits, cache = step(params, cache, tok, pos)
+                    pos = pos + 1
+                torch.cuda.synchronize()
+                prof_ms = (time.perf_counter() - t0) * 1e3 / profiled
+    finally:
+        moe_gmm._product, decode_attn._launch = real_gmm, real_attn
+    if profiled:
+        t0 = time.perf_counter()
+        busy_ms = sum(k[0] for k in device_times(prof, profiled))
+        profile_s = time.perf_counter() - t0
+    meta = {"params": init_params(cfg, torch.Generator(), "meta", cast=True),
+            "cache": cache_structs(cfg, POD_BATCH, POD_CACHE),
+            "tokens": torch.empty((POD_BATCH, 1), dtype=torch.int32,
+                                  device="meta"),
+            "pos": torch.empty((POD_BATCH,), dtype=torch.int32, device="meta")}
+    mem = dryrun.memory_per_rank(rules, meta, mesh.shape, given)
+    held, planned = mem["held"]["total"], mem["planned"]["total"]
+    rec = {"arch": arch, "layers": cfg.n_layers, "draw_s": draw_s,
+           "draw_peak_gib": draw_peak / 2**30,
+           "held_gib": {k: v / 2**30 for k, v in mem["held"].items()},
+           "planned_gib": {k: v / 2**30 for k, v in mem["planned"].items()},
+           "held_over_planned": held / planned,
+           "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+           "prefill_s": prefill_s, "decode_steps": n_decode,
+           "step_ms": step_ms, "profiled_step_ms": prof_ms,
+           "busy_ms": busy_ms,
+           "busy_share": busy_ms / prof_ms if profiled else None,
+           "profile_sum_s": profile_s,
+           "launches": launches, "collectives": coll,
+           "finite": bool(torch.isfinite(logits.float()).all()),
+           "seconds": time.perf_counter() - start}
+    log(f"tp 18b {arch} ({card}): " + json.dumps(rec))
+    total = torch.cuda.get_device_properties(0).total_memory
+    if abs(held - planned) > 0.01 * planned or rec["peak_gib"] * 2**30 \
+            >= total or not launches["decode_attention"] \
+            or (cfg.has_moe and not launches["gmm"]):
+        raise SmokeFailure(f"18b {arch}: held {held} against planned "
+                           f"{planned}, peak {rec['peak_gib']:.2f} GiB, "
+                           f"launches {launches}")
+    return rec
+
+
+POD_RESULT = ROOT / "build" / "tp" / "pod.json"
+
+
+def pod_main() -> None:
+    """(18b) in a process of its own (``phase_tp`` starts it): the fake
+    group of 256 ranks and every model of POD_ARCHS as rank 0; writes the
+    records and the kernels' call shapes to POD_RESULT."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build_all()                 # built already: loads the libraries
+    card = card_line()
+    gmm_calls: dict = {}
+    attn_calls: dict = {}
+    records = []
+    dryrun.fake_group(256)
+    try:
+        mesh = make_production_mesh(device="cpu")
+        for i, arch in enumerate(POD_ARCHS):
+            short = i >= 2
+            records.append(pod_rank0(
+                torch, card, arch, mesh, gmm_calls, attn_calls,
+                POD_SHORT if short else POD_DECODE,
+                0 if short else POD_PROFILED))
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    POD_RESULT.write_text(json.dumps({
+        "records": records,
+        "gmm": [[*k, n] for k, n in gmm_calls.items()],
+        "attn": [[*k, n] for k, n in attn_calls.items()]}))
+
+
+def phase_tp(torch, card: str) -> list[tuple[str, dict, int]]:
+    """Phase 18 (a-c).  Returns the kernel rows (name, record, launches
+    over 18b's runs) of 18c's shapes.  18b runs in a process of its own,
+    with ``expandable_segments`` (a whole f32 weight of jamba's, 12 GiB,
+    is drawn between blocks of other sizes: without it the allocator's
+    cached segments split and the draw runs out of memory), and so that
+    its fake process group stays out of this one."""
+    import os
+    seconds = {}
+    t = time.perf_counter()
+    phase_tp_values(torch, card)
+    seconds["18a"] = round(time.perf_counter() - t, 1)
+    t = time.perf_counter()
+    POD_RESULT.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    res = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.pod_main()"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    for line in res.stdout.splitlines():
+        print(line, flush=True)
+    if res.returncode != 0 or not POD_RESULT.exists():
+        raise SmokeFailure(f"18b: exit {res.returncode}: "
+                           f"{res.stderr[-3000:]}")
+    pod = json.loads(POD_RESULT.read_text())
+    gmm_calls = {tuple(k[:-1]): k[-1] for k in pod["gmm"]}
+    attn_calls = {tuple(k[:-1]): k[-1] for k in pod["attn"]}
+    seconds["18b"] = round(time.perf_counter() - t, 1)
+    t = time.perf_counter()
+    log("tp 18b gmm calls " + json.dumps(
+        {" ".join(map(str, k)): n for k, n in gmm_calls.items()}))
+    log("tp 18b decode_attention calls " + json.dumps(
+        {" ".join(map(str, k)): n for k, n in attn_calls.items()}))
+    rows = []
+    # Each model's most launched gmm shape, and every shape whose N or K
+    # is a d_ff shard (the "local" mode's), each with its launches.
+    picked = set()
+    for arch in POD_ARCHS:
+        mine = {k: n for k, n in gmm_calls.items() if k[0] == arch}
+        if mine:
+            picked.add(max(mine, key=mine.get))
+    picked |= {k for k in gmm_calls if min(k[3], k[4]) in (32, 86)}
+    for key in sorted(picked):
+        _, e, c, k, n = key
+        rec = check_gmm(torch, e, c, k, n, "bfloat16", iters=10)
+        rec["shape"] = f"{rec['shape']} ({key[0]} rank 0 of 16 x 16)"
+        log("kernel " + json.dumps(rec))
+        if not rec["ok"]:
+            raise SmokeFailure(f"gmm at {rec['shape']}: {rec}")
+        rows.append(("gmm", rec, gmm_calls[key]))
+    for key, n_calls in sorted(attn_calls.items()):
+        arch, b, hkv, g, hd, s, heads = key
+        last = POD_PROMPT + POD_DECODE + POD_PROFILED - 1   # the last step
+        rec = check_decode(torch, b, hkv, g, s, hd, "bfloat16", [last] * b,
+                           iters=20, layout="bshd", cache_heads=heads)
+        rec["shape"] = f"{rec['shape']} ({arch} rank 0 of 16 x 16)"
+        log("kernel " + json.dumps(rec))
+        if not rec["ok"]:
+            raise SmokeFailure(f"decode_attention at {rec['shape']}: {rec}")
+        rows.append(("decode_attention", rec, n_calls))
+    seconds["18c"] = round(time.perf_counter() - t, 1)
+    log(f"phase 18 seconds {json.dumps(seconds)} ({card})")
+    return rows
 
 
 # --------------------------------------------------------------------- #
@@ -4708,6 +5267,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     shard_rows = timed("sharding", phase_sharding, torch, card)
     timed("dryrun", phase_dryrun, torch, card, deep_prof["count"], train_run)
+    torch.cuda.empty_cache()
+    tp_rows = timed("tp", phase_tp, torch, card)
     fleet_counts, captured, in_run, world = timed("fleet", phase_fleet, torch)
     main_cases.update(timed("fleet_kernels", phase_fleet_kernels, torch,
                             captured, in_run))
@@ -4725,7 +5286,8 @@ def main() -> int:
                                     *arch_cases.items(),
                                     *((n, r) for n, r, _ in rec_rows),
                                     *((n, r) for n, r, _ in train_rows),
-                                    *((n, r) for n, r, _ in shard_rows))
+                                    *((n, r) for n, r, _ in shard_rows),
+                                    *((n, r) for n, r, _ in tp_rows))
              if not rec["hidden"]]
     if mixed:
         raise SmokeFailure(f"kernel device time not separable from the "
@@ -4767,6 +5329,9 @@ def main() -> int:
     # The EP bodies' gmm calls (phase 16c), each with its launches over
     # phase 16a's run.
     runs += [({name: rec}, {name: n}) for name, rec, n in shard_rows]
+    # gmm and decode_attention at rank 0's shapes on the pod mesh (18c),
+    # each with its launches over 18b's runs.
+    runs += [({name: rec}, {name: n}) for name, rec, n in tp_rows]
     kernels = []
     for cases, launches in runs:
         for name, rec in cases.items():

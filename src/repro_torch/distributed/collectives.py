@@ -7,7 +7,20 @@ exchange, and the adjoint of a sum over ranks is the sum over ranks of
 the grads.  (Where every rank computes the same loss, ``assemble`` in
 ``sharding.py`` splits the grad of a replicated output evenly over its
 copies, so the sum counts it once.)
-``all_gather`` serves ``sharding.assemble``.  ``calls`` counts every
+``all_gather`` serves ``sharding.assemble``.
+
+Tensor parallelism (Megatron's conjugate pair) takes the loss that the
+ranks of a group compute alike as one loss, so that each rank's
+backward gives the whole grad of what the group holds in copies:
+``copy_to`` is the identity whose backward sums the grads over the group
+(the input of a column-parallel product, whose ranks compute different
+columns), ``reduce_from`` the sum whose backward is the identity (the
+output of a row-parallel product), ``gather_from`` the concatenation of
+the ranks' blocks along a dim whose backward takes this rank's block of
+the grad, and ``split_to`` its inverse (this rank's block, backward
+gathered).  ``all_max`` is an undifferentiated max over the group.  All
+run the same three collectives, and count and report under their
+names.  ``calls`` counts every
 call, backward ones included, so that a run can show that it reached
 the process group.  Under an active dry-run count each call also
 reports its op (by the reference's HLO name), result bytes and group
@@ -57,11 +70,30 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     out = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=group)
+    dist.all_reduce(out, op=op, group=group)
     _record("all_reduce", _nbytes(out), group)
     return out
+
+
+def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim``, in group-rank order."""
+    return torch.cat(_all_gather(x, group), dim=dim)
+
+
+def _all_gather(x: torch.Tensor, group) -> list[torch.Tensor]:
+    x = x.contiguous()
+    out = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, x, group=group)
+    _record("all_gather", len(out) * _nbytes(x), group)
+    return out
+
+
+def _my_block(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    size = x.shape[dim] // n
+    return x.narrow(dim, dist.get_rank(group) * size, size).contiguous()
 
 
 class _AllToAll(torch.autograd.Function):
@@ -86,6 +118,49 @@ class _AllReduce(torch.autograd.Function):
         return _all_reduce(d_out, ctx.group), None
 
 
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        return _all_reduce(d_out, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        return d_out, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        return _my_block(d_out, ctx.dim, ctx.group), None, None
+
+
+class _SplitTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _my_block(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        return _gather(d_out, ctx.dim, ctx.group), None, None
+
+
 def _takes_grad(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -107,12 +182,55 @@ def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
 
 def all_gather(x: torch.Tensor, group=None) -> list[torch.Tensor]:
     """Every rank's ``x`` (same shape), by rank; not differentiable."""
-    x = x.detach().contiguous()
-    out = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(out, x, group=group)
-    _record("all_gather", len(out) * _nbytes(x), group)
-    return out
+    return _all_gather(x.detach(), group)
+
+
+def all_reduce_(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``x`` over the ranks of ``group`` in place (no grad): for
+    tensors the caller owns, such as grads, where a new tensor would hold
+    a second copy until the first is freed."""
+    with torch.no_grad():
+        dist.all_reduce(x, group=group)
+    _record("all_reduce", _nbytes(x), group)
+    return x
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``; its grad is summed over ``group`` (Megatron's f)."""
+    if _takes_grad(x):
+        return _CopyTo.apply(x, group)
+    return x
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``; its grad passes as it is
+    (Megatron's g)."""
+    if _takes_grad(x):
+        return _ReduceFrom.apply(x, group)
+    return _all_reduce(x, group)
+
+
+def gather_from(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The blocks of ``group``'s ranks concatenated along ``dim``; the
+    grad of this rank's block is its block of the grad."""
+    if _takes_grad(x):
+        return _GatherFrom.apply(x, dim, group)
+    return _gather(x, dim, group)
+
+
+def split_to(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` (equal blocks, in
+    group-rank order), contiguous; its grad is gathered."""
+    if _takes_grad(x):
+        return _SplitTo.apply(x, dim, group)
+    return _my_block(x, dim, group)
+
+
+def all_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``group`` (no grad)."""
+    return _all_reduce(x.detach(), group, dist.ReduceOp.MAX)
 
 
 __all__ = ["calls", "reset_counts", "world_size", "all_to_all", "all_reduce",
-           "all_gather"]
+           "all_reduce_", "all_gather", "copy_to", "reduce_from", "gather_from", "split_to",
+           "all_max"]

@@ -14,20 +14,30 @@ The port's trees have no stacked unit axis: a leaf's path is
 ``units/b{j % len(pattern)}/...`` without the leading ``None``.
 
 ``PartitionSpec`` is a tuple with the reference's ``str``.
-``placements`` turns a spec into DTensor placements per mesh axis;
-``local_shard`` takes this rank's block of a tensor, and
-``assemble`` puts a global tensor together from every rank's block (the
-two ends of ``models.moe.sharded_moe``).  Both are autograd functions,
-with ``shard_map``'s transpose as their backward, for a loss that every
-rank computes alike: ``local_shard`` sums the blocks' grads over the
-ranks, each in its place; ``assemble`` gives each rank its block of the
-grad divided by the ranks along the mesh axes the spec leaves out (the
-ranks whose blocks are taken as copies of one value).  On values that
-are copies (a replicated output the body all-reduced) that is the
-gradient of the value; on values that are not (the reference's
-per-shard ``aux`` under ``P()``, of which the first rank's is kept) it
-is the mean of the ranks' gradients, as ``jax.grad`` through the
-reference's ``shard_map(check_vma=False)`` gives.
+``placements`` turns a spec into DTensor placements per mesh axis.
+
+A rank holds and computes only its blocks: ``rank_block`` takes this
+rank's block of one leaf and ``shard_tree`` of every leaf of a tree,
+the blocks that ``jit``'s ``in_shardings`` would hand a device; the
+models then run on them (``models.Parallel``).  A leaf whose spec splits
+a fused dimension is taken in the layout its consumer reads: Mamba's
+``w_in`` (d, 2 di) is the x half and the z half side by side, and a rank
+holds its block of each (``FUSED``).  ``unshard_tree`` puts the global
+tree together again on every rank (the tests' yardstick).
+``ShardingRules.cache_held_specs`` are the cache specs the port holds:
+``cache_specs`` without the split of a batch-1 cache's sequence over the
+data axes (context parallelism, which the port does not do).
+
+``assemble`` puts a global tensor together from every rank's block;
+``sharded_moe`` takes it for the EP bodies' per-shard ``aux`` (the first
+rank's value on every rank).  It is an autograd function with
+``shard_map``'s transpose as its backward: each rank gets its block of
+the grad divided by the ranks along the mesh axes the spec leaves out
+(the ranks whose blocks are taken as copies of one value).  On values
+that are copies that is the gradient of the value; on values that are
+not (the reference's per-shard ``aux`` under ``P()``, of which the first
+rank's is kept) it is the mean of the ranks' gradients, as ``jax.grad``
+through the reference's ``shard_map(check_vma=False)`` gives.
 """
 from __future__ import annotations
 
@@ -225,6 +235,16 @@ class ShardingRules:
     def cache_specs(self, cache) -> object:
         return _tree_map_with_path(self.cache_spec, cache)
 
+    def cache_held_specs(self, cache) -> object:
+        """``cache_specs`` without the sequence split of a batch-1 KV
+        cache: the port keeps that cache's sequence whole."""
+        def held(path, leaf):
+            spec = self.cache_spec(path, leaf)
+            if str(path[-1]) in ("k", "v"):
+                return P(spec[0], None, *spec[2:])
+            return spec
+        return _tree_map_with_path(held, cache)
+
     # ----------------------------------------------------------------- #
     def batch_spec(self, batch) -> object:
         def spec(path, leaf):
@@ -319,33 +339,59 @@ def _world_mesh(mesh) -> None:
                          "exchanged over the whole group")
 
 
-class _LocalShard(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, spec, mesh):
-        ctx.spec, ctx.mesh, ctx.shape = spec, mesh, x.shape
-        return _block(x, spec, mesh.coordinate(), mesh.shape) \
-            .clone(memory_format=torch.contiguous_format)
-
-    @staticmethod
-    def backward(ctx, d_block):
-        full = d_block.new_zeros(ctx.shape)
-        _block(full, ctx.spec, ctx.mesh.coordinate(), ctx.mesh.shape) \
-            .copy_(d_block)
-        return collectives.all_reduce(full), None, None
+# Leaves whose split dimension is two fused halves (Mamba's x and z
+# columns of ``w_in``): a rank holds its block of each half, side by side.
+FUSED = ("w_in",)
 
 
-def local_shard(tensor: torch.Tensor, spec: P, mesh) -> torch.Tensor:
-    """This rank's block of ``tensor`` under ``spec`` (dims split
-    row-major over each entry's axes).  A process group of one rank has
-    one block, the tensor itself, returned as it is (no copy).  Where it
-    takes a grad, the grad of ``tensor`` is the sum over the ranks of
-    their blocks' grads, each in its place (an all-reduce)."""
-    if collectives.world_size() == 1:
-        return tensor
-    _world_mesh(mesh)
-    if torch.is_grad_enabled() and tensor.requires_grad:
-        return _LocalShard.apply(tensor, spec, mesh)
-    return _block(tensor, spec, mesh.coordinate(), mesh.shape).contiguous()
+def rank_block(x: torch.Tensor, spec: P, mesh, fused: bool = False,
+               coord: dict | None = None) -> torch.Tensor:
+    """The block of ``x`` under ``spec`` that the rank at ``coord`` (this
+    rank by default) holds, as a new contiguous tensor (so that ``x`` can
+    be freed), or ``x`` itself where ``spec`` splits nothing.  With
+    ``fused`` the split dimension is two halves, each split alike."""
+    coord = mesh.coordinate() if coord is None else coord
+    if all(_block_index(e, coord, mesh.shape)[1] == 1 for e in spec):
+        return x
+    if fused:
+        d = next(i for i, e in enumerate(spec) if _axes(e))
+        halves = torch.chunk(x, 2, dim=d)
+        return torch.cat([_block(h, spec, coord, mesh.shape) for h in halves],
+                         dim=d)
+    return _block(x, spec, coord, mesh.shape).clone(
+        memory_format=torch.contiguous_format)
+
+
+def _leaf_name(path) -> str:
+    return str(path[-1]) if path else ""
+
+
+def shard_tree(tree, specs, mesh):
+    """This rank's block of every leaf of ``tree`` (``rank_block``), in a
+    tree of the same structure."""
+    def block(path, leaf):
+        return rank_block(leaf, _get(specs, path), mesh,
+                          _leaf_name(path) in FUSED)
+    return _tree_map_with_path(block, tree)
+
+
+def unshard_tree(tree, specs, mesh):
+    """The global tree whose blocks under ``specs`` the ranks hold (the
+    inverse of ``shard_tree``), on every rank: every leaf gathered over
+    the whole group, no grad.  Along an axis a spec leaves out, the block
+    of index 0 is kept."""
+    def whole(path, leaf):
+        spec = _get(specs, path)
+        if collectives.world_size() == 1 or not any(map(_axes, spec)):
+            return leaf
+        _world_mesh(mesh)
+        leaf = leaf.detach()
+        if _leaf_name(path) in FUSED:
+            d = next(i for i, e in enumerate(spec) if _axes(e))
+            return torch.cat([_assemble_blocks(h.contiguous(), spec, mesh)
+                              for h in torch.chunk(leaf, 2, dim=d)], dim=d)
+        return _assemble_blocks(leaf, spec, mesh)
+    return _tree_map_with_path(whole, tree)
 
 
 def _left_out(spec: P, mesh) -> list[str]:
@@ -390,7 +436,7 @@ class _Assemble(torch.autograd.Function):
 
 def assemble(block: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     """The global tensor whose blocks under ``spec`` the ranks hold
-    (the inverse of :func:`local_shard`), on every rank.  Along a mesh
+    (the inverse of :func:`rank_block`), on every rank.  Along a mesh
     axis that ``spec`` does not name, the ranks' blocks are taken as
     copies of one value and the block of index 0 is kept: for ``P()``
     the first rank's value, broadcast to all.  One rank: ``block`` as it
@@ -403,5 +449,5 @@ def assemble(block: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     return _assemble_blocks(block, spec, mesh)
 
 
-__all__ = ["PartitionSpec", "ShardingRules", "placements", "local_shard",
-           "assemble"]
+__all__ = ["PartitionSpec", "ShardingRules", "placements", "FUSED",
+           "rank_block", "shard_tree", "unshard_tree", "assemble"]

@@ -14,13 +14,17 @@ two pattern units and extended to the model's depth
 (``op_analysis.by_units``); loops over time and over attention chunks
 run one iteration of each kind (``counting.steps``).
 
-Each cell's record gives rank 0's flops, bytes and collective bytes,
-the roofline terms on the H100's rates (``roofline``), and its memory:
-``planned`` is what each rank would hold under ``ShardingRules``' specs,
-``held`` what the port's rank 0 is given and copies (every leaf and
-input whole, since the step takes global tensors and ``sharded_moe``
-cuts this rank's blocks out of them: the port's sharding is not
-memory-true), and ``fits`` whether ``held`` fits the card.
+The step is given rank 0's blocks of its inputs (``input_specs`` with
+``par``: the params and optimizer state by ``ShardingRules``, the batch
+and tokens by the batch spec, the cache by ``cache_held_specs``) and
+computes rank 0's part.  Each cell's record gives rank 0's flops, bytes
+and collective bytes, the roofline terms on the H100's rates
+(``roofline``), and its memory: ``planned`` is what each rank would hold
+under ``ShardingRules``' specs, ``held`` the bytes of the tensors the
+step is given, and ``fits`` whether ``held`` fits the card.  ``held``
+equals ``planned`` except where a batch-1 cache's sequence is planned
+split over the data axes (context parallelism, which the port does not
+do: rank 0 holds that sequence whole).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch deepseek-moe-16b --shape decode_32k
@@ -53,7 +57,6 @@ from .steps import (input_specs, make_prefill_step, make_serve_step,
                     make_train_step)
 
 OUT_DIR_DEFAULT = "experiments/dryrun"
-EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
 
 def _parse_overrides(pairs) -> dict:
@@ -110,13 +113,26 @@ def with_units(cfg, units: int):
     return dataclasses.replace(cfg, n_layers=(units + first) * len(cfg.pattern))
 
 
+def parallel(mesh, shape) -> Parallel:
+    """``Parallel`` on ``mesh`` for a step of ``shape``: the batch split
+    over the data axes where it divides them (the rules' guard)."""
+    daxes = data_axes(mesh)
+    n_data = 1
+    for a in daxes:
+        n_data *= mesh.shape[a]
+    return Parallel(mesh=mesh, data_axes=daxes,
+                    batch_split=shape.global_batch % n_data == 0)
+
+
 def count_step(cfg, shape, par: Parallel, n_devices: int, micro: int = 1,
                multiply: bool = True) -> op_analysis.OpCost:
     """Rank 0's ``OpCost`` for one step of ``cfg`` at ``shape`` on meta
-    inputs: with ``multiply``, traced at one and two units and extended
-    to the depth (``op_analysis.by_units``), loops multiplied."""
+    inputs (its blocks): with ``multiply``, traced at one and two units
+    and extended to the depth (``op_analysis.by_units``), loops
+    multiplied."""
     def count(c):
-        step, args = step_call(c, shape, par, input_specs(c, shape), micro)
+        step, args = step_call(c, shape, par, input_specs(c, shape, par),
+                               micro)
         cost, _ = op_analysis.analyze(step, *args, n_devices=n_devices,
                                       multiply=multiply)
         return cost
@@ -176,44 +192,38 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def moe_copies(params: dict, n_model: int) -> int:
-    """Bytes of the weight copies one ``sharded_moe`` call makes where
-    it takes a grad (``local_shard`` clones each leaf's block): the
-    expert stacks' blocks over the model axis, the router and the shared
-    experts whole, of the largest MoE layer.  Without a grad the blocks
-    are views and nothing is copied."""
-    most = 0
-    for layer in params["layers"]:
-        ffn = layer.get("ffn", {})
-        if "router" in ffn:
-            n = sum(_nbytes(ffn[k]) // n_model for k in EXPERT_LEAVES)
-            n += _nbytes(ffn["router"]) + sum(
-                map(_nbytes, ffn.get("shared", {}).values()))
-            most = max(most, n)
-    return most
+def _held(tree) -> int:
+    """Bytes of every tensor in a tree of inputs."""
+    if isinstance(tree, dict):
+        return sum(_held(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_held(v) for v in tree)
+    return _nbytes(tree) if isinstance(tree, torch.Tensor) else 0
 
 
 def memory_per_rank(rules: ShardingRules, specs: dict, mesh_shape: dict,
-                    copies: bool = False) -> dict:
-    """Bytes a rank holds, by input: ``planned`` (each leaf divided by the
-    product of its spec's axis sizes) and ``held`` (the port's rank 0:
-    every leaf whole, as the step is given it, and with ``copies`` the
-    ``moe_copies`` an EP step that takes a grad makes).  Activations are
-    in neither, so ``fits`` says whether the inputs fit, not the step."""
-    planned, held = {}, {}
+                    given: dict | None = None) -> dict:
+    """Bytes a rank holds, by input: ``planned`` (each leaf of the global
+    ``specs`` divided by the product of its spec's axis sizes) and, with
+    ``given`` (the tensors the step is given: ``input_specs`` with
+    ``par``, on ``meta``), ``held``, their bytes.  Activations are in
+    neither, so ``fits`` says whether the inputs fit, not the step."""
+    planned = {}
     for name, (tree, spec_tree) in input_trees(rules, specs).items():
-        p = h = 0
-        for leaf, spec in _leaves_with_specs(tree, spec_tree):
-            p += _nbytes(leaf) // _split(spec, mesh_shape)
-            h += _nbytes(leaf)
-        planned[name], held[name] = p, h
-    if copies:
-        held["moe_copies"] = moe_copies(specs["params"],
-                                        mesh_shape[rules.model_axis])
+        planned[name] = sum(_nbytes(leaf) // _split(spec, mesh_shape)
+                            for leaf, spec in _leaves_with_specs(tree,
+                                                                 spec_tree))
     planned["total"] = sum(planned.values())
-    held["total"] = sum(held.values())
-    return {"planned": planned, "held": held,
-            "fits": held["total"] <= rl.HBM_BYTES, "hbm_bytes": rl.HBM_BYTES}
+    out = {"planned": planned, "hbm_bytes": rl.HBM_BYTES}
+    if given is not None:
+        held = {name: _held(given[name]) for name in planned if name in given}
+        if "inputs" in planned:
+            held["inputs"] = sum(_held(given.get(k)) for k in
+                                 ("tokens", "embeds", "pos"))
+        held["total"] = sum(held.values())
+        out["held"] = held
+        out["fits"] = held["total"] <= rl.HBM_BYTES
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -234,14 +244,12 @@ def trace_cell(arch: str, shape_name: str, multi_pod: bool,
     shape = SHAPES[shape_name]
     fake_group(512 if multi_pod else 256)
     mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
-    daxes = data_axes(mesh)
-    par = Parallel(mesh=mesh, data_axes=daxes)
-    rules = ShardingRules(cfg, mesh, data_axes=daxes, zero_opt=zero1)
+    par = parallel(mesh, shape)
+    rules = ShardingRules(cfg, mesh, data_axes=par.data_axes,
+                          zero_opt=zero1)
     cost = count_step(cfg, shape, par, mesh.size, micro)
-    moe_len = 1 if shape.kind == "decode" else shape.seq_len
-    ep = cfg.has_moe and par.resolve_moe(cfg, moe_len) in ("ep", "ep_rep")
     memory = memory_per_rank(rules, input_specs(cfg, shape), mesh.shape,
-                             copies=ep and shape.kind == "train")
+                             input_specs(cfg, shape, par))
     return {"op_cost": cost, "mesh": mesh, "cfg": cfg, "shape": shape,
             "memory": memory}
 

@@ -31,6 +31,7 @@ class Mesh:
         self.axis_names = tuple(device_mesh.mesh_dim_names)
         self.shape = dict(zip(self.axis_names, device_mesh.mesh.shape))
         self.size = math.prod(self.shape.values())
+        self._groups: dict[tuple, object] = {}
 
     def coordinate(self) -> dict[str, int]:
         """This rank's index along each axis."""
@@ -40,6 +41,25 @@ class Mesh:
         """The process group of the ranks that differ from this one only
         along ``axis``."""
         return self.device_mesh.get_group(axis)
+
+    def group_over(self, axes) -> object:
+        """The process group of the ranks that differ from this one only
+        along ``axes`` (ranked row-major over them, major first, as a
+        dimension split over several axes orders its blocks).  Several
+        axes: every rank builds every such group the first time, in one
+        order (``new_subgroups_by_enumeration``)."""
+        axes = tuple(axes)
+        if len(axes) == 1:
+            return self.group(axes[0])
+        if axes not in self._groups:
+            names = list(self.axis_names)
+            rest = [a for a in names if a not in axes]
+            grid = self.device_mesh.mesh.permute(
+                *[names.index(a) for a in rest + list(axes)])
+            lists = grid.reshape(-1, math.prod(self.shape[a] for a in axes))
+            mine, _ = dist.new_subgroups_by_enumeration(lists.tolist())
+            self._groups[axes] = mine
+        return self._groups[axes]
 
 
 def make_mesh(shape: tuple, axes: tuple, device="cuda") -> Mesh:

@@ -18,7 +18,10 @@ the eager program's ops, so ``analyze(fn, *args)`` runs ``fn`` under a
                tensor they overwrite as read
   collectives  the record ``distributed.collectives`` makes of each call
                (``counting.note_collective``), priced by
-               ``roofline.collective_stats``
+               ``roofline.collective_stats``; tensor parallelism's
+               ``reduce_from``, ``gather_from`` and ``split_to`` (and
+               their backward passes) run an all-reduce or an
+               all-gather and are counted under those names
   kernels      the hand-written kernels (``gmm``, ``decode_attention``),
                which ctypes launches past the dispatcher: each wrapper
                reports its call through ``counting.kernel(name, flops,

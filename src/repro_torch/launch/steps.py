@@ -2,12 +2,18 @@
 ``repro.launch.steps``).
 
 The train, prefill and serve steps take ``par`` (``models.Parallel``) as
-the reference's do.  ``input_specs(cfg, shape)`` gives every input of
-one (arch x shape) cell as tensors on the ``meta`` device, where the
-reference gives ``ShapeDtypeStruct``s: shapes and dtypes, no storage.
-``param_structs`` draws ``init_params`` on ``meta`` (with a CPU
-generator: ``torch.Generator`` has no meta device, and a meta draw reads
-none of its state), in ``cfg.param_dtype`` as the reference's structs.
+the reference's do.  Under a mesh they take this rank's blocks of their
+inputs (params, optimizer state, batch, cache, tokens; ``pos`` whole) and
+compute its part: the train step sums the grads over the data axes, and
+the serve step returns the global next tokens and logits on every rank
+(the reference's ``out_shardings``), the cache in blocks.
+``input_specs(cfg, shape)`` gives every input of one (arch x shape) cell
+as tensors on the ``meta`` device, where the reference gives
+``ShapeDtypeStruct``s: shapes and dtypes, no storage; with ``par``, the
+rank's blocks of them.  ``param_structs`` draws ``init_params`` on
+``meta`` (with a CPU generator: ``torch.Generator`` has no meta device,
+and a meta draw reads none of its state), in ``cfg.param_dtype`` as the
+reference's structs.
 """
 from __future__ import annotations
 
@@ -16,16 +22,31 @@ from typing import Any
 import torch
 
 from ..configs.shapes import ShapeSpec
+from ..distributed import collectives
+from ..distributed.sharding import _tree_map_with_path, shard_tree
 from ..models import (Parallel, batch_specs, decode_step, init_cache,
                       init_params, loss_fn, prefill)
 from ..models.config import ModelConfig
+from ..models.model import gather_logits
 from ..optim import AdamWConfig, adamw_init, adamw_update
 from ..tree import tree_leaves, tree_map, tree_unflatten
 
 
-def _value_and_grad(cfg: ModelConfig, par: Parallel, params, batch):
+def _sum_over_data(par: Parallel, grads):
+    """Each rank's grads hold its rows' part of the batch's: their sum
+    over the data axes is the grad (the model axis needs none: its ranks'
+    backward passes sum there already)."""
+    if not par.dp:
+        return grads
+    group = par.data_group()
+    return tree_map(lambda g: collectives.all_reduce_(g, group), grads)
+
+
+def _value_and_grad(cfg: ModelConfig, par: Parallel, params, batch,
+                    reduce: bool = True):
     """((loss, metrics), grads): grads in each leaf's dtype, zeros for a
-    leaf the loss does not reach (as ``jax.value_and_grad``)."""
+    leaf the loss does not reach (as ``jax.value_and_grad``); under a
+    mesh, summed over the data axes unless ``reduce`` is off."""
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
     loss, metrics = loss_fn(cfg, live, batch, par)
     leaves = tree_leaves(live)
@@ -33,7 +54,52 @@ def _value_and_grad(cfg: ModelConfig, par: Parallel, params, batch):
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     metrics = {k: v.detach() for k, v in metrics.items()}
-    return (loss.detach(), metrics), tree_unflatten(params, grads)
+    grads = tree_unflatten(params, grads)
+    return (loss.detach(), metrics), \
+        _sum_over_data(par, grads) if reduce else grads
+
+
+def norm_groups(cfg: ModelConfig, par: Parallel):
+    """``global_norm``'s groups for ``par``: the model axis's group for a
+    leaf the rules split over it, None for the others (None without a
+    split)."""
+    if par.mesh is None or par.model_size == 1:
+        return None
+    rules = par.rules(cfg)
+    group = par.model_group()
+
+    def of(path, leaf):
+        spec = rules.param_spec(path, leaf)
+        return group if any(e == par.model_axis or (
+            isinstance(e, tuple) and par.model_axis in e) for e in spec) \
+            else None
+    return _tree_map_with_path(of, param_structs(cfg))
+
+
+def micro_slices(par: Parallel, batch: dict, micro_batches: int) -> list:
+    """The ``micro_batches`` slices of ``batch`` the reference's scan runs.
+    Under a split batch, slice m is the rank's block of the global batch's
+    slice m: the rank gathers the batch over the data axes and takes those
+    rows (its own block's slice m would group other rows)."""
+    def check(b):
+        if b % micro_batches:
+            raise ValueError(
+                f"batch {b} not divisible by {micro_batches} slices")
+    out = []
+    for m in range(micro_batches):
+        sl = {}
+        for k, v in batch.items():
+            if par.dp:
+                whole = torch.cat(collectives.all_gather(v, par.data_group()))
+                check(whole.shape[0])
+                rows = whole.shape[0] // micro_batches
+                sl[k] = par.rows(whole.narrow(0, m * rows, rows))
+            else:
+                check(v.shape[0])
+                rows = v.shape[0] // micro_batches
+                sl[k] = v.narrow(0, m * rows, rows)
+        out.append(sl)
+    return out
 
 
 def make_train_step(cfg: ModelConfig, par: Parallel,
@@ -44,44 +110,38 @@ def make_train_step(cfg: ModelConfig, par: Parallel,
 
     With ``micro_batches > 1`` the global batch is run as that many
     gradient-accumulation slices (a Python loop where the reference
-    scans): f32 grads summed, then divided, losses averaged.  Params and
-    opt_state are updated in place (``adamw_update``), as the reference's
-    jitted step donates them.  Under a mesh the reference pins the
-    micro-batch slices to the data axes; a per-rank program holds each
-    slice whole and has no layout to pin.
+    scans; ``micro_slices``): f32 grads summed, then divided, losses
+    averaged.  Params and opt_state are updated in place
+    (``adamw_update``), as the reference's jitted step donates them.
+    Under a mesh params and opt_state are the rank's blocks, the batch
+    its rows; the grads are summed over the data axes and the grad norm
+    counts each block once.
     """
     schedule = schedule or (lambda s: 1.0)
+    groups = norm_groups(cfg, par)
 
     def train_step(params, opt_state, batch):
         if micro_batches == 1:
             (loss, metrics), grads = _value_and_grad(cfg, par, params, batch)
         else:
-            def split(x):
-                b = x.shape[0]
-                if b % micro_batches:
-                    raise ValueError(
-                        f"batch {b} not divisible by {micro_batches} slices")
-                return x.reshape(micro_batches, b // micro_batches,
-                                 *x.shape[1:])
-
-            mb = {k: split(v) for k, v in batch.items()}
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                    device=p.device), params)
             ls, ces, auxs = [], [], []
-            for i in range(micro_batches):
-                (l, m), g = _value_and_grad(
-                    cfg, par, params, {k: v[i] for k, v in mb.items()})
+            for sl in micro_slices(par, batch, micro_batches):
+                (l, m), g = _value_and_grad(cfg, par, params, sl, reduce=False)
                 grads = tree_map(torch.add, grads, g)
                 ls.append(l)
                 ces.append(m["ce"])
                 auxs.append(m["aux"])
                 del g        # free this slice's grads before the next's
-            grads = tree_map(lambda g: g / micro_batches, grads)
+            grads = _sum_over_data(par, tree_map(
+                lambda g: g / micro_batches, grads))
             loss = torch.stack(ls).mean()
             metrics = {"ce": torch.stack(ces).mean(),
                        "aux": torch.stack(auxs).mean()}
         params, opt_state, gnorm = adamw_update(
-            opt_cfg, params, grads, opt_state, schedule(opt_state["count"]))
+            opt_cfg, params, grads, opt_state, schedule(opt_state["count"]),
+            groups)
         out_metrics = {"loss": loss, "ce": metrics["ce"],
                        "aux": metrics["aux"], "grad_norm": gnorm}
         return params, opt_state, out_metrics
@@ -102,11 +162,21 @@ def make_serve_step(cfg: ModelConfig, par: Parallel):
     ``embeds`` (B, 1, d) feeds the stub audio frontend in place of the
     tokens, as the reference's positional ``embeds`` argument does; pass
     None (the default) for token-input architectures.
+
+    Under a mesh the step takes the rank's blocks (``pos`` whole) and
+    returns the global next tokens and logits on every rank; given the
+    global tokens (or embeds), as it returns them, it takes its rows.
     """
 
     def serve_step(params, cache, tokens, pos, embeds=None):
+        if par.dp:
+            if tokens is not None and tokens.shape[0] == pos.shape[0]:
+                tokens = par.rows(tokens)
+            if embeds is not None and embeds.shape[0] == pos.shape[0]:
+                embeds = par.rows(embeds)
         logits, cache = decode_step(cfg, params, cache, tokens, pos, par=par,
                                     embeds=embeds)
+        logits = gather_logits(cfg, logits, par)
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         return next_tok, logits, cache
 
@@ -118,50 +188,65 @@ def make_serve_step(cfg: ModelConfig, par: Parallel):
 # --------------------------------------------------------------------- #
 
 
-def param_structs(cfg: ModelConfig) -> dict:
-    return init_params(cfg, torch.Generator(), "meta", cast=False)
+def param_structs(cfg: ModelConfig, par: Parallel | None = None) -> dict:
+    """``init_params`` on ``meta`` in ``param_dtype``: the global leaves,
+    or with ``par`` this rank's blocks."""
+    return init_params(cfg, torch.Generator(), "meta", cast=False, par=par)
 
 
 def opt_structs(params_structs) -> dict:
     return adamw_init(params_structs)
 
 
-def cache_structs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    return init_cache(cfg, batch, max_len, "meta")
+def cache_structs(cfg: ModelConfig, batch: int, max_len: int,
+                  par: Parallel | None = None) -> dict:
+    return init_cache(cfg, batch, max_len, "meta", par)
 
 
-def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict[str, Any]:
-    """All inputs of one (arch x shape) cell, as meta tensors.
+def _rows(par: Parallel | None, cfg: ModelConfig, tree):
+    """The rank's rows of a batch tree (its blocks under ``batch_spec``)."""
+    if par is None or par.mesh is None:
+        return tree
+    rules = par.rules(cfg)
+    return shard_tree(tree, rules.batch_spec(tree), par.mesh)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec,
+                par: Parallel | None = None) -> dict[str, Any]:
+    """All inputs of one (arch x shape) cell, as meta tensors: the global
+    ones, or with ``par`` the blocks its rank is given.
 
     train:   {params, opt_state, batch}
     prefill: {params, batch}            (batch without labels)
-    decode:  {params, cache, tokens, pos [, embeds]}
+    decode:  {params, cache, tokens, pos [, embeds]}   (pos whole)
     """
-    p = param_structs(cfg)
+    p = param_structs(cfg, par)
     if shape.kind == "train":
         return {
             "params": p,
             "opt_state": opt_structs(p),
-            "batch": batch_specs(cfg, shape.global_batch, shape.seq_len),
+            "batch": _rows(par, cfg, batch_specs(cfg, shape.global_batch,
+                                                 shape.seq_len)),
         }
     if shape.kind == "prefill":
         b = batch_specs(cfg, shape.global_batch, shape.seq_len)
         b.pop("labels")
-        return {"params": p, "batch": b}
+        return {"params": p, "batch": _rows(par, cfg, b)}
     if shape.kind == "decode":
         out = {
             "params": p,
-            "cache": cache_structs(cfg, shape.global_batch, shape.seq_len),
+            "cache": cache_structs(cfg, shape.global_batch, shape.seq_len,
+                                   par),
             "pos": torch.empty((shape.global_batch,), dtype=torch.int32,
                                device="meta"),
         }
         if cfg.frontend == "audio":
             out["tokens"] = None
-            out["embeds"] = torch.empty(
+            out["embeds"] = _rows(par, cfg, torch.empty(
                 (shape.global_batch, 1, cfg.d_model), dtype=torch.bfloat16,
-                device="meta")
+                device="meta"))
         else:
-            out["tokens"] = torch.empty((shape.global_batch, 1),
-                                        dtype=torch.int32, device="meta")
+            out["tokens"] = _rows(par, cfg, torch.empty(
+                (shape.global_batch, 1), dtype=torch.int32, device="meta"))
         return out
     raise ValueError(shape.kind)

@@ -21,6 +21,22 @@ middle and the last chunk of each loop and multiplies the middle one.
 The KV cache keeps the reference's (B, S, Hkv, hd) layout and is written
 in place, where the reference writes it functionally (``.at[].set`` /
 ``dynamic_update_slice``) and relies on buffer donation.
+
+Tensor parallelism (``par`` with a model axis of M > 1 ranks, weights
+held as the rank's blocks; ``Heads`` says which case holds):
+  * the q, k and v projections take the rank's column blocks;
+  * where the q heads divide M and a rank's q heads lie in whole KV
+    groups (or within one), attention runs on the rank's heads only,
+    with the KV heads they map to;
+  * a column block that is not whole heads (the k/v of every GQA arch
+    whose KV heads do not divide M, the q of an arch whose heads do
+    not) is gathered over the axis first; where the q heads do not
+    divide, attention then runs on all heads on every rank;
+  * the cache is held as ``cache_spec`` says: the rank's KV heads where
+    they divide M, else all of them (each rank writes them all); decode
+    reads a strided view of the heads the rank's q heads map to;
+  * ``w_o`` takes the rank's rows, then the output is summed over the
+    axis.
 """
 from __future__ import annotations
 
@@ -28,6 +44,8 @@ import functools
 
 import torch
 
+from ..distributed.collectives import (copy_to, gather_from, reduce_from,
+                                      split_to)
 from ..kernels import ops
 from ..counting import pad, steps
 from .config import ModelConfig
@@ -51,23 +69,93 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
     return p
 
 
-def _project_qkv(cfg: ModelConfig, params, x, positions, compute_dtype):
-    """x: (B, S, d) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd), with RoPE."""
-    b, s, _ = x.shape
-    x = x.to(compute_dtype)
-    q = x @ params["w_q"].to(compute_dtype)
-    k = x @ params["w_k"].to(compute_dtype)
-    v = x @ params["w_v"].to(compute_dtype)
+class Heads:
+    """How attention splits over ``par``'s model axis (module docstring).
+
+    q_split / kv_split: the w_q / w_k, w_v columns are split (their width
+    divides M); local: the rank attends with its q heads only; cache_heads:
+    the cache (and k, v) hold the rank's KV heads.  kv0, n_kv: the KV
+    heads the rank's q heads map to, in the k/v the rank computes (all
+    heads, unless ``cache_heads``).  Without a split every flag is off and
+    the rank computes everything."""
+
+    def __init__(self, cfg: ModelConfig, par=None):
+        m = par.model_size if par is not None else 1
+        self.par, self.tp = par, m > 1
+        hq, hkv = cfg.n_heads, cfg.n_kv_heads
+        g = hq // hkv
+        self.q_split = self.tp and cfg.q_dim % m == 0
+        self.kv_split = self.tp and cfg.kv_dim % m == 0
+        self.cache_heads = self.tp and hkv % m == 0
+        per = hq // m
+        self.local = self.tp and hq % m == 0 and (g % per == 0 or per % g == 0)
+        self.hq = per if self.local else hq
+        if not self.local:
+            self.kv0, self.n_kv = 0, hkv
+        elif self.cache_heads:
+            self.kv0, self.n_kv = 0, hkv // m
+        else:
+            self.n_kv = max(1, per // g)
+            self.kv0 = par.model_rank() * per // g
+
+
+def _proj(x, xf, params, w: str, b: str, split: bool, cfg, cdt):
+    """One projection: the rank's columns from ``xf`` (the input whose
+    grad is summed over the axis) where ``split``, else whole from ``x``."""
+    y = (xf if split else x) @ params[w].to(cdt)
     if cfg.qkv_bias:
-        q = q + params["b_q"].to(compute_dtype)
-        k = k + params["b_k"].to(compute_dtype)
-        v = v + params["b_v"].to(compute_dtype)
-    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+        y = y + params[b].to(cdt)
+    return y
+
+
+def _project_qkv(cfg: ModelConfig, params, x, positions, compute_dtype,
+                 heads: Heads | None = None):
+    """x: (B, S, d) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd), with RoPE.  Under
+    ``heads`` q holds the heads the rank attends with, k/v the KV heads
+    it writes to the cache (all of them unless ``heads.cache_heads``)."""
+    b, s, _ = x.shape
+    h = heads or Heads(cfg)
+    x = x.to(compute_dtype)
+    xf = x
+    if h.q_split or h.kv_split:
+        xf = copy_to(x, h.par.model_group())
+    q = _proj(x, xf, params, "w_q", "b_q", h.q_split, cfg, compute_dtype)
+    k = _proj(x, xf, params, "w_k", "b_k", h.kv_split, cfg, compute_dtype)
+    v = _proj(x, xf, params, "w_v", "b_v", h.kv_split, cfg, compute_dtype)
+    if h.q_split and not h.local:
+        q = gather_from(q, -1, h.par.model_group())
+    if h.kv_split and not h.cache_heads:
+        k = gather_from(k, -1, h.par.model_group())
+        v = gather_from(v, -1, h.par.model_group())
+    q = q.reshape(b, s, h.hq, cfg.head_dim)
+    k = k.reshape(b, s, -1, cfg.head_dim)
+    v = v.reshape(b, s, -1, cfg.head_dim)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _attended(h: Heads, k: torch.Tensor, v: torch.Tensor):
+    """The KV heads the rank's q heads read: all of ``k``/``v`` unless the
+    rank attends with its own q heads out of KV heads every rank holds
+    (then its heads' slice, whose grad is summed over the axis)."""
+    if not h.local or h.cache_heads:
+        return k, v
+    group = h.par.model_group()
+    return (copy_to(k, group).narrow(2, h.kv0, h.n_kv),
+            copy_to(v, group).narrow(2, h.kv0, h.n_kv))
+
+
+def _out_proj(h: Heads, cfg: ModelConfig, params, out: torch.Tensor, cdt):
+    """(B, S, Hq_held * hd) -> (B, S, d): the rank's rows of ``w_o``
+    (its heads, or its block of all heads' columns), summed over the
+    axis; whole where ``w_o``'s rows are not split."""
+    if not h.q_split:
+        return out @ params["w_o"].to(cdt)
+    group = h.par.model_group()
+    if not h.local:
+        out = split_to(out, -1, group)
+    return reduce_from(out @ params["w_o"].to(cdt), group)
 
 
 def _softcap(s: torch.Tensor, cap: float) -> torch.Tensor:
@@ -259,26 +347,29 @@ def _flash_bwd(cfg: ModelConfig, q, k, v, qpos, kpos, out, lse, do):
 
 
 def attention_forward(cfg: ModelConfig, params: dict, x: torch.Tensor,
-                      positions: torch.Tensor, compute_dtype) -> torch.Tensor:
+                      positions: torch.Tensor, compute_dtype,
+                      par=None) -> torch.Tensor:
     """Forward-pass self-attention (no cache)."""
-    q, k, v = _project_qkv(cfg, params, x, positions, compute_dtype)
-    out = flash_attention(cfg, q, k, v, positions, positions)
+    h = Heads(cfg, par)
+    q, k, v = _project_qkv(cfg, params, x, positions, compute_dtype, h)
+    out = flash_attention(cfg, q, *_attended(h, k, v), positions, positions)
     b, s = x.shape[:2]
-    return out.reshape(b, s, cfg.q_dim) @ params["w_o"].to(compute_dtype)
+    return _out_proj(h, cfg, params, out.reshape(b, s, -1), compute_dtype)
 
 
 def attention_prefill(cfg: ModelConfig, params: dict, x: torch.Tensor,
                       positions: torch.Tensor, cache: dict,
-                      compute_dtype) -> tuple[torch.Tensor, dict]:
+                      compute_dtype, par=None) -> tuple[torch.Tensor, dict]:
     """Prefill: causal attention, and K/V written into the cache at [0, S)."""
-    q, k, v = _project_qkv(cfg, params, x, positions, compute_dtype)
-    out = flash_attention(cfg, q, k, v, positions, positions)
+    h = Heads(cfg, par)
+    q, k, v = _project_qkv(cfg, params, x, positions, compute_dtype, h)
+    out = flash_attention(cfg, q, *_attended(h, k, v), positions, positions)
     s = x.shape[1]
     # In place; the reference's dynamic_update_slice is functional.
     cache["k"][:, :s] = k.to(cache["k"].dtype)
     cache["v"][:, :s] = v.to(cache["v"].dtype)
     b = x.shape[0]
-    y = out.reshape(b, s, cfg.q_dim) @ params["w_o"].to(compute_dtype)
+    y = _out_proj(h, cfg, params, out.reshape(b, s, -1), compute_dtype)
     return y, cache
 
 
@@ -291,13 +382,15 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 def attention_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
                      pos: torch.Tensor, cache: dict,
-                     compute_dtype) -> tuple[torch.Tensor, dict]:
+                     compute_dtype, par=None) -> tuple[torch.Tensor, dict]:
     """One-token decode: x (B, 1, d), pos (B,) int32 current position.
 
-    Writes k/v at ``pos`` and attends over cache[0..pos].
+    Writes k/v at ``pos`` and attends over cache[0..pos].  Under ``par``
+    x, pos and the cache are the rank's rows (module docstring).
     """
     b = x.shape[0]
-    q, k, v = _project_qkv(cfg, params, x, pos[:, None], compute_dtype)
+    h = Heads(cfg, par)
+    q, k, v = _project_qkv(cfg, params, x, pos[:, None], compute_dtype, h)
 
     # In place; the reference's .at[batch, pos].set is functional and its
     # caller donates the old cache.
@@ -307,7 +400,10 @@ def attention_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
     cv[rows, pos.long()] = v[:, 0].to(cv.dtype)
 
     s_max = ck.shape[1]
-    hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    # The KV heads the rank's q heads read (all of them without a split).
+    ck, cv = ck.narrow(2, h.kv0, h.n_kv), cv.narrow(2, h.kv0, h.n_kv)
+    hkv, hd = h.n_kv, cfg.head_dim
+    g = h.hq // hkv
     qg = q.reshape(b, hkv, g, hd)
     if (cfg.use_pallas_decode or x.device.type != "cpu") \
             and cfg.sliding_window == 0 \
@@ -335,6 +431,6 @@ def attention_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
         p = torch.softmax(sco, dim=-1)
         out = torch.einsum("bngs,bsnd->bngd", p.to(compute_dtype).float(),
                            vt.float())
-    y = out.reshape(b, 1, cfg.q_dim).to(compute_dtype) \
-        @ params["w_o"].to(compute_dtype)
+    y = _out_proj(h, cfg, params, out.reshape(b, 1, -1).to(compute_dtype),
+                  compute_dtype)
     return y, cache

@@ -3,6 +3,15 @@
 Counterpart of ``repro.models.layers``.  Weights keep the reference's
 layout (``x @ w`` with ``w`` of shape ``(d_in, d_out)``), and the f32
 internals of ``rmsnorm`` and ``apply_rope`` are kept as they are there.
+
+Under ``par`` (``models.Parallel``) with a model axis of more than one
+rank, each weight is this rank's block (``distributed.sharding``) and
+these functions compute its part, Megatron's way: ``ffn_apply`` takes
+gate and up by column and down by row, then sums over the axis;
+``embed`` looks up the rank's vocab rows (zeros for the other tokens)
+and sums; ``lm_head`` gives the rank's vocab columns of the logits.  A
+width that does not divide the axis is held whole and computed whole,
+as the rules replicate it.
 """
 from __future__ import annotations
 
@@ -10,6 +19,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from ..distributed.collectives import copy_to, reduce_from
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -23,10 +34,17 @@ def dtype_of(name: str) -> torch.dtype:
 # --------------------------------------------------------------------- #
 
 
+# Set by ``model.init_params`` while it draws a rank's blocks: each drawn
+# weight goes through it as soon as it is made (and is replaced by what
+# it returns), so that no two whole weights are held at once.
+leaf_hook = None
+
+
 def normal_init(gen: torch.Generator, shape, dtype, device,
                 scale: float = 0.02) -> torch.Tensor:
     w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return (scale * w).to(dtype)
+    w = w.mul_(scale).to(dtype)        # in place: one f32 copy at a time
+    return w if leaf_hook is None else leaf_hook(w)
 
 
 def out_proj_init(gen: torch.Generator, shape, dtype, device, n_layers: int,
@@ -93,11 +111,18 @@ def ffn_init(gen, d_model: int, d_ff: int, n_layers: int, dtype,
     }
 
 
-def ffn_apply(params: dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+def ffn_apply(params: dict, x: torch.Tensor, compute_dtype, par=None,
+              width: int = 0) -> torch.Tensor:
+    """SwiGLU; ``width`` is the global hidden width, which decides whether
+    ``par`` splits it (module docstring)."""
     x = x.to(compute_dtype)
+    tp = par is not None and par.split(width)
+    if tp:
+        x = copy_to(x, par.model_group())
     gate = F.silu(x @ params["w_gate"].to(compute_dtype))
     up = x @ params["w_up"].to(compute_dtype)
-    return (gate * up) @ params["w_down"].to(compute_dtype)
+    y = (gate * up) @ params["w_down"].to(compute_dtype)
+    return reduce_from(y, par.model_group()) if tp else y
 
 
 # --------------------------------------------------------------------- #
@@ -109,12 +134,25 @@ def embedding_init(gen, vocab: int, d_model: int, dtype, device) -> torch.Tensor
     return normal_init(gen, (vocab, d_model), dtype, device)
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor,
-          compute_dtype) -> torch.Tensor:
-    return table[tokens.long()].to(compute_dtype)
+def embed(table: torch.Tensor, tokens: torch.Tensor, compute_dtype,
+          par=None, vocab: int = 0) -> torch.Tensor:
+    """Rows of ``table`` for ``tokens``; under ``par`` splitting ``vocab``
+    the table is the rank's rows, and every token's row comes from the
+    one rank that holds it (the others add zeros, so the sum is exact)."""
+    if par is None or not par.split(vocab):
+        return table[tokens.long()].to(compute_dtype)
+    rows = table.shape[0]
+    local = tokens.long() - par.model_rank() * rows
+    inside = (local >= 0) & (local < rows)
+    x = table[torch.where(inside, local, torch.zeros_like(local))] \
+        * inside[..., None].to(table.dtype)
+    return reduce_from(x.to(compute_dtype), par.model_group())
 
 
-def lm_head(table_or_w: torch.Tensor, x: torch.Tensor,
-            tied: bool) -> torch.Tensor:
+def lm_head(table_or_w: torch.Tensor, x: torch.Tensor, tied: bool,
+            par=None, vocab: int = 0) -> torch.Tensor:
+    """Logits; under ``par`` splitting ``vocab``, the rank's columns."""
     w = table_or_w.to(x.dtype)
+    if par is not None and par.split(vocab):
+        x = copy_to(x, par.model_group())
     return x @ (w.T if tied else w)

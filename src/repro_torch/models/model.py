@@ -38,14 +38,22 @@ uncast model (``init_params(cast=False)``): f32 master weights, cast to
 the compute dtype at each use, as the reference trains.
 
 Parallelism: ``Parallel`` names a mesh (``launch.mesh``) and picks the
-MoE mode as the reference's does; under a mesh of more than one rank
-along the model axis the MoE blocks run the EP bodies through
-``moe.sharded_moe`` with the reference's specs (batch over the data
-axes, tokens over the model axis for "ep", replicated for "ep_rep").
-Every other weight is used whole on every rank: the reference's tensor
-parallelism comes from XLA propagating its weight shardings, which a
-per-rank PyTorch program does not have.  The numbers are the
-reference's; the memory saving of sharded weights is not.
+MoE mode as the reference's does.  Under a mesh every function here takes
+this rank's blocks, the ones ``jit``'s ``in_shardings`` would hand a
+device in the reference's sharded step: the params by
+``ShardingRules.param_specs`` (``init_params(par=...)`` draws them leaf
+by leaf), the cache by ``cache_held_specs`` (``init_cache(par=...)``),
+the batch, tokens and embeds by ``batch_spec``; ``pos`` whole.  Each rank
+computes its part: Megatron tensor parallelism over the model axis
+(``layers``, ``attention``, ``ssm``), its rows of the batch over the data
+axes, the MoE blocks through the EP bodies (``moe.sharded_moe``) or the
+"local" mode over the mesh (``moe.moe_apply_sharded``).  The values are
+the reference's single-program values: the cross-entropy's log-sum-exp
+is taken over the vocab's blocks and its mean over the global batch,
+and the "local" mode's router statistics, capacity and queues are the
+global batch's; the EP bodies keep their per-shard semantics (the first
+shard's ``aux``).  The logits come back as the rank's block
+(``gather_logits`` puts them together).  Without a mesh nothing changes.
 """
 from __future__ import annotations
 
@@ -63,23 +71,77 @@ from . import ssm
 from .config import LayerSpec, ModelConfig
 from .layers import (dtype_of, embed, embedding_init, ffn_apply, ffn_init,
                      lm_head, normal_init, rmsnorm, rmsnorm_init)
+from ..distributed import collectives
 from ..distributed.sharding import PartitionSpec as P
+from ..distributed.sharding import (FUSED, ShardingRules, rank_block,
+                                    shard_tree)
 
 
 @dataclasses.dataclass(frozen=True)
 class Parallel:
-    """How a step function should distribute work (None => single shard)."""
+    """How a step function should distribute work (None => single shard).
+
+    Under a mesh every tensor a step is given is this rank's block
+    (module docstring); ``batch_split`` says whether the batch is split
+    over the data axes (False where it does not divide them, as the
+    rules then keep it whole: every data rank computes the same rows).
+    """
 
     mesh: object | None = None               # a launch.mesh.Mesh
     data_axes: tuple[str, ...] = ("data",)   # batch axes ("pod","data") multi-pod
     model_axis: str = "model"
     moe_mode: str = "auto"    # "auto" | "ep" | "ep_rep" | "local"
+    batch_split: bool = True
 
     @property
     def model_size(self) -> int:
         if self.mesh is None:
             return 1
         return self.mesh.shape[self.model_axis]
+
+    @property
+    def n_data(self) -> int:
+        if self.mesh is None:
+            return 1
+        return math.prod(self.mesh.shape[a] for a in self.data_axes)
+
+    @property
+    def dp(self) -> bool:
+        """Whether the ranks along the data axes hold different rows."""
+        return self.batch_split and self.n_data > 1
+
+    def split(self, dim: int) -> bool:
+        """Whether the rules split a dimension of global size ``dim`` over
+        the model axis (it divides an axis of more than one rank)."""
+        return self.model_size > 1 and dim % self.model_size == 0
+
+    def model_group(self):
+        return self.mesh.group(self.model_axis)
+
+    def model_rank(self) -> int:
+        return self.mesh.coordinate()[self.model_axis] if self.mesh else 0
+
+    def data_group(self):
+        return self.mesh.group_over(self.data_axes)
+
+    def data_rank(self) -> int:
+        """This rank's index along the data axes, row-major."""
+        if self.mesh is None:
+            return 0
+        coord, idx = self.mesh.coordinate(), 0
+        for a in self.data_axes:
+            idx = idx * self.mesh.shape[a] + coord[a]
+        return idx
+
+    def rules(self, cfg: ModelConfig):
+        return ShardingRules(cfg, self.mesh, self.model_axis, self.data_axes)
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of rows of ``x`` (whole without ``dp``)."""
+        if not self.dp:
+            return x
+        n = x.shape[0] // self.n_data
+        return x.narrow(0, self.data_rank() * n, n)
 
     def resolve_moe(self, cfg: ModelConfig, seq_len: int) -> str:
         if self.mesh is None or self.model_size == 1:
@@ -155,7 +217,8 @@ def _block_init(gen, cfg: ModelConfig, spec: LayerSpec, dtype, device) -> dict:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
-                device="cuda", cast: bool = True) -> dict:
+                device="cuda", cast: bool = True,
+                par: Parallel | None = None) -> dict:
     """Random weights drawn in ``cfg.param_dtype`` on ``device``.
 
     With ``cast`` (serve) each block is cast by :func:`cast_for_compute`
@@ -164,8 +227,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     cast model plus one block.  ``cast=False`` (training) keeps every
     leaf in ``param_dtype``, the reference's master weights.
     ``generator`` must live on ``device``; None seeds one with 0.
+
+    Under ``par``'s mesh the result is this rank's blocks
+    (``ShardingRules.param_specs``): every weight is drawn whole, as
+    without a mesh (so the blocks are those of the single-shard draw),
+    and replaced by its block before the next one is drawn; the peak is
+    the rank's blocks plus one whole weight.
     """
     check_supported(cfg)
+    if par is not None and par.mesh is not None:
+        return _init_blocks(cfg, generator, device, cast, par)
     dev = resolve_device(device)
     gen = generator
     if gen is None:
@@ -183,13 +254,78 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
         params.update(drawn({"head": normal_init(
             gen, (cfg.d_model, cfg.padded_vocab), dtype, dev)}))
     if cfg.first_layer_dense:
-        first_cfg = dataclasses.replace(
-            cfg, d_ff=cfg.first_dense_d_ff or cfg.d_ff)
-        params["first"] = drawn(_block_init(gen, first_cfg, _first_spec(cfg),
-                                            dtype, dev))
+        params["first"] = drawn(_block_init(gen, _first_cfg(cfg),
+                                            _first_spec(cfg), dtype, dev))
     params["layers"] = [drawn(_block_init(gen, cfg, spec, dtype, dev))
                         for spec in layer_specs(cfg)]
     return params
+
+
+def _paths(tree, path=()):
+    """(path, leaf) of every tensor leaf."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _paths(v, path + (i,))
+    elif tree is not None:
+        yield path, tree
+
+
+def _init_blocks(cfg, generator, device, cast: bool, par: Parallel) -> dict:
+    """``init_params`` under a mesh (its docstring).  A first draw on
+    ``meta`` finds which leaf each drawn weight becomes; the real draw
+    then hands each weight to ``layers.leaf_hook``, which replaces it by
+    its block at once.  A drawn weight that is transformed before it
+    becomes a leaf (an EP-slotted stack) is cut after its block is drawn."""
+    from . import layers
+    rules = par.rules(cfg)
+    made: list = []
+    layers.leaf_hook = lambda w: made.append(w) or w
+    try:
+        meta = init_params(cfg, torch.Generator(), "meta", cast=False)
+    finally:
+        layers.leaf_hook = None
+    specs = rules.param_specs(meta)
+    where = {id(t): p for p, t in _paths(meta)}
+    order = iter([where.get(id(t)) for t in made])
+    done: set = set()
+
+    def spec_of(path):
+        node = specs
+        for k in path:
+            node = node[k]
+        return node
+
+    cdt = dtype_of(cfg.compute_dtype)
+
+    def hook(w):
+        path = next(order)
+        if path is None:
+            return w
+        w = rank_block(w, spec_of(path), par.mesh, path[-1] in FUSED)
+        if cast and path[-1] not in F32_LEAVES:
+            w = w.to(cdt)              # as ``cast_for_compute`` casts it
+        done.add(id(w))
+        return w
+
+    layers.leaf_hook = hook
+    try:
+        params = init_params(cfg, generator, device, cast=False)
+    finally:
+        layers.leaf_hook = None
+
+    def rest(node, path):        # the leaves the hook did not see
+        if isinstance(node, dict):
+            return {k: rest(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [rest(v, path + (i,)) for i, v in enumerate(node)]
+        if id(node) in done:
+            return node
+        return rank_block(node, spec_of(path), par.mesh, path[-1] in FUSED)
+    params = rest(params, ())
+    return cast_for_compute(cfg, params) if cast else params
 
 
 def cast_for_compute(cfg: ModelConfig, params):
@@ -226,10 +362,12 @@ def _apply_mixer(cfg, spec, mp, x, positions, par, cdt, cache, mode):
     recurrent state (prefill and decode run the same step)."""
     if spec.mixer == "attn":
         if mode == "forward":
-            return attn.attention_forward(cfg, mp, x, positions, cdt), None
+            return attn.attention_forward(cfg, mp, x, positions, cdt,
+                                          par), None
         if mode == "prefill":
-            return attn.attention_prefill(cfg, mp, x, positions, cache, cdt)
-        return attn.attention_decode(cfg, mp, x, positions, cache, cdt)
+            return attn.attention_prefill(cfg, mp, x, positions, cache, cdt,
+                                          par)
+        return attn.attention_decode(cfg, mp, x, positions, cache, cdt, par)
     if spec.mixer == "slstm":
         if mode == "forward":
             return ssm.slstm_forward(cfg, mp, x, cdt), None
@@ -241,27 +379,29 @@ def _apply_mixer(cfg, spec, mp, x, positions, par, cdt, cache, mode):
 
 
 def _apply_moe(cfg, bp_ffn, x, par: Parallel, cdt):
-    """The MoE block: local math, or the EP body ``par`` resolves to."""
+    """The MoE block: local math, the "local" mode over ``par``'s mesh
+    (``moe.moe_apply_sharded``), or the EP body ``par`` resolves to."""
     mode = par.resolve_moe(cfg, x.shape[1])
-    if mode == "local":
+    if mode != "local":
+        return apply_ep(cfg, bp_ffn, x, par, cdt, mode)
+    if par.mesh is None or (not par.dp and par.model_size == 1):
         return moe_mod.moe_apply_local(cfg, bp_ffn, x, cdt)
-    return apply_ep(cfg, bp_ffn, x, par, cdt, mode)
+    return moe_mod.moe_apply_sharded(cfg, bp_ffn, x, cdt, par)
 
 
 def apply_ep(cfg, bp_ffn, x, par: Parallel, cdt, mode: str):
     """The EP body ``mode`` ("ep" or "ep_rep") over ``par``'s mesh through
     ``moe.sharded_moe``, with the reference's in/out specs
     (``repro/models/model.py:_apply_moe``); at any model-axis size, one
-    included."""
-    mesh = par.mesh
-    n_data = math.prod(mesh.shape[a] for a in par.data_axes)
+    included.  ``x`` is the rank's data rows and the expert stacks its
+    blocks; the shared experts run outside the body, split over the model
+    axis as the rules shard them (the reference's body runs them whole on
+    its tokens: the same sums in another order)."""
     batch_axes = par.data_axes if len(par.data_axes) > 1 else par.data_axes[0]
-    if x.shape[0] % n_data != 0:     # e.g. long-context batch=1 decode
+    if not par.dp:                   # e.g. long-context batch=1 decode
         batch_axes = None
     in_params_spec = {k: P(par.model_axis) for k in ("w_gate", "w_up", "w_down")}
     in_params_spec["router"] = P()
-    if "shared" in bp_ffn:
-        in_params_spec["shared"] = {k: P() for k in bp_ffn["shared"]}
     aux_spec = {"load_balance_loss": P(), "router_z_loss": P(),
                 "expert_counts": P()}
     if mode == "ep":
@@ -276,10 +416,14 @@ def apply_ep(cfg, bp_ffn, x, par: Parallel, cdt, mode: str):
         raise ValueError(mode)
     sharded = moe_mod.sharded_moe(
         lambda p, xx: body(cfg, p, x_local=xx, axis_name=par.model_axis,
-                           compute_dtype=cdt, mesh=mesh),
-        mesh=mesh, in_specs=(in_params_spec, x_spec),
-        out_specs=(x_spec, aux_spec))
-    return sharded(bp_ffn, x)
+                           compute_dtype=cdt, mesh=par.mesh),
+        mesh=par.mesh, in_specs=(in_params_spec, x_spec),
+        out_specs=(x_spec, aux_spec), axis=par.model_axis)
+    y, aux = sharded({k: bp_ffn[k] for k in in_params_spec}, x)
+    if "shared" in bp_ffn:
+        y = y + ffn_apply(bp_ffn["shared"], x, cdt, par,
+                          cfg.d_ff_expert * cfg.n_shared_experts)
+    return y, aux
 
 
 def _apply_block(cfg, spec, bp, x, positions, par, cdt, cache, mode):
@@ -293,21 +437,22 @@ def _apply_block(cfg, spec, bp, x, positions, par, cdt, cache, mode):
         return x, cache, aux
     h = rmsnorm(bp["norm2"], x, cfg.norm_eps)
     if spec.ffn == "dense":
-        x = x + ffn_apply(bp["ffn"], h, cdt)
+        x = x + ffn_apply(bp["ffn"], h, cdt, par, cfg.d_ff)
     else:
         out, aux = _apply_moe(cfg, bp["ffn"], h, par, cdt)
         x = x + out
     return x, cache, aux
 
 
-def _embed_inputs(cfg, params, batch, cdt):
+def _embed_inputs(cfg, params, batch, cdt, par=None):
     """batch: dict with 'tokens' (B, S_t) and/or 'embeds' (B, S_e, d);
     embeddings come first, and positions run over the whole prompt."""
     parts = []
     if "embeds" in batch:
         parts.append(batch["embeds"].to(cdt))
     if "tokens" in batch:
-        parts.append(embed(params["embed"], batch["tokens"], cdt))
+        parts.append(embed(params["embed"], batch["tokens"], cdt, par,
+                           cfg.padded_vocab))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     b, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None] \
@@ -315,10 +460,28 @@ def _embed_inputs(cfg, params, batch, cdt):
     return x, positions
 
 
-def _logits(cfg, params, x):
+def _logits(cfg, params, x, par=None):
+    """Logits over the padded vocab; under ``par`` the rank's columns."""
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["head"]
-    return lm_head(table, x, cfg.tie_embeddings)
+    return lm_head(table, x, cfg.tie_embeddings, par, cfg.padded_vocab)
+
+
+def _first_cfg(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` of the dense first block (its FFN width)."""
+    return dataclasses.replace(cfg, d_ff=cfg.first_dense_d_ff or cfg.d_ff)
+
+
+def gather_logits(cfg, logits: torch.Tensor, par: Parallel) -> torch.Tensor:
+    """The global logits (B, ..., V_padded) on every rank, from the rank's
+    block (its data rows, its vocab columns)."""
+    if par.mesh is None:
+        return logits
+    if par.split(cfg.padded_vocab):
+        logits = collectives.gather_from(logits, -1, par.model_group())
+    if par.dp:
+        logits = collectives.gather_from(logits, 0, par.data_group())
+    return logits
 
 
 # ===================================================================== #
@@ -349,7 +512,9 @@ def _takes_grad(params: dict) -> bool:
 
 def forward(cfg: ModelConfig, params: dict, batch: dict,
             par: Parallel = Parallel(), return_router_stats: bool = False):
-    """Forward pass: returns (logits (B,S,V_padded), aux_loss).
+    """Forward pass: returns (logits (B,S,V_padded), aux_loss); under a
+    mesh the logits are the rank's block (its rows, its vocab columns:
+    ``gather_logits`` puts them together).
 
     With ``return_router_stats`` also returns per-unit expert-selection
     counts (n_scan_units, n_experts): the activation statistics that feed
@@ -358,14 +523,15 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
     ``cfg.remat == "unit"`` and a grad is to be taken (module docstring).
     """
     cdt = dtype_of(cfg.compute_dtype)
-    x, positions = _embed_inputs(cfg, params, batch, cdt)
+    x, positions = _embed_inputs(cfg, params, batch, cdt, par)
     n_units = n_scan_units(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     counts = torch.zeros((n_units, max(cfg.n_experts, 1)),
                          dtype=torch.float32, device=x.device)
     if cfg.first_layer_dense:
-        x, _, _ = _apply_block(cfg, _first_spec(cfg), params["first"], x,
-                               positions, par, cdt, None, "forward")
+        x, _, _ = _apply_block(_first_cfg(cfg), _first_spec(cfg),
+                               params["first"], x, positions, par, cdt, None,
+                               "forward")
     remat = cfg.remat == "unit" and _takes_grad(params)
     width = len(cfg.pattern)
     for u in range(n_units):
@@ -379,7 +545,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
             x, aux, counts_u = _apply_unit(cfg, unit, x, positions, par, cdt)
         aux_total = aux_total + aux
         counts[u] = counts_u
-    logits = _logits(cfg, params, x)
+    logits = _logits(cfg, params, x, par)
     if return_router_stats:
         return logits, aux_total, counts
     return logits, aux_total
@@ -392,19 +558,40 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
     batch["labels"]: (B, S) int, -1 => ignore.  The log-softmax runs in
     f32 over the padded vocab, as the reference's.  (The reference's data
     pipeline gives the input tokens themselves as labels, unshifted.)
+    Under a mesh the logits are the rank's vocab columns: the log-sum-exp
+    comes from the max, the sum of exponentials and the label's logit,
+    each taken over the model axis; and the mean is over the global batch
+    (the sums of the rank's rows and counts, taken over the data axes).
     """
     logits, aux = forward(cfg, params, batch, par)
     labels = batch["labels"]
     s = min(logits.shape[1], labels.shape[1])
     logits = logits[:, -s:].float()
     labels = labels[:, -s:].long()
-    logp = torch.log_softmax(logits, dim=-1)
     valid = labels >= 0
     safe = torch.where(valid, labels, torch.zeros_like(labels))
-    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    if par.split(cfg.padded_vocab):
+        group = par.model_group()
+        cols = logits.shape[-1]
+        top = collectives.all_max(logits.amax(dim=-1, keepdim=True), group)
+        total = collectives.reduce_from(
+            torch.exp(logits - top).sum(dim=-1), group)
+        local = safe - par.model_rank() * cols
+        inside = (local >= 0) & (local < cols)
+        picked = torch.gather(logits, -1, torch.where(
+            inside, local, torch.zeros_like(local))[..., None])[..., 0]
+        picked = collectives.reduce_from(picked * inside.to(picked.dtype),
+                                         group)
+        nll = top[..., 0] + torch.log(total) - picked
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    denom = torch.clamp(valid.sum(), min=1)
-    ce = nll.sum() / denom
+    nll_sum, count = nll.sum(), valid.sum()
+    if par.dp:
+        nll_sum = collectives.reduce_from(nll_sum, par.data_group())
+        count = collectives.all_reduce(count, par.data_group())
+    ce = nll_sum / torch.clamp(count, min=1)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
@@ -417,17 +604,34 @@ def _block_cache(cfg, spec: LayerSpec, batch: int, max_len: int, cdt, dev):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device="cuda") -> dict:
+               device="cuda", par: Parallel | None = None) -> dict:
     """Decode cache: one entry per layer, a KV cache in the compute dtype
-    for attention and the f32 recurrent state for the other mixers."""
+    for attention and the f32 recurrent state for the other mixers.
+    ``batch`` is the global batch; under ``par``'s mesh the cache is the
+    rank's blocks (``ShardingRules.cache_held_specs``), made one layer at
+    a time."""
     check_supported(cfg)
     dev = resolve_device(device)
     cdt = dtype_of(cfg.compute_dtype)
-    cache = {"layers": [_block_cache(cfg, spec, batch, max_len, cdt, dev)
-                        for spec in layer_specs(cfg)]}
+    mesh = par.mesh if par is not None else None
+    rows = batch // par.n_data if mesh is not None and par.dp else batch
+    specs = None
+    if mesh is not None:
+        specs = par.rules(cfg).cache_held_specs(
+            init_cache(cfg, batch, max_len, "meta"))
+
+    def made(spec_node, layer_spec):
+        block = _block_cache(cfg, layer_spec, rows, max_len, cdt, dev)
+        if spec_node is None:
+            return block
+        # Batch already cut: take the blocks along the model axis only.
+        return shard_tree(block, {k: P(None, *v[1:])
+                                  for k, v in spec_node.items()}, mesh)
+
+    cache = {"layers": [made(specs and specs["layers"][i], spec)
+                        for i, spec in enumerate(layer_specs(cfg))]}
     if cfg.first_layer_dense:
-        cache["first"] = _block_cache(cfg, cfg.pattern[0], batch, max_len,
-                                      cdt, dev)
+        cache["first"] = made(specs and specs["first"], cfg.pattern[0])
     return cache
 
 
@@ -436,8 +640,8 @@ def _run_stack(cfg, params, cache, x, positions, par, cdt, mode):
     block returns (the same KV cache, or the new recurrent state)."""
     if cfg.first_layer_dense:
         x, cache["first"], _ = _apply_block(
-            cfg, _first_spec(cfg), params["first"], x, positions, par, cdt,
-            cache["first"], mode)
+            _first_cfg(cfg), _first_spec(cfg), params["first"], x, positions,
+            par, cdt, cache["first"], mode)
     layers = cache["layers"]
     for i, (spec, bp) in enumerate(zip(layer_specs(cfg), params["layers"])):
         x, layers[i], _ = _apply_block(cfg, spec, bp, x, positions, par, cdt,
@@ -450,13 +654,15 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int,
     """Run the prompt through the stack: (last-token logits (B, V), cache).
 
     Attention blocks write K/V for positions [0, S); recurrent blocks
-    carry their final state.
+    carry their final state.  Under a mesh the logits and the cache are
+    the rank's blocks.
     """
     cdt = dtype_of(cfg.compute_dtype)
-    x, positions = _embed_inputs(cfg, params, batch, cdt)
-    cache = init_cache(cfg, x.shape[0], max_len, x.device)
+    x, positions = _embed_inputs(cfg, params, batch, cdt, par)
+    rows = x.shape[0] * (par.n_data if par.dp else 1)
+    cache = init_cache(cfg, rows, max_len, x.device, par)
     x = _run_stack(cfg, params, cache, x, positions, par, cdt, "prefill")
-    logits = _logits(cfg, params, x[:, -1:, :])
+    logits = _logits(cfg, params, x[:, -1:, :], par)
     return logits[:, 0, :], cache
 
 
@@ -468,13 +674,16 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
 
     tokens: (B, 1) int32 (or ``embeds`` (B, 1, d) for stub frontends, in
     which case ``tokens`` is not read); pos: (B,) int32 positions of these
-    tokens.  Returns (logits (B, V), cache).
+    tokens.  Returns (logits (B, V), cache).  Under a mesh tokens, embeds,
+    the cache and the logits are the rank's blocks, and ``pos`` is whole
+    (the reference's ``in_shardings`` leave it so): the rank reads its
+    rows of it.
     """
     cdt = dtype_of(cfg.compute_dtype)
     if embeds is not None:
         x = embeds.to(cdt)
     else:
-        x = embed(params["embed"], tokens, cdt)
-    x = _run_stack(cfg, params, cache, x, pos, par, cdt, "decode")
-    logits = _logits(cfg, params, x)
+        x = embed(params["embed"], tokens, cdt, par, cfg.padded_vocab)
+    x = _run_stack(cfg, params, cache, x, par.rows(pos), par, cdt, "decode")
+    logits = _logits(cfg, params, x, par)
     return logits[:, 0, :], cache

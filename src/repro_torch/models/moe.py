@@ -23,12 +23,23 @@ are summed before the top-K weights.  On one device the V buckets run
 through ``gmm`` as one stack.
 
 Expert parallelism (``moe_apply_ep``, ``moe_apply_ep_replicated``) runs
-on ``torch.distributed`` inside ``sharded_moe``, which keeps
-``shard_map``'s contract: global tensors in, each rank's block through the
-body, global tensors out.  The bodies take the reference's arguments and
-the mesh whose ``axis_name`` they exchange over (a ``shard_map`` body
-finds it in its context).  Their all-to-all and all-reduce are
-``distributed.collectives``' (differentiable, counted).
+on ``torch.distributed`` inside ``sharded_moe``, which takes the rank's
+data rows and its blocks of the expert stacks (the rank holds no more)
+and gives the body what ``shard_map`` would: along the EP axis, the
+rank's block of the tokens (or all of them, replicated) and the rest of
+the weights whole; the output is put back together along that axis, and
+a per-shard output (``aux``) is the first rank's on every rank.  The
+bodies take the reference's arguments and the mesh whose ``axis_name``
+they exchange over (a ``shard_map`` body finds it in its context).
+Their all-to-all and all-reduce are ``distributed.collectives``'
+(differentiable, counted).
+
+Without EP, a mesh runs ``moe_apply_sharded``: the reference's
+single-program "local" mode, with its capacity, queue order and router
+statistics those of the global batch, and each rank computing its part:
+the rank's block of every expert's capacity slots (the slots split over
+the data axes) and its block of ``d_ff`` (split over the model axis, as
+the rules shard the stacks when the bucket count does not divide it).
 """
 from __future__ import annotations
 
@@ -38,7 +49,9 @@ import numpy as np
 import torch
 
 from ..distributed import collectives
-from ..distributed.sharding import assemble, local_shard
+from ..distributed.collectives import (copy_to, gather_from, reduce_from,
+                                      split_to)
+from ..distributed.sharding import assemble
 from ..kernels import ops
 from .config import ModelConfig
 from .layers import ffn_apply, ffn_init, normal_init, out_proj_init
@@ -130,8 +143,11 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
 # --------------------------------------------------------------------- #
 
 
-def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor):
-    """x: (T, d) -> (weights (T,K), idx (T,K) int64, aux dict)."""
+def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor,
+          data_group=None, n_data: int = 1):
+    """x: (T, d) -> (weights (T,K), idx (T,K) int64, aux dict).  With
+    ``data_group`` x is one of ``n_data`` equal blocks of the batch, and
+    the aux statistics are the whole batch's (sums over the group)."""
     logits = x.float() @ router_w.float()                            # (T, E)
     probs = torch.softmax(logits, dim=-1)
     # lax.top_k takes the lower index among equal values; a stable
@@ -143,15 +159,22 @@ def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor):
     weights = top_p / top_p.sum(dim=-1, keepdim=True)                # Eq. 15
     # Switch-style load-balance loss + router z-loss.
     e = cfg.n_experts
-    me = probs.mean(dim=0)                                           # (E,)
     # scatter_add of ones (exact in f32), not bincount: bincount on a CUDA
     # tensor waits for the device to size its output.
     flat = top_i.reshape(-1)
-    ce = torch.zeros(e, dtype=torch.float32, device=x.device).scatter_add_(
-        0, flat, torch.ones_like(flat, dtype=torch.float32)) / top_i.numel()
+    counts = torch.zeros(e, dtype=torch.float32, device=x.device).scatter_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.float32))
+    z = torch.logsumexp(logits, dim=-1) ** 2
+    if data_group is None:
+        me, ce, zl = probs.mean(dim=0), counts / top_i.numel(), z.mean()
+    else:
+        t = x.shape[0] * n_data
+        me = reduce_from(probs.sum(dim=0), data_group) / t
+        ce = collectives.all_reduce(counts, data_group) / (t * cfg.top_k)
+        zl = reduce_from(z.sum(), data_group) / t
     aux = {
         "load_balance_loss": e * torch.sum(me * ce),
-        "router_z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
+        "router_z_loss": zl,
         "expert_counts": ce,
     }
     return weights, top_i, aux
@@ -294,6 +317,74 @@ def moe_apply_local(cfg: ModelConfig, params: dict, x: torch.Tensor,
     return y.reshape(b, s, d), aux
 
 
+def moe_apply_sharded(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                      compute_dtype, par) -> tuple[torch.Tensor, dict]:
+    """The "local" mode under ``par``'s mesh (module docstring): x is the
+    rank's data rows (B_loc, S, d), the expert stacks its blocks of d_ff
+    where ``par`` splits them.  Routing is the rank's; the router's
+    statistics, the capacity and every expert's queue are the global
+    batch's: the rank gathers all ranks' expert choices over the data
+    axes and plans the dispatch as one device would, so each rank's copies
+    take the slots a single program gives them.  Each rank then computes
+    its block of every expert's slots (with every rank's tokens, gathered
+    over the data axes) through ``gmm``, the expert outputs are gathered
+    back, and the rank combines its own tokens.  Equal to
+    ``moe_apply_local`` on the whole batch up to summation order."""
+    b, s, d = x.shape
+    t, k = b * s, cfg.top_k
+    dg = par.data_group() if par.dp else None
+    n_d, me = (par.n_data, par.data_rank()) if par.dp else (1, 0)
+    xt = x.reshape(t, d).to(compute_dtype)
+    weights, idx, aux = route(cfg, params["router"], xt, dg, n_d)
+    v_idx, n_b, cap, frag = _plan(cfg, idx, t * n_d)
+    kf = k * frag
+    if dg is None:
+        v_all, x_all = v_idx, xt
+    else:       # every rank's choices and tokens, in the batch's row order
+        v_all = torch.cat(collectives.all_gather(v_idx, dg))
+        x_all = copy_to(gather_from(xt, 0, dg), dg)
+    slot_token, slot_valid, copy_slot, copy_kept = dispatch_indices(
+        v_all, n_b, cap)
+    # The (n_b, cap) slots padded to n_d equal blocks of c_loc; this
+    # rank computes block ``me`` of every expert.
+    c_loc = -(-cap // n_d)
+    pad = c_loc * n_d - cap
+    slot_token = torch.cat([slot_token.view(n_b, cap),
+                            slot_token.new_zeros((n_b, pad))], dim=1)
+    slot_valid = torch.cat([slot_valid.view(n_b, cap),
+                            slot_valid.new_zeros((n_b, pad))], dim=1)
+    c0 = me * c_loc
+    my_tok = slot_token[:, c0:c0 + c_loc].reshape(-1)
+    my_valid = slot_valid[:, c0:c0 + c_loc].reshape(-1)
+    e_of, c_of = copy_slot // cap, copy_slot % cap
+    in_block = copy_kept & (c_of >= c0) & (c_of < c0 + c_loc)
+    buckets = _gather(x_all, my_tok // kf, my_valid,
+                      torch.where(in_block, e_of * c_loc + c_of - c0,
+                                  torch.zeros_like(c_of)), in_block, kf)
+    tp = par.split(cfg.d_ff_expert // frag)
+    xs = buckets.reshape(n_b, c_loc, d)
+    if tp:
+        xs = copy_to(xs, par.model_group())
+    outs = expert_ffn(params, xs, compute_dtype)
+    if tp:
+        outs = reduce_from(outs, par.model_group())
+    if dg is not None:        # each rank combines its copies from all slots
+        outs = copy_to(gather_from(outs, 1, dg), dg)
+    # This rank's copies, and for each padded slot the copy it holds.
+    lo, n_copies = me * t * kf, t * kf
+    mine = copy_slot[lo:lo + n_copies]
+    rel = slot_token.reshape(-1) - lo
+    held = slot_valid.reshape(-1) & (rel >= 0) & (rel < n_copies)
+    gathered = _gather(outs.reshape(-1, d), (mine // cap) * (c_loc * n_d)
+                       + mine % cap, copy_kept[lo:lo + n_copies],
+                       torch.where(held, rel, torch.zeros_like(rel)), held, 1)
+    y = _combine(gathered, weights, t, k, frag, compute_dtype)
+    if cfg.n_shared_experts > 0:
+        y = y + ffn_apply(params["shared"], xt, compute_dtype, par,
+                          cfg.d_ff_expert * cfg.n_shared_experts)
+    return y.reshape(b, s, d), aux
+
+
 # --------------------------------------------------------------------- #
 # Expert-parallel paths (run inside sharded_moe over the EP axis)
 # --------------------------------------------------------------------- #
@@ -306,26 +397,49 @@ def _tree_map(fn, tree, specs):
     return fn(tree, specs)
 
 
-def sharded_moe(fn, mesh, in_specs, out_specs):
-    """``fn`` over every rank's blocks, with ``shard_map``'s contract.
+def _split_dim(spec, axis: str) -> int | None:
+    """The dim ``spec`` splits over ``axis`` (None if it does not)."""
+    for i, entry in enumerate(spec):
+        if axis == entry or (isinstance(entry, tuple) and axis in entry):
+            return i
+    return None
 
-    The returned function takes global tensors (trees of dicts shaped as
-    ``in_specs``), gives ``fn`` this rank's block of each
-    (``sharding.local_shard``), and returns the global tensors whose
-    blocks ``fn`` returned on the ranks (``sharding.assemble``, by
-    ``out_specs``).  An output spec that leaves a mesh axis out keeps the
-    block of the first rank along it: for ``P()`` the first rank's value,
-    which is what the reference's ``shard_map(check_vma=False)`` returns
-    for the per-shard ``aux``.  The backward is ``shard_map``'s transpose
-    (``sharding.assemble``).  In a process group of one rank every block
-    is the whole tensor, and no copy is made.
+
+def sharded_moe(fn, mesh, in_specs, out_specs, axis: str = "model"):
+    """``fn`` over this rank's blocks along ``axis``, with ``shard_map``'s
+    contract, for a rank that holds its data rows and its blocks of the
+    weights (along the other axes it holds its blocks already).
+
+    ``in_specs`` are (the params' specs, the tokens' spec).  A param whose
+    spec names ``axis`` is the rank's block and passes as it is; one held
+    whole enters through ``copy_to`` (the ranks' bodies differ, so its
+    grad is summed over the axis).  The tokens are cut to the rank's
+    block of the dim their spec splits over ``axis`` (``split_to``), or
+    enter whole through ``copy_to``.  ``out_specs`` are (the output's
+    spec, the aux's specs): the output is gathered along the dim its spec
+    splits over ``axis`` (else it is the body's, which summed it over
+    the axis), and an aux spec that names no axis gives the first rank's
+    value on every rank (``sharding.assemble`` over the whole group,
+    whose grad is the ranks' mean), which is what the reference's
+    ``shard_map(check_vma=False)`` returns for its per-shard ``aux``.
     """
-    def sharded(*args):
-        local = _tree_map(lambda t, s: local_shard(t, s, mesh), args,
-                          tuple(in_specs))
-        out = fn(*local)
-        return _tree_map(lambda t, s: assemble(t, s, mesh), out,
-                         tuple(out_specs))
+    group = mesh.group(axis)
+    p_specs, x_spec = in_specs
+    y_spec, aux_spec = out_specs
+
+    def sharded(params, x):
+        local = _tree_map(lambda t, sp: t if _split_dim(sp, axis) is not None
+                          else copy_to(t, group), params, p_specs)
+        d = _split_dim(x_spec, axis)
+        x = copy_to(x, group) if d is None else split_to(x, d, group)
+        y, aux = fn(local, x)
+        d = _split_dim(y_spec, axis)
+        if d is not None:
+            y = gather_from(y, d, group)
+        aux = _tree_map(lambda t, sp: assemble(t, sp, mesh)
+                        if not any(e is not None for e in sp) else t,
+                        aux, aux_spec)
+        return y, aux
 
     return sharded
 
@@ -364,7 +478,7 @@ def moe_apply_ep(cfg: ModelConfig, params: dict, x_local: torch.Tensor,
     home = collectives.all_to_all(back_out, group)
     gathered = _gather(home.reshape(n_b * cap, d), *back, 1)
     y = _combine(gathered, weights, t, cfg.top_k, frag, compute_dtype)
-    if cfg.n_shared_experts > 0:
+    if "shared" in params:
         y = y + ffn_apply(params["shared"], xt, compute_dtype)
     return y.reshape(b, s, d), aux
 
@@ -397,8 +511,8 @@ def moe_apply_ep_replicated(cfg: ModelConfig, params: dict,
     outs = torch.cat([outs, outs.new_zeros((1, cap, d))])   # zero trash bucket
     gathered = _gather(outs.reshape((loc + 1) * cap, d), *back, 1)
     y = _combine(gathered, weights, t, cfg.top_k, frag, compute_dtype)
-    y = collectives.all_reduce(y, group)
-    if cfg.n_shared_experts > 0:
+    y = reduce_from(y, group)
+    if "shared" in params:
         y = y + ffn_apply(params["shared"], xt, compute_dtype)  # replicated
     return y.reshape(b, s, d), aux
 
@@ -439,5 +553,5 @@ def apply_placement(moe_params: dict, slot_to_expert: np.ndarray) -> dict:
 __all__ = ["Slotting", "make_slotting", "slotting_for", "slotted_weights",
            "virtual_indices", "moe_init", "route", "capacity",
            "dispatch_indices", "expert_ffn", "moe_apply_local",
-           "sharded_moe", "moe_apply_ep", "moe_apply_ep_replicated",
+           "moe_apply_sharded", "sharded_moe", "moe_apply_ep", "moe_apply_ep_replicated",
            "apply_placement"]

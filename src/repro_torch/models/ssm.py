@@ -21,10 +21,17 @@ are f32 whatever the compute dtype (the f32 leaves ``a_log``,
 ``dt_bias``, ``w_gates``, ``b_gates``, ``r_h`` and ``b`` stay f32 under
 ``model.cast_for_compute``).
 
-The reference's ``_pin`` puts a sharding constraint on the Mamba scan's
-inputs and carry; here ``_pin`` computes the same spec (``pin_spec``)
-and returns its input: a per-rank program has no layout to constrain,
-and the reference's constraint changes no value.  ``mamba_*`` and
+Tensor parallelism (``par`` with a model axis of M > 1 ranks, weights
+held as the rank's blocks) follows the reference's ``_pin``: Mamba runs
+by channel, the rank's block of ``d_inner`` (``w_in``'s x and z halves,
+``conv_w``, ``conv_b``, ``d_skip``, ``dt_bias``, ``w_dt`` and ``a_log``
+all on the rank's channels), ``w_x_proj`` and ``w_out`` by row, each
+summed over the axis; its decode state is the rank's channels.  The
+reference constrains the scan's inputs and carry to ``pin_spec``; here
+``_pin`` checks that the rank holds exactly that layout's block.
+mLSTM takes the rank's columns of q, k, v and z, gathers q, k and v
+before the core (which every rank runs whole), and ``w_out`` by row.
+sLSTM stays replicated, as the rules keep it.  ``mamba_*`` and
 ``mlstm_*`` take ``par`` as the reference's do.
 """
 from __future__ import annotations
@@ -35,6 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
+from ..distributed.collectives import (all_reduce, copy_to, gather_from,
+                                      reduce_from, split_to)
 from ..distributed.sharding import PartitionSpec
 from ..counting import pad, steps
 from .config import ModelConfig
@@ -62,10 +71,35 @@ def pin_spec(shape, par, *dims) -> PartitionSpec | None:
     return PartitionSpec(*spec)
 
 
-def _pin(x: torch.Tensor, par, *dims) -> torch.Tensor:
-    """``x`` as it is; its spec would be ``pin_spec`` (module docstring)."""
-    pin_spec(x.shape, par, *dims)
+def _pin(x: torch.Tensor, par, shape, *dims) -> torch.Tensor:
+    """``x``, after checking that it is the rank's block of a global
+    tensor of ``shape`` under ``pin_spec`` (module docstring): each dim
+    the spec splits held split, the others whole.  Raises otherwise."""
+    spec = pin_spec(shape, par, *dims)
+    if spec is None:
+        return x
+    want = list(shape)
+    for i, entry in enumerate(spec):
+        if entry == par.model_axis:
+            want[i] //= par.model_size
+        elif entry is not None and par.dp:
+            want[i] //= par.n_data
+    if list(x.shape) != want:
+        raise ValueError(f"_pin: the rank holds {tuple(x.shape)}, the block "
+                         f"of {tuple(shape)} under {spec} is {tuple(want)}")
     return x
+
+
+def _tp(cfg, par) -> bool:
+    """Whether ``par`` splits the channels (``d_inner``) over its model axis."""
+    return par is not None and getattr(par, "mesh", None) is not None \
+        and par.split(cfg.d_inner)
+
+
+def _global_rows(x: torch.Tensor, par) -> int:
+    if par is None or getattr(par, "mesh", None) is None or not par.dp:
+        return x.shape[0]
+    return x.shape[0] * par.n_data
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -122,6 +156,8 @@ def _mamba_inner(cfg, params, xz, conv_state, ssm_state, compute_dtype,
     x, z = torch.chunk(xz, 2, dim=-1)                          # (B, S, di)
     s = x.shape[1]
     dc = cfg.mamba_d_conv
+    tp = _tp(cfg, par)
+    bg, di = _global_rows(x, par), cfg.d_inner
 
     # Causal depthwise conv along S with carried state, taps summed in the
     # reference's order.
@@ -130,17 +166,21 @@ def _mamba_inner(cfg, params, xz, conv_state, ssm_state, compute_dtype,
     xc = sum(xpad[:, i:i + s, :] * conv_w[i] for i in range(dc))
     xc = F.silu(xc + params["conv_b"].to(x.dtype))
     new_conv_state = xpad[:, s:, :] if dc > 1 else conv_state
-    xc = _pin(xc, par, "b", None, "m")
+    xc = _pin(xc, par, (bg, s, di), "b", None, "m")
 
     proj = xc @ params["w_x_proj"].to(x.dtype)                # (B,S,r+2N)
+    if tp:
+        # Summed over the channels' ranks; every rank then reads all of
+        # it for its own channels, so its grad is summed over them too.
+        proj = all_reduce(proj, par.model_group())
     r = cfg.mamba_dt_rank
     dt_r, b_ssm, c_ssm = torch.split(proj, [r, n, n], dim=-1)
-    b_ssm = _pin(b_ssm, par, "b", None, None)
-    c_ssm = _pin(c_ssm, par, "b", None, None)
+    b_ssm = _pin(b_ssm, par, (bg, s, n), "b", None, None)
+    c_ssm = _pin(c_ssm, par, (bg, s, n), "b", None, None)
     dt = softplus((dt_r @ params["w_dt"].to(x.dtype)).float()
                   + params["dt_bias"])                        # (B,S,di) f32
-    dt = _pin(dt, par, "b", None, "m")
-    ssm_state = _pin(ssm_state, par, "b", "m", None)
+    dt = _pin(dt, par, (bg, s, di), "b", None, "m")
+    ssm_state = _pin(ssm_state, par, (bg, di, n), "b", "m", None)
     a_neg = -torch.exp(params["a_log"])                       # (di, N)
 
     h = ssm_state
@@ -155,30 +195,48 @@ def _mamba_inner(cfg, params, xz, conv_state, ssm_state, compute_dtype,
     return y, new_conv_state.float(), h
 
 
+def _mamba_in(cfg, params, x, compute_dtype, par):
+    """(B, S, 2 di) of the rank's channels: its x block, then its z block."""
+    x = x.to(compute_dtype)
+    if _tp(cfg, par):
+        x = copy_to(x, par.model_group())
+    return x @ params["w_in"].to(compute_dtype)
+
+
+def _mamba_out(cfg, params, y, compute_dtype, par):
+    y = y @ params["w_out"].to(compute_dtype)
+    return reduce_from(y, par.model_group()) if _tp(cfg, par) else y
+
+
 def mamba_forward(cfg, params, x, compute_dtype, par=None):
-    st = mamba_init_state(cfg, x.shape[0], x.device)
-    xz = x.to(compute_dtype) @ params["w_in"].to(compute_dtype)
+    st = mamba_init_state(cfg, x.shape[0], x.device,
+                          params["conv_b"].shape[0])
+    xz = _mamba_in(cfg, params, x, compute_dtype, par)
     y, _, _ = _mamba_inner(cfg, params, xz, st["conv"], st["ssm"],
                            compute_dtype, par)
-    return y @ params["w_out"].to(compute_dtype)
+    return _mamba_out(cfg, params, y, compute_dtype, par)
 
 
-def mamba_init_state(cfg: ModelConfig, batch: int, device="cuda") -> dict:
+def mamba_init_state(cfg: ModelConfig, batch: int, device="cuda",
+                     channels: int = 0) -> dict:
+    """Zero state of ``channels`` channels (``d_inner`` by default)."""
     dev = resolve_device(device)
+    di = channels or cfg.d_inner
     return {
-        "conv": torch.zeros((batch, cfg.mamba_d_conv - 1, cfg.d_inner),
+        "conv": torch.zeros((batch, cfg.mamba_d_conv - 1, di),
                             dtype=torch.float32, device=dev),
-        "ssm": torch.zeros((batch, cfg.d_inner, cfg.mamba_d_state),
+        "ssm": torch.zeros((batch, di, cfg.mamba_d_state),
                            dtype=torch.float32, device=dev),
     }
 
 
 def mamba_decode(cfg, params, x, state, compute_dtype, par=None):
     """x: (B, S, d) -> (y (B,S,d), new state); S = 1 in decode."""
-    xz = x.to(compute_dtype) @ params["w_in"].to(compute_dtype)
+    xz = _mamba_in(cfg, params, x, compute_dtype, par)
     y, conv, ssm = _mamba_inner(cfg, params, xz, state["conv"], state["ssm"],
                                 compute_dtype, par)
-    return y @ params["w_out"].to(compute_dtype), {"conv": conv, "ssm": ssm}
+    return _mamba_out(cfg, params, y, compute_dtype, par), \
+        {"conv": conv, "ssm": ssm}
 
 
 # ===================================================================== #
@@ -244,9 +302,13 @@ def _mlstm_core(cfg, params, x, state, compute_dtype, par=None):
     nh = cfg.n_heads
     dh = cfg.d_inner // nh
     xq = x.to(compute_dtype)
-    q = xq @ params["w_q_m"].to(compute_dtype)
-    k = xq @ params["w_k_m"].to(compute_dtype)
-    v = xq @ params["w_v_m"].to(compute_dtype)
+    tp = _tp(cfg, par)
+    xf = copy_to(xq, par.model_group()) if tp else xq
+    q = xf @ params["w_q_m"].to(compute_dtype)
+    k = xf @ params["w_k_m"].to(compute_dtype)
+    v = xf @ params["w_v_m"].to(compute_dtype)
+    if tp:
+        q, k, v = (gather_from(t, -1, par.model_group()) for t in (q, k, v))
     scale = dh ** -0.5
     q = q.reshape(b, s, nh, dh).float()
     k = (k.reshape(b, s, nh, dh) * scale).float()
@@ -263,8 +325,12 @@ def _mlstm_core(cfg, params, x, state, compute_dtype, par=None):
         hs.append(h)
     c, n, m = carry
     h = torch.stack(pad(hs, s), dim=1).reshape(b, s, cfg.d_inner).to(compute_dtype)
-    z = F.silu(xq @ params["w_z"].to(compute_dtype))
+    z = F.silu(xf @ params["w_z"].to(compute_dtype))
+    if tp:
+        h = split_to(h, -1, par.model_group())     # the rank's z columns
     y = (h * z) @ params["w_out"].to(compute_dtype)
+    if tp:
+        y = reduce_from(y, par.model_group())
     return y, {"c": c, "n": n, "m": m}
 
 

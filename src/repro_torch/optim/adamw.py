@@ -22,6 +22,7 @@ import dataclasses
 
 import torch
 
+from ..distributed import collectives
 from ..tree import tree_leaves, tree_map
 
 
@@ -46,19 +47,39 @@ def adamw_init(params) -> dict:
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum, over leaves, of each leaf's f32 sum of squares."""
+def global_norm(tree, groups=None) -> torch.Tensor:
+    """sqrt of the sum, over leaves, of each leaf's f32 sum of squares.
+
+    ``groups`` (a tree of ``tree``'s structure, or None): for a leaf that
+    is this rank's block of a tensor split over a process group, that
+    group, and None for a leaf every rank holds whole.  Each split leaf's
+    sum is then summed over its group, so each block counts once and each
+    whole leaf once (the moments mirror the blocks)."""
     leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    if groups is None:
+        return torch.sqrt(torch.sum(torch.stack(leaves)))
+    whole, split = [], {}
+    for sq, group in zip(leaves, tree_leaves(groups)):
+        if group is None:
+            whole.append(sq)
+        else:
+            split.setdefault(id(group), (group, []))[1].append(sq)
+    total = torch.sum(torch.stack(whole)) if whole else leaves[0] * 0
+    for group, sqs in split.values():
+        total = total + collectives.all_reduce(torch.sum(torch.stack(sqs)),
+                                               group)
+    return torch.sqrt(total)
 
 
-def adamw_update(cfg: AdamWConfig, params, grads, state, lr_scale):
+def adamw_update(cfg: AdamWConfig, params, grads, state, lr_scale,
+                 groups=None):
     """One AdamW step, in place (module docstring): returns
     (params, state, gnorm).  ``lr_scale``: the schedule's value at this
-    step (a float or a 0-d f32 tensor)."""
+    step (a float or a 0-d f32 tensor); ``groups``: as ``global_norm``'s,
+    for a rank that holds blocks."""
     with torch.no_grad():
         count = state["count"] + 1
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, groups)
         clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
         countf = count.float()
         c1 = 1 - torch.pow(cfg.b1, countf)

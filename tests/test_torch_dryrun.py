@@ -13,7 +13,10 @@
 (c) ``planned`` bytes per rank equal the bytes the reference's
     ``ShardingRules`` specs imply for its ``input_specs`` structs, for
     every arch and shape on both production meshes (fake meshes, no
-    process group).
+    process group), and ``held``, the bytes of rank 0's blocks
+    (``input_specs`` with ``par``), equals ``planned`` input by input,
+    but for the batch-1 KV cache of ``long_500k``, which the port holds
+    whole where the rules split its sequence over the data axes.
 (d) The CLI writes a skip record and ``ok`` records in a subprocess (the
     fake process group is process-wide), and their table.
 (e) ``calibrate_hook`` folds a record into a copy of a committed table.
@@ -187,6 +190,7 @@ def _ref_mesh(shape):
     mesh = FakeMesh()
     mesh.shape = dict(shape)
     mesh.axis_names = tuple(shape)
+    mesh.coordinate = lambda: {a: 0 for a in shape}     # rank 0
     return mesh
 
 
@@ -246,47 +250,57 @@ def test_planned_bytes_are_the_references(arch):
             mesh = _ref_mesh(mesh_shape)
             daxes = tuple(a for a in mesh.axis_names if a in ("pod", "data"))
             rules = ShardingRules(cfg, mesh, data_axes=daxes)
-            mem = dryrun.memory_per_rank(rules, specs, mesh_shape,
-                                         copies=shape.kind == "train")
+            given = input_specs(cfg, shape, dryrun.parallel(mesh, shape))
+            mem = dryrun.memory_per_rank(rules, specs, mesh_shape, given)
             want = _ref_planned(jcfg, jcfgs.SHAPES[name], mesh_shape)
             assert mem["planned"] == want, (name, mesh_shape)
-            assert mem["held"]["total"] >= mem["planned"]["total"]
-            assert mem["fits"] == (mem["held"]["total"] <= 80 * 2**30)
-
-
-def _whole(tree) -> int:
-    from repro_torch.tree import tree_leaves
-    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+            held, planned = mem["held"], mem["planned"]
+            for k in planned:
+                if k in ("cache", "total") and name == "long_500k":
+                    # planned splits the batch-1 KV cache's sequence over
+                    # the data axes (context parallelism); rank 0 holds it
+                    # whole
+                    assert held[k] >= planned[k], (name, mesh_shape, k)
+                    assert (held[k] > planned[k]) == any(
+                        p.mixer == "attn" for p in cfg.pattern)
+                else:
+                    assert held[k] == planned[k], (name, mesh_shape, k)
+            assert mem["fits"] == (held["total"] <= 80 * 2**30)
 
 
 @pytest.mark.parametrize("shape_name", ["train_4k", "decode_32k"])
-def test_held_is_every_leaf_whole(shape_name):
-    """The step is given every leaf whole (``sharded_moe`` cuts the EP
-    blocks out of global tensors), so ``held`` is at least the whole
-    params, and in an EP train step adds the copies of one MoE layer's
-    weights that ``local_shard`` makes."""
+def test_held_is_planned(shape_name):
+    """Rank 0 of the pod mesh is given its blocks (``input_specs`` with
+    ``par``): the params by the rules (deepseek's 64 experts a sixteenth,
+    its heads a sixteenth), the optimizer state alike, the batch or the
+    cache its sixteenth of the rows (and of the KV heads: 16 divide the
+    model axis), so ``held`` is ``planned``, input by input, and fits the
+    card; the whole model is not held."""
+    from repro_torch.tree import tree_leaves
     cfg = get_config("deepseek-moe-16b")
     shape = SHAPES[shape_name]
-    specs = input_specs(cfg, shape)
     mesh_shape = MESHES[0]
-    rules = ShardingRules(cfg, _ref_mesh(mesh_shape))
-    train = shape.kind == "train"
-    mem = dryrun.memory_per_rank(rules, specs, mesh_shape, copies=train)
-    held = mem["held"]
-    assert held["params"] == _whole(specs["params"])
-    assert held["params"] > 60 * 2**30               # 16.4e9 f32 values
-    ffn = specs["params"]["layers"][0]["ffn"]
-    one_layer = sum(ffn[k].numel() * 4 // 16 for k in dryrun.EXPERT_LEAVES) \
-        + _whole(ffn["router"]) + _whole(ffn["shared"])
-    if train:
-        assert held["opt_state"] == _whole(specs["opt_state"])
-        assert held["moe_copies"] == one_layer
-        assert not mem["fits"]
+    mesh = _ref_mesh(mesh_shape)
+    rules = ShardingRules(cfg, mesh)
+    par = dryrun.parallel(mesh, shape)
+    given = input_specs(cfg, shape, par)
+    mem = dryrun.memory_per_rank(rules, input_specs(cfg, shape), mesh_shape,
+                                 given)
+    held, planned = mem["held"], mem["planned"]
+    assert held == planned
+    assert held["params"] < 5 * 2**30               # 61 GiB of f32 whole
+    assert mem["fits"]
+    ffn = given["params"]["layers"][0]["ffn"]
+    assert ffn["w_gate"].shape == (64 // 16, 2048, 1408)
+    assert given["params"]["layers"][0]["mixer"]["w_q"].shape == (2048, 128)
+    if shape.kind == "train":
+        assert given["batch"]["tokens"].shape == (256 // 16, 4096)
+        assert len(tree_leaves(given["opt_state"]["mu"])) \
+            == len(tree_leaves(given["params"]))
     else:
-        assert held["cache"] == _whole(specs["cache"])
-        assert "moe_copies" not in held
-    assert held["total"] == sum(v for k, v in held.items() if k != "total")
-    assert held["total"] > mem["planned"]["total"]
+        assert given["cache"]["layers"][0]["k"].shape == (128 // 16, 32768,
+                                                          1, 128)
+        assert given["tokens"].shape == (8, 1) and given["pos"].shape == (128,)
 
 
 def test_cli_writes_skip_and_ok_records(tmp_path):
@@ -310,12 +324,14 @@ def test_cli_writes_skip_and_ok_records(tmp_path):
     assert {"op_cost", "roofline", "memory", "trace_s"} <= set(ok)
     assert ok["op_cost"]["kernel_counts"]["gmm"] == 3
     assert ok["op_cost"]["kernel_counts"]["decode_attention"] == 2
-    # ep_rep decode: one all-reduce in the MoE block, assemble's gathers
-    assert ok["op_cost"]["collective_counts"]["all-reduce"] == 1
+    # ep_rep decode, each summed over the model axis: the embedding, two
+    # attention outputs, the dense FFN, the MoE body's combine and its
+    # shared experts
+    assert ok["op_cost"]["collective_counts"]["all-reduce"] == 6
     roof = ok["roofline"]
     assert roof["n_devices"] == 256 and roof["flops_per_chip"] > 0
     assert 0 < roof["useful_flops_ratio"] < 1
-    assert ok["memory"]["held"]["total"] > ok["memory"]["planned"]["total"]
+    assert ok["memory"]["held"] == ok["memory"]["planned"]
     assert "[OK] deepseek-moe-16b__train_4k" in res.stdout
     assert res.stdout.strip().endswith("done; 0 failures")
     rows = [line for line in res.stdout.splitlines() if line.startswith("|")]

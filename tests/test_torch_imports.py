@@ -34,6 +34,19 @@ def test_port_file_imports_no_jax_and_no_reference(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+# The process each gloo rank of the sharded tests runs: the port alone.
+WORKERS = [ROOT / "tests" / "torch_ep_worker.py",
+           ROOT / "tests" / "torch_tp_worker.py"]
+
+
+@pytest.mark.parametrize("path", WORKERS, ids=[p.name for p in WORKERS])
+def test_worker_imports_no_jax_and_no_reference(path):
+    names = _imported_modules(path)
+    assert "repro_torch.models" in names
+    bad = [n for n in names if _forbidden(n)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
 def test_port_files_were_found():
     assert len(PORT_FILES) > 10
     assert ROOT / "src" / "repro_torch" / "launch" / "serve.py" in PORT_FILES

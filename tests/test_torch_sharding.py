@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -232,8 +233,10 @@ PIN_CASES = [((4, 32, 64), ("b", None, "m")), ((4, 32, 20), ("b", None, None)),
                                         {"pod": 2, "data": 16, "model": 16},
                                         {"data": 4, "model": 1}])
 def test_pin_spec_matches_reference(monkeypatch, mesh_shape):
-    """``_pin`` returns its input unchanged; ``pin_spec`` is the spec the
-    reference's ``_pin`` hands ``with_sharding_constraint``."""
+    """``pin_spec`` is the spec the reference's ``_pin`` hands
+    ``with_sharding_constraint``; the port's ``_pin`` returns the rank's
+    block of that layout unchanged and refuses a tensor of another
+    layout (the whole tensor, where the spec splits it)."""
     seen = []
     monkeypatch.setattr(jax.lax, "with_sharding_constraint",
                         lambda x, spec: seen.append(spec) or x)
@@ -245,12 +248,19 @@ def test_pin_spec_matches_reference(monkeypatch, mesh_shape):
         jssm._pin(jnp.zeros(shape), jpar, *dims)
         assert tssm.pin_spec(shape, tpar, *dims) == tuple(seen[-1])
         assert str(tssm.pin_spec(shape, tpar, *dims)) == str(seen[-1])
-        x = torch.zeros(shape)
-        assert tssm._pin(x, tpar, *dims) is x
+        spec = tssm.pin_spec(shape, tpar, *dims)
+        block = [n // math.prod(mesh_shape[a] for a in
+                                (e if isinstance(e, tuple) else (e,)))
+                 if e is not None else n for n, e in zip(shape, spec)]
+        x = torch.zeros(block)
+        assert tssm._pin(x, tpar, shape, *dims) is x
+        if block != list(shape):
+            with pytest.raises(ValueError, match="the rank holds"):
+                tssm._pin(torch.zeros(shape), tpar, shape, *dims)
     for par in (None, tmodel.Parallel()):
         assert tssm.pin_spec((4, 8), par, "b", "m") is None
         x = torch.zeros(4, 8)
-        assert tssm._pin(x, par, "b", "m") is x
+        assert tssm._pin(x, par, (4, 8), "b", "m") is x
 
 
 @pytest.mark.parametrize("multi_pod,n", [(False, 256), (True, 512)])

@@ -7,7 +7,10 @@
 writing ``DIR/inputs.pkl``: the reference's weights as numpy trees and
 the inputs, made from numpy seeds.  Each rank joins a gloo group through
 ``file://DIR/rendezvous``, runs every case on a (2, 4) ("data", "model")
-mesh (the train step on a (1, 8) one), and writes its results to
+mesh (the train step on a (1, 8) one) on its blocks (``shard_tree`` of
+the weights by ``ShardingRules``, its rows of the tokens), puts the
+global outputs and grads together again (the grads summed over the data
+axes first, as the train step sums them), and writes its results to
 ``DIR/rank{RANK}.pkl`` as numpy arrays, with the collective records
 of the sharded loss (d) and the sharded train step (e), which run under
 ``launch.op_analysis.analyze``.  With ``fake`` in place of a rank, one
@@ -29,6 +32,7 @@ import torch.distributed as dist
 from repro_torch.configs import smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import shard_tree, unshard_tree
 from repro_torch.launch import op_analysis
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.steps import _value_and_grad, make_train_step
@@ -49,19 +53,48 @@ def _cfg(case: dict):
     return dataclasses.replace(smoke_config(case["arch"]), **case["replace"])
 
 
-def _layer(cfg, moe_ffn, x, cot, par):
+def _global(par, tree, specs):
+    """The global tree from the ranks' blocks: grads summed over the data
+    axes (each rank's are its rows' part), then gathered."""
+    if par.mesh is None:
+        return tree
+    if par.dp:
+        tree = tree_map(lambda t: collectives.all_reduce(
+            t, par.data_group()), tree)
+    return unshard_tree(tree, specs, par.mesh)
+
+
+def _rows_whole(par, y):
+    """The global rows of ``y`` from every data rank's block."""
+    if not par.dp:
+        return y
+    return torch.cat(collectives.all_gather(y, par.data_group()))
+
+
+def _layer(cfg, params, x, cot, par):
     """(y, aux, grads of sum(y * cot), the router's grad of the aux term)
-    of one MoE block under ``par``."""
-    live = tree_map(lambda t: t.detach().clone().requires_grad_(True), moe_ffn)
+    of one MoE block under ``par``, on the rank's blocks of ``params``
+    (the whole model's, block 0's MoE) and its rows of ``x`` and
+    ``cot``; y and the grads put together again."""
+    specs = par.rules(cfg).param_specs(params) if par.mesh else None
+    held = shard_tree(params, specs, par.mesh) if par.mesh else params
+    ffn = held["layers"][0]["ffn"]
+    live = tree_map(lambda t: t.detach().clone().requires_grad_(True), ffn)
     named = {k: live[k] for k in ("w_gate", "w_up", "w_down", "router")}
     named.update({f"shared/{k}": v for k, v in live.get("shared", {}).items()})
-    y, aux = model_mod._apply_moe(cfg, live, x, par, F32)
-    grads = torch.autograd.grad((y * cot).sum(), list(named.values()),
-                                retain_graph=True)
+    y, aux = model_mod._apply_moe(cfg, live, par.rows(x), par, F32)
+    grads = torch.autograd.grad((y * par.rows(cot)).sum(),
+                                list(named.values()), retain_graph=True)
     term = aux["load_balance_loss"] + 1e-3 * aux["router_z_loss"]
     aux_grad, = torch.autograd.grad(term, live["router"])
-    return {"y": y.detach().numpy(), "aux": _np(aux),
-            "grads": {k: g.numpy() for k, g in zip(named, grads)},
+    fspecs = specs["layers"][0]["ffn"] if specs else None
+    gspecs = {k: (fspecs[k.split("/")[0]] if "/" not in k
+                  else fspecs["shared"][k.split("/")[1]]) for k in named} \
+        if specs else None
+    grads = _global(par, dict(zip(named, grads)), gspecs)
+    aux_grad = _global(par, aux_grad, fspecs["router"] if specs else None)
+    return {"y": _rows_whole(par, y.detach()).numpy(), "aux": _np(aux),
+            "grads": {k: g.numpy() for k, g in grads.items()},
             "aux_grad": aux_grad.numpy()}
 
 
@@ -70,12 +103,11 @@ def run_layers(inputs, mesh) -> dict:
     for name, case in inputs["layers"].items():
         cfg = _cfg(case)
         params = params_from_jax(cfg, case["params"], "cpu")
-        moe_ffn = params["layers"][0]["ffn"]
         x, cot = torch.from_numpy(case["x"]), torch.from_numpy(case["cot"])
-        res = {"local": _layer(cfg, moe_ffn, x, cot, Parallel())}
+        res = {"local": _layer(cfg, params, x, cot, Parallel())}
         for mode in case["modes"]:
             par = Parallel(mesh=mesh, moe_mode=mode)
-            res[mode] = _layer(cfg, moe_ffn, x, cot, par)
+            res[mode] = _layer(cfg, params, x, cot, par)
         res["resolved"] = Parallel(mesh=mesh).resolve_moe(cfg, x.shape[1])
         out[name] = res
     return out
@@ -109,11 +141,13 @@ def run_loss(inputs, mesh) -> dict:
         cfg = _cfg(case)
         params = params_from_jax(cfg, case["params"], "cpu")
         batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+        par = Parallel(mesh=mesh)
+        held = shard_tree(params, par.rules(cfg).param_specs(params), mesh)
         records = []
         with torch.no_grad():
             _, (sharded, met) = op_analysis.analyze(
-                loss_fn, cfg, params, batch, Parallel(mesh=mesh),
-                records=records)
+                loss_fn, cfg, held, {k: par.rows(v) for k, v in batch.items()},
+                par, records=records)
             single, smet = loss_fn(cfg, params, batch)
             first = _captured_aux(cfg, params, batch, case["first_block"])
         out[name] = {"loss": sharded.numpy(), "ce": met["ce"].numpy(),
@@ -131,12 +165,18 @@ def run_train(inputs, mesh) -> dict:
     for name, par in (("single", Parallel()),
                       ("sharded", Parallel(mesh=mesh, moe_mode="ep_rep"))):
         params = params_from_jax(cfg, case["params"], "cpu")
+        specs = par.rules(cfg).param_specs(params) if par.mesh else None
+        if specs:
+            params = shard_tree(params, specs, mesh)
         _, grads = _value_and_grad(cfg, par, params, batch)
         state = adamw_init(params)
         step = make_train_step(cfg, par, AdamWConfig(lr=case["lr"]))
         records = []
         _, (params, state, met) = op_analysis.analyze(
             step, params, state, batch, records=records)
+        if specs:      # the grads are summed over the data axes already
+            grads = unshard_tree(grads, specs, mesh)
+            params = unshard_tree(params, specs, mesh)
         out[name] = {"params": [t.numpy() for t in tree_leaves(params)],
                      "grads": [g.numpy() for g in tree_leaves(grads)],
                      "metrics": {k: float(v) for k, v in met.items()},
@@ -158,24 +198,27 @@ def run_fake(inputs, world: int, folder: Path) -> None:
     try:
         out = {}
         mesh = make_mesh((2, 4), ("data", "model"), "cpu")
+        par = Parallel(mesh=mesh)
         for name, case in inputs["loss"].items():
             cfg = _cfg(case)
-            params = init_params(cfg, torch.Generator(), "meta", cast=False)
-            batch = _meta({k: torch.from_numpy(v)
+            params = init_params(cfg, torch.Generator(), "meta", cast=False,
+                                 par=par)
+            batch = _meta({k: par.rows(torch.from_numpy(v))
                            for k, v in case["batch"].items()})
             records = []
             with torch.no_grad():
                 cost, _ = op_analysis.analyze(
-                    loss_fn, cfg, params, batch, Parallel(mesh=mesh),
+                    loss_fn, cfg, params, batch, par,
                     n_devices=world, records=records)
             out[name] = {"records": records, "cost": cost.asdict()}
         case = inputs["train"]
         cfg = _cfg(case)
-        params = init_params(cfg, torch.Generator(), "meta", cast=False)
+        par = Parallel(mesh=make_mesh((1, 8), ("data", "model"), "cpu"),
+                       moe_mode="ep_rep")
+        params = init_params(cfg, torch.Generator(), "meta", cast=False,
+                             par=par)
         batch = _meta({k: torch.from_numpy(v) for k, v in case["batch"].items()})
-        step = make_train_step(cfg, Parallel(mesh=make_mesh(
-            (1, 8), ("data", "model"), "cpu"), moe_mode="ep_rep"),
-            AdamWConfig(lr=case["lr"]))
+        step = make_train_step(cfg, par, AdamWConfig(lr=case["lr"]))
         records = []
         cost, _ = op_analysis.analyze(step, params, adamw_init(params), batch,
                                       n_devices=world, records=records)

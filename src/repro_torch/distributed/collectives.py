@@ -7,7 +7,11 @@ exchange, and the adjoint of a sum over ranks is the sum over ranks of
 the grads.  (Where every rank computes the same loss, ``assemble`` in
 ``sharding.py`` splits the grad of a replicated output evenly over its
 copies, so the sum counts it once.)
-``all_gather`` serves ``sharding.assemble``.
+``all_gather`` serves ``sharding.assemble``.  ``reduce_scatter`` (this
+rank's block along a dim of the sum over the group) and
+``all_gather_into`` (the ranks' blocks along a dim, written into a
+tensor the caller owns) serve ZeRO-1's grads and updated params and the
+sharded checkpoints; neither is differentiated.
 
 Tensor parallelism (Megatron's conjugate pair) takes the loss that the
 ranks of a group compute alike as one loss, so that each rank's
@@ -35,9 +39,10 @@ import torch.distributed as dist
 
 from .. import counting
 
-calls = {"all_to_all": 0, "all_reduce": 0, "all_gather": 0}
+calls = {"all_to_all": 0, "all_reduce": 0, "all_gather": 0,
+         "reduce_scatter": 0}
 _HLO_NAMES = {"all_to_all": "all-to-all", "all_reduce": "all-reduce",
-              "all_gather": "all-gather"}
+              "all_gather": "all-gather", "reduce_scatter": "reduce-scatter"}
 
 
 def reset_counts() -> None:
@@ -195,6 +200,32 @@ def all_reduce_(x: torch.Tensor, group=None) -> torch.Tensor:
     return x
 
 
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along ``dim`` (equal blocks, in group-rank
+    order) of the sum of ``x`` over ``group``, contiguous (no grad)."""
+    n = dist.get_world_size(group)
+    src = x.detach().movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=group)
+    _record("reduce_scatter", _nbytes(out), group)
+    return out.movedim(0, dim).contiguous()
+
+
+def all_gather_into(dst: torch.Tensor, x: torch.Tensor, dim: int,
+                    group) -> torch.Tensor:
+    """Write the ranks' ``x`` (same shape), concatenated along ``dim`` in
+    group-rank order, into ``dst`` (any strides; no grad); returns
+    ``dst``."""
+    src = x.detach().movedim(dim, 0).contiguous()
+    buf = src.new_empty((dist.get_world_size(group) * src.shape[0],
+                         *src.shape[1:]))
+    dist.all_gather_into_tensor(buf, src, group=group)
+    _record("all_gather", _nbytes(buf), group)
+    with torch.no_grad():
+        dst.copy_(buf.movedim(0, dim))
+    return dst
+
+
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
     """``x``; its grad is summed over ``group`` (Megatron's f)."""
     if _takes_grad(x):
@@ -232,5 +263,5 @@ def all_max(x: torch.Tensor, group) -> torch.Tensor:
 
 
 __all__ = ["calls", "reset_counts", "world_size", "all_to_all", "all_reduce",
-           "all_reduce_", "all_gather", "copy_to", "reduce_from", "gather_from", "split_to",
-           "all_max"]
+           "all_reduce_", "all_gather", "reduce_scatter", "all_gather_into",
+           "copy_to", "reduce_from", "gather_from", "split_to", "all_max"]

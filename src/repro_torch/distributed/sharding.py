@@ -23,10 +23,13 @@ models then run on them (``models.Parallel``).  A leaf whose spec splits
 a fused dimension is taken in the layout its consumer reads: Mamba's
 ``w_in`` (d, 2 di) is the x half and the z half side by side, and a rank
 holds its block of each (``FUSED``).  ``unshard_tree`` puts the global
-tree together again on every rank (the tests' yardstick).
-``ShardingRules.cache_held_specs`` are the cache specs the port holds:
-``cache_specs`` without the split of a batch-1 cache's sequence over the
-data axes (context parallelism, which the port does not do).
+tree together again on every rank (the tests' yardstick), and
+``whole_leaf`` one leaf from the blocks of the ranks that hold its parts
+(the sharded checkpoints').  A batch-1 KV cache's sequence is split
+over the data axes where it divides them (``cache_spec``: context
+parallelism, ``models.Parallel.context``), and with ``zero_opt``
+(ZeRO-1) each AdamW moment is its param's block further split over the
+data axes along ``zero_dims``' dim (``opt_state_specs``).
 
 ``assemble`` puts a global tensor together from every rank's block;
 ``sharded_moe`` takes it for the EP bodies' per-shard ``aux`` (the first
@@ -235,16 +238,6 @@ class ShardingRules:
     def cache_specs(self, cache) -> object:
         return _tree_map_with_path(self.cache_spec, cache)
 
-    def cache_held_specs(self, cache) -> object:
-        """``cache_specs`` without the sequence split of a batch-1 KV
-        cache: the port keeps that cache's sequence whole."""
-        def held(path, leaf):
-            spec = self.cache_spec(path, leaf)
-            if str(path[-1]) in ("k", "v"):
-                return P(spec[0], None, *spec[2:])
-            return spec
-        return _tree_map_with_path(held, cache)
-
     # ----------------------------------------------------------------- #
     def batch_spec(self, batch) -> object:
         def spec(path, leaf):
@@ -276,6 +269,21 @@ class ShardingRules:
 
         mu_specs = _tree_map_with_path(zero, opt_state["mu"])
         return {"mu": mu_specs, "nu": mu_specs, "count": P()}
+
+    def zero_dims(self, params) -> object:
+        """Per leaf of ``params`` (global leaves, or their structs), the
+        dim along which ZeRO-1 splits its moments over the data axes
+        (the entry ``opt_state_specs`` adds to the param's spec); None
+        where it adds none, and everywhere without ``zero_opt``."""
+        p_specs = self.param_specs(params)
+        o_specs = self.opt_state_specs({"mu": params}, p_specs)["mu"]
+
+        def dim(path, leaf):
+            added = [i for i, (o, p) in enumerate(zip(
+                _get(o_specs, path), list(_get(p_specs, path))
+                + [None] * leaf.dim())) if o is not None and p is None]
+            return added[0] if added else None
+        return _tree_map_with_path(dim, params)
 
 
 def _get(tree, path):
@@ -339,8 +347,9 @@ def _world_mesh(mesh) -> None:
                          "exchanged over the whole group")
 
 
-# Leaves whose split dimension is two fused halves (Mamba's x and z
-# columns of ``w_in``): a rank holds its block of each half, side by side.
+# Leaves whose last dimension is two fused halves (Mamba's x and z
+# columns of ``w_in``): a split of it gives a rank its block of each half,
+# side by side (a split of another dimension is plain).
 FUSED = ("w_in",)
 
 
@@ -349,15 +358,14 @@ def rank_block(x: torch.Tensor, spec: P, mesh, fused: bool = False,
     """The block of ``x`` under ``spec`` that the rank at ``coord`` (this
     rank by default) holds, as a new contiguous tensor (so that ``x`` can
     be freed), or ``x`` itself where ``spec`` splits nothing.  With
-    ``fused`` the split dimension is two halves, each split alike."""
+    ``fused`` the last dimension is two halves, each split alike."""
     coord = mesh.coordinate() if coord is None else coord
     if all(_block_index(e, coord, mesh.shape)[1] == 1 for e in spec):
         return x
     if fused:
-        d = next(i for i, e in enumerate(spec) if _axes(e))
-        halves = torch.chunk(x, 2, dim=d)
+        halves = torch.chunk(x, 2, dim=-1)
         return torch.cat([_block(h, spec, coord, mesh.shape) for h in halves],
-                         dim=d)
+                         dim=-1)
     return _block(x, spec, coord, mesh.shape).clone(
         memory_format=torch.contiguous_format)
 
@@ -387,11 +395,35 @@ def unshard_tree(tree, specs, mesh):
         _world_mesh(mesh)
         leaf = leaf.detach()
         if _leaf_name(path) in FUSED:
-            d = next(i for i, e in enumerate(spec) if _axes(e))
             return torch.cat([_assemble_blocks(h.contiguous(), spec, mesh)
-                              for h in torch.chunk(leaf, 2, dim=d)], dim=d)
+                              for h in torch.chunk(leaf, 2, dim=-1)], dim=-1)
         return _assemble_blocks(leaf, spec, mesh)
     return _tree_map_with_path(whole, tree)
+
+
+def whole_leaf(block: torch.Tensor, spec: P, mesh,
+               fused: bool = False) -> torch.Tensor:
+    """The global tensor of which ``block`` is this rank's block under
+    ``spec`` (the inverse of ``rank_block``), on every rank, no grad:
+    gathered one split dimension at a time over the ranks of the axes
+    that split it, so that at most the block and two copies of the
+    leaf are held at once.  ``block`` itself where ``spec`` splits
+    nothing."""
+    x = block.detach()
+    if fused:                              # (..., 2 h) as (..., 2, h)
+        x = x.unflatten(-1, (2, x.shape[-1] // 2))
+    last = block.dim() - 1
+    for d, entry in enumerate(spec):
+        axes = _axes(entry)
+        n = math.prod(mesh.shape[a] for a in axes)
+        if n == 1:
+            continue
+        at = d + 1 if fused and d == last else d
+        shape = list(x.shape)
+        shape[at] *= n
+        x = collectives.all_gather_into(x.new_empty(shape), x, at,
+                                        mesh.group_over(axes))
+    return x.flatten(-2) if fused else x
 
 
 def _left_out(spec: P, mesh) -> list[str]:
@@ -450,4 +482,5 @@ def assemble(block: torch.Tensor, spec: P, mesh) -> torch.Tensor:
 
 
 __all__ = ["PartitionSpec", "ShardingRules", "placements", "FUSED",
-           "rank_block", "shard_tree", "unshard_tree", "assemble"]
+           "rank_block", "shard_tree", "unshard_tree", "whole_leaf",
+           "assemble"]

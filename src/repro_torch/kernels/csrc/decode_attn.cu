@@ -36,7 +36,13 @@
 //     counter to 0.  With one split, the block writes the output itself;
 //   * launched as a programmatic dependent: block set-up overlaps the
 //     previous kernel; every access to device memory comes after
-//     griddepcontrol.wait.
+//     griddepcontrol.wait;
+//   * partial mode (lse given; context parallelism, where each rank holds
+//     a block of the sequence): the output is the f32 normalized sum and
+//     lse the f32 log-sum-exp m + log(l) of each (b, query head), the
+//     quantities the merge above already holds, for the ranks to combine.
+//     A row whose window is empty (pos < 0) gives out = 0 and lse = -inf.
+//     The normal mode is unchanged.
 #include <math.h>
 #include <stdint.h>
 
@@ -75,7 +81,8 @@ struct Args {
   const void* k;
   const void* v;
   const int* pos;
-  void* out;
+  void* out;             // T, or f32 in the partial mode
+  float* lse;            // (B, Hkv, G) f32 in the partial mode, else null
   float* ws;             // (units, n_split, 2 * GP + GP * hd) partials
   unsigned* counters;    // (units,) zero between launches
   int64_t k_sb, k_sh, k_ss;   // element strides of k over (b, h, s)
@@ -131,11 +138,20 @@ decode_attn_kernel(const Args a) {
   const int r0 = split * a.chunk;
   const int r1 = min(r0 + a.chunk, last + 1);
   const int n_tiles = r1 > r0 ? (r1 - r0 + kTR - 1) / kTR : 0;
-  T* outb = static_cast<T*>(a.out) + ((int64_t)(b * a.Hkv + h) * a.G + g0) * a.hd;
+  const int64_t head0 = (int64_t)(b * a.Hkv + h) * a.G + g0;   // (b, h, g0)
+  T* outb = static_cast<T*>(a.out) + head0 * a.hd;
+  float* outf = static_cast<float*>(a.out) + head0 * a.hd;    // partial mode
   float* part = a.ws + (unit * a.n_split + split) * W;
 
   if (n_tiles == 0 && a.n_split == 1) {             // pos < 0: nothing visible
-    for (int i = tid; i < gn * a.hd; i += kThreads) outb[i] = from_f32<T>(0.f);
+    for (int i = tid; i < gn * a.hd; i += kThreads) {
+      if (a.lse) {
+        outf[i] = 0.f;
+        if (i % a.hd == 0) a.lse[head0 + i / a.hd] = -INFINITY;
+      } else {
+        outb[i] = from_f32<T>(0.f);
+      }
+    }
     return;
   }
   if (n_tiles == 0) {                                // an empty partial
@@ -293,10 +309,14 @@ decode_attn_kernel(const Args a) {
       float s = 0.f;
 #pragma unroll
       for (int j = 0; j < C::kNRG; ++j) s += red[(j * GP + g) * HD + d];
-      if (a.n_split == 1)
+      if (a.n_split == 1 && a.lse) {
+        outf[g * a.hd + d] = s / fmaxf(l_s[g], 1e-30f);
+        if (d == 0) a.lse[head0 + g] = m_s[g] + logf(l_s[g]);
+      } else if (a.n_split == 1) {
         outb[g * a.hd + d] = from_f32<T>(s / fmaxf(l_s[g], 1e-30f));
-      else
+      } else {
         part[2 * GP + g * a.hd + d] = s;
+      }
     }
     if (a.n_split == 1) return;
     if (tid < GP) {
@@ -327,7 +347,12 @@ decode_attn_kernel(const Args a) {
         o = fmaf(__ldcg(parts + s * W + 2 * GP + g * a.hd + d), w, o);
       }
     }
-    outb[g * a.hd + d] = from_f32<T>(o / fmaxf(l, 1e-30f));
+    if (a.lse) {
+      outf[g * a.hd + d] = o / fmaxf(l, 1e-30f);
+      if (d == 0) a.lse[head0 + g] = l > 0.f ? m + logf(l) : -INFINITY;
+    } else {
+      outb[g * a.hd + d] = from_f32<T>(o / fmaxf(l, 1e-30f));
+    }
   }
   if (tid == 0) a.counters[unit] = 0u;
 }
@@ -377,7 +402,8 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  q and out are contiguous
-// (B, Hkv, G, hd); k and v are addressed through their (b, h, s) element
+// (B, Hkv, G, hd), out in q's type, or f32 when lse (contiguous (B, Hkv,
+// G) f32) is given: the partial mode; k and v are addressed through their (b, h, s) element
 // strides with a contiguous last axis, every row 16-byte aligned (else
 // cudaErrorInvalidValue); pos is (B,) int32 on the device.  gp (1 or 4) query heads a block, n_gb = ceil(G / gp) head blocks;
 // n_split splits of chunk rows each.  With n_split > 1, ws holds
@@ -386,7 +412,7 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // Returns the launch's error: 0 when the kernel was launched.
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* pos, void* out,
-    void* ws, void* counters, int B, int Hkv, int G, int S, int hd, int gp,
+    void* lse, void* ws, void* counters, int B, int Hkv, int G, int S, int hd, int gp,
     int n_split, int chunk, int64_t k_sb, int64_t k_sh, int64_t k_ss,
     int64_t v_sb, int64_t v_sh, int64_t v_ss, int dtype, void* stream) {
   if (B <= 0 || Hkv <= 0 || G <= 0 || hd <= 0 || S <= 0 || n_split <= 0 ||
@@ -400,7 +426,7 @@ extern "C" int repro_decode_attention(
                        (v_sh * es) % 16 == 0 && (v_ss * es) % 16 == 0;
   if (!aligned) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, static_cast<const int*>(pos), out,
-               static_cast<float*>(ws), static_cast<unsigned*>(counters),
+               static_cast<float*>(lse), static_cast<float*>(ws), static_cast<unsigned*>(counters),
                k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                Hkv, G, S, hd, (G + gp - 1) / gp, n_split, chunk,
                static_cast<float>(1.0 / sqrt(static_cast<double>(hd)))};

@@ -12,8 +12,16 @@ The kernel (``csrc/decode_attn.cu``) takes k and v through their strides,
 so a transposed view of the model's (B, S, Hkv, hd) cache is read in
 place; only the last axis must be contiguous.  It splits S over blocks
 (``decode_splits``) and merges the splits in the same launch, through a
-workspace and a per-(b, h) counter (``_counters``).  ``decode_attention``
-runs the plain version for CPU tensors and the kernel for CUDA tensors;
+workspace and a per-(b, h) counter (``_counters``).
+
+``decode_attention_partial`` is the kernel's partial mode, for a rank
+that holds one block of the cache's sequence (context parallelism): the
+f32 output normalized over the rows the block leaves visible, and the
+f32 log-sum-exp of their scores, per (b, query head), which the ranks
+combine (``models.attention``).  A row whose window is empty (pos < 0)
+gives out = 0 and lse = -inf.  ``decode_attention`` and
+``decode_attention_partial`` run the plain version for CPU tensors and
+the kernel for CUDA tensors;
 on a CUDA tensor it launches the kernel or raises.  On ``meta`` tensors
 (the dry run) it checks shapes and dtypes and returns an empty ``meta``
 result, launching and computing nothing; wherever it runs, a call
@@ -38,6 +46,7 @@ BLOCKS_PER_SM = 8     # blocks decode_splits aims at on every SM
 MIN_CHUNK = 64        # rows of a split: at least, and a multiple of
 
 launches = 0          # kernel launches since the last reset (ops.py)
+mode_launches = {"full": 0, "partial": 0}   # the same launches, by mode
 _COUNTERS: dict[int, torch.Tensor] = {}   # per device: the merge counters
 
 
@@ -53,6 +62,25 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(sco, dim=-1)
     out = torch.einsum("bhgs,bhsd->bhgd", p, v.float())
     return out.to(q.dtype)
+
+
+def decode_attention_partial_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, pos: torch.Tensor
+                                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the partial mode: (out (B, Hkv, G, hd),
+    lse (B, Hkv, G)), both f32; an empty window gives out = 0 and
+    lse = -inf (not the uniform average a softmax of masked scores
+    would)."""
+    hd = q.shape[-1]
+    s = k.shape[2]
+    sco = torch.einsum("bhgd,bhsd->bhgs", q.float(), k.float()) * hd ** -0.5
+    mask = torch.arange(s, device=q.device)[None, None, None, :] \
+        <= pos.to(q.device)[:, None, None, None]
+    sco = torch.where(mask, sco, torch.full_like(sco, float("-inf")))
+    lse = torch.logsumexp(sco, dim=-1)
+    p = torch.exp(sco - torch.where(torch.isfinite(lse), lse,
+                                    torch.zeros_like(lse))[..., None])
+    return torch.einsum("bhgs,bhsd->bhgd", p, v.float()), lse
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,7 +154,7 @@ def _launcher():
     lib = build.load("decode_attn")
     fn = lib.repro_decode_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                        + [ctypes.c_int64] * 6 + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -157,14 +185,39 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _launch(q, k, v, pos)
 
 
-def _launch(q, k, v, pos) -> torch.Tensor:
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, pos: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The partial mode (module docstring): (out (B, Hkv, G, hd) f32,
+    lse (B, Hkv, G) f32) over the rows of ``k``/``v`` up to ``pos``."""
+    cost = (0, 0)
+    if counting.active():               # out and lse written in f32
+        flops, nbytes = attention_cost(q, k)
+        cost = (flops, nbytes + q.numel() * (4 - q.element_size())
+                + 4 * q.numel() // q.shape[-1])
+    with counting.kernel("decode_attention", *cost):
+        if all(t.device.type == "cpu" for t in (q, k, v, pos)):
+            return decode_attention_partial_plain(q, k, v, pos)
+        if all(t.device.type == "meta" for t in (q, k, v, pos)):
+            _check_operands(q, k, v, pos)
+            return (torch.empty(q.shape, dtype=torch.float32, device="meta"),
+                    torch.empty(q.shape[:-1], dtype=torch.float32,
+                                device="meta"))
+        return _launch(q, k, v, pos, partial=True)
+
+
+def _launch(q, k, v, pos, partial: bool = False):
     global launches
     _check(q, k, v, pos)
     b, hkv, g, hd = q.shape
     s = k.shape[2]
-    out = torch.empty_like(q)
+    if partial:
+        out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    else:
+        out, lse = torch.empty_like(q), None
     if out.numel() == 0:
-        return out
+        return (out, lse) if partial else out
     fn = _launcher()
     gp = 1 if g == 1 else 4            # query heads a block takes
     units = b * hkv * -(-g // gp)
@@ -177,7 +230,8 @@ def _launch(q, k, v, pos) -> torch.Tensor:
             counters = _counters(q.device, units)
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-                 out.data_ptr(), ws.data_ptr() if ws is not None else None,
+                 out.data_ptr(), lse.data_ptr() if partial else None,
+                 ws.data_ptr() if ws is not None else None,
                  counters.data_ptr() if counters is not None else None,
                  b, hkv, g, s, hd, gp, n_split, chunk,
                  k.stride(0), k.stride(1), k.stride(2),
@@ -185,4 +239,5 @@ def _launch(q, k, v, pos) -> torch.Tensor:
                  DTYPE_CODES[q.dtype], stream)
     build.check(err, "decode_attention")
     launches += 1
-    return out
+    mode_launches["partial" if partial else "full"] += 1
+    return (out, lse) if partial else out

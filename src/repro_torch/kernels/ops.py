@@ -19,7 +19,7 @@ from . import decode_attn, deposit as _deposit, moe_gmm
 from .admission_ctrl import admission_ctrl
 from .admission_window import admission_window
 from .backlog_scan import backlog_scan
-from .decode_attn import decode_attention
+from .decode_attn import decode_attention, decode_attention_partial
 from .deposit import deposit, deposit_segments
 from .moe_gmm import gmm
 
@@ -37,6 +37,7 @@ def reset_launch_counts() -> None:
     for mod in _COUNTED.values():
         mod.launches = 0
     moe_gmm.path_launches = dict.fromkeys(moe_gmm.path_launches, 0)
+    decode_attn.mode_launches = dict.fromkeys(decode_attn.mode_launches, 0)
 
 
 def _synchronize() -> None:
@@ -82,6 +83,6 @@ def expert_ffn(params: dict, xs: torch.Tensor, compute_dtype) -> torch.Tensor:
     return gmm(gate * up, wd)
 
 
-__all__ = ["gmm", "decode_attention", "deposit", "deposit_segments",
+__all__ = ["gmm", "decode_attention", "decode_attention_partial", "deposit", "deposit_segments",
            "backlog_scan", "admission_window", "admission_ctrl", "expert_ffn", "timed_call",
            "launch_counts", "reset_launch_counts"]

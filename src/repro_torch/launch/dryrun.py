@@ -15,16 +15,16 @@ two pattern units and extended to the model's depth
 run one iteration of each kind (``counting.steps``).
 
 The step is given rank 0's blocks of its inputs (``input_specs`` with
-``par``: the params and optimizer state by ``ShardingRules``, the batch
-and tokens by the batch spec, the cache by ``cache_held_specs``) and
-computes rank 0's part.  Each cell's record gives rank 0's flops, bytes
-and collective bytes, the roofline terms on the H100's rates
-(``roofline``), and its memory: ``planned`` is what each rank would hold
-under ``ShardingRules``' specs, ``held`` the bytes of the tensors the
-step is given, and ``fits`` whether ``held`` fits the card.  ``held``
-equals ``planned`` except where a batch-1 cache's sequence is planned
-split over the data axes (context parallelism, which the port does not
-do: rank 0 holds that sequence whole).
+``par``: the params and optimizer state by ``ShardingRules``, ZeRO-1's
+moment slices under ``--set zero1=true``, the batch and tokens by the
+batch spec, the cache by ``cache_specs``, a batch-1 cache's sequence
+split over the data axes) and computes rank 0's part (``long_500k``'s
+decode combines the ranks' attention partials).  Each cell's record
+gives rank 0's flops, bytes and collective bytes, the roofline terms on
+the H100's rates (``roofline``), and its memory: ``planned`` is what
+each rank would hold under ``ShardingRules``' specs, ``held`` the bytes
+of the tensors the step is given (equal to ``planned``), and ``fits``
+whether ``held`` fits the card.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch deepseek-moe-16b --shape decode_32k
@@ -113,15 +113,19 @@ def with_units(cfg, units: int):
     return dataclasses.replace(cfg, n_layers=(units + first) * len(cfg.pattern))
 
 
-def parallel(mesh, shape) -> Parallel:
-    """``Parallel`` on ``mesh`` for a step of ``shape``: the batch split
-    over the data axes where it divides them (the rules' guard)."""
+def parallel(mesh, shape, zero_opt: bool = False) -> Parallel:
+    """``Parallel`` on ``mesh`` for a step of ``shape``, as the rules
+    shard its inputs: the batch split over the data axes where it
+    divides them, else the cache's sequence where its length does
+    (context parallelism); ZeRO-1 with ``zero_opt``."""
     daxes = data_axes(mesh)
     n_data = 1
     for a in daxes:
         n_data *= mesh.shape[a]
-    return Parallel(mesh=mesh, data_axes=daxes,
-                    batch_split=shape.global_batch % n_data == 0)
+    split = shape.global_batch % n_data == 0
+    return Parallel(mesh=mesh, data_axes=daxes, batch_split=split,
+                    context=not split and shape.seq_len % n_data == 0,
+                    zero_opt=zero_opt)
 
 
 def count_step(cfg, shape, par: Parallel, n_devices: int, micro: int = 1,
@@ -244,9 +248,8 @@ def trace_cell(arch: str, shape_name: str, multi_pod: bool,
     shape = SHAPES[shape_name]
     fake_group(512 if multi_pod else 256)
     mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
-    par = parallel(mesh, shape)
-    rules = ShardingRules(cfg, mesh, data_axes=par.data_axes,
-                          zero_opt=zero1)
+    par = parallel(mesh, shape, zero1)
+    rules = par.rules(cfg)
     cost = count_step(cfg, shape, par, mesh.size, micro)
     memory = memory_per_rank(rules, input_specs(cfg, shape), mesh.shape,
                              input_specs(cfg, shape, par))

@@ -6,7 +6,13 @@ the reference's do.  Under a mesh they take this rank's blocks of their
 inputs (params, optimizer state, batch, cache, tokens; ``pos`` whole) and
 compute its part: the train step sums the grads over the data axes, and
 the serve step returns the global next tokens and logits on every rank
-(the reference's ``out_shardings``), the cache in blocks.
+(the reference's ``out_shardings``), the cache in blocks.  With
+``par.zero_opt`` (ZeRO-1, the reference's ``ShardingRules(zero_opt=
+True)``) each moment the rules split over the data axes is the rank's
+slice of its param's block (``zero_split``): the train step
+reduce-scatters that grad over the data axes into the slice, updates the
+slice of the param, and all-gathers the updated slices back into the
+block, in place.
 ``input_specs(cfg, shape)`` gives every input of one (arch x shape) cell
 as tensors on the ``meta`` device, where the reference gives
 ``ShapeDtypeStruct``s: shapes and dtypes, no storage; with ``par``, the
@@ -23,7 +29,8 @@ import torch
 
 from ..configs.shapes import ShapeSpec
 from ..distributed import collectives
-from ..distributed.sharding import _tree_map_with_path, shard_tree
+from ..distributed.sharding import (FUSED, _get, _tree_map_with_path,
+                                    shard_tree)
 from ..models import (Parallel, batch_specs, decode_step, init_cache,
                       init_params, loss_fn, prefill)
 from ..models.config import ModelConfig
@@ -32,14 +39,93 @@ from ..optim import AdamWConfig, adamw_init, adamw_update
 from ..tree import tree_leaves, tree_map, tree_unflatten
 
 
-def _sum_over_data(par: Parallel, grads):
+def zero_split(cfg: ModelConfig, par: Parallel):
+    """ZeRO-1's cut of each leaf of the rank's params: (dim, parts, fused)
+    where the rules split its moments over the data axes (the dim of the
+    block, the data ranks; ``fused`` where that dim is a ``FUSED`` leaf's
+    last, two halves each cut alike), None elsewhere; None without
+    ``par.zero_opt`` or data ranks."""
+    if par.mesh is None or not par.zero_opt or par.n_data == 1:
+        return None
+    structs = param_structs(cfg)
+    dims = par.rules(cfg).zero_dims(structs)
+
+    def cut(path, leaf):
+        z = _get(dims, path)
+        if z is None:
+            return None
+        return (z, par.n_data, str(path[-1]) in FUSED and z == leaf.dim() - 1)
+    return _tree_map_with_path(cut, structs)
+
+
+def _cut_view(x: torch.Tensor, cut) -> tuple[torch.Tensor, int]:
+    """(view of ``x``, dim) whose equal blocks along dim are the ZeRO-1
+    slices: ``x`` itself, or a fused leaf's last dim as (2, h)."""
+    dim, _, fused = cut
+    if fused:
+        return x.unflatten(-1, (2, x.shape[-1] // 2)), x.dim()
+    return x, dim
+
+
+def _slice(x: torch.Tensor, cut, rank: int) -> torch.Tensor:
+    """This data rank's ZeRO-1 slice of the block ``x``, a view (shaped as
+    ``_cut_view``'s)."""
+    view, dim = _cut_view(x, cut)
+    n = view.shape[dim] // cut[1]
+    return view.narrow(dim, rank * n, n)
+
+
+def _sum_over_data(par: Parallel, grads, split=None):
     """Each rank's grads hold its rows' part of the batch's: their sum
     over the data axes is the grad (the model axis needs none: its ranks'
-    backward passes sum there already)."""
-    if not par.dp:
+    backward passes sum there already).  A leaf with a ZeRO-1 cut in
+    ``split`` gets only its slice of the sum (a reduce-scatter; its
+    slice alone where the rows are not split), in the moments' shape."""
+    if not par.dp and split is None:
         return grads
+    group = par.data_group() if par.dp else None
+
+    def reduce(g, cut=None):
+        if cut is None:
+            return collectives.all_reduce_(g, group) if par.dp else g
+        if par.dp:
+            view, dim = _cut_view(g, cut)
+            out = collectives.reduce_scatter(view, dim, group)
+        else:
+            out = _slice(g, cut, par.data_rank()).contiguous()
+        return out.flatten(-2) if cut[2] else out
+    return tree_map(reduce, grads, *(() if split is None else (split,)))
+
+
+def _zero_update(opt_cfg, par: Parallel, params, grads, opt_state,
+                 lr_scale, groups, split):
+    """``adamw_update`` on the rank's ZeRO-1 slices (the whole block of a
+    leaf without a cut), then each updated slice all-gathered over the
+    data axes back into its block, in place: (params, opt_state, gnorm)."""
+    rank = par.data_rank()
+    ps, gs, ms, vs = [], [], [], []
+    for p, g, m, v, cut in zip(tree_leaves(params), tree_leaves(grads),
+                               tree_leaves(opt_state["mu"]),
+                               tree_leaves(opt_state["nu"]),
+                               tree_leaves(split, tuple_leaves=True)):
+        if cut is not None:
+            p = _slice(p, cut, rank)
+            g, m, v = (t.view(p.shape) for t in (g, m, v))
+        ps.append(p)
+        gs.append(g)
+        ms.append(m)
+        vs.append(v)
+    state = {"mu": ms, "nu": vs, "count": opt_state["count"]}
+    _, state, gnorm = adamw_update(opt_cfg, ps, gs, state, lr_scale,
+                                   tree_leaves(groups, tuple_leaves=True))
+    opt_state["count"] = state["count"]
     group = par.data_group()
-    return tree_map(lambda g: collectives.all_reduce_(g, group), grads)
+    for p, cut in zip(tree_leaves(params), tree_leaves(split, tuple_leaves=True)):
+        if cut is not None:
+            view, dim = _cut_view(p, cut)
+            collectives.all_gather_into(view, _slice(p, cut, rank), dim,
+                                        group)
+    return params, opt_state, gnorm
 
 
 def _value_and_grad(cfg: ModelConfig, par: Parallel, params, batch,
@@ -60,19 +146,26 @@ def _value_and_grad(cfg: ModelConfig, par: Parallel, params, batch,
 
 
 def norm_groups(cfg: ModelConfig, par: Parallel):
-    """``global_norm``'s groups for ``par``: the model axis's group for a
-    leaf the rules split over it, None for the others (None without a
-    split)."""
-    if par.mesh is None or par.model_size == 1:
+    """``global_norm``'s groups for ``par``, per leaf: the model axis's
+    group for a block the rules split over it, the data axes' for a
+    ZeRO-1 slice of a whole leaf, both (a tuple) for a slice of a block,
+    None for a leaf held whole (None without a split)."""
+    split = zero_split(cfg, par)
+    if par.mesh is None or (par.model_size == 1 and split is None):
         return None
     rules = par.rules(cfg)
-    group = par.model_group()
 
     def of(path, leaf):
         spec = rules.param_spec(path, leaf)
-        return group if any(e == par.model_axis or (
-            isinstance(e, tuple) and par.model_axis in e) for e in spec) \
-            else None
+        groups = ()
+        if par.model_size > 1 and any(
+                e == par.model_axis or (isinstance(e, tuple)
+                                        and par.model_axis in e)
+                for e in spec):
+            groups += (par.model_group(),)
+        if split is not None and _get(split, path) is not None:
+            groups += (par.data_group(),)
+        return groups or None
     return _tree_map_with_path(of, param_structs(cfg))
 
 
@@ -115,14 +208,18 @@ def make_train_step(cfg: ModelConfig, par: Parallel,
     (``adamw_update``), as the reference's jitted step donates them.
     Under a mesh params and opt_state are the rank's blocks, the batch
     its rows; the grads are summed over the data axes and the grad norm
-    counts each block once.
+    counts each block once.  With ``par.zero_opt`` the moments are the
+    rank's ZeRO-1 slices (module docstring; ``opt_structs`` and
+    ``adamw_init(split=zero_split(cfg, par))`` make them).
     """
     schedule = schedule or (lambda s: 1.0)
     groups = norm_groups(cfg, par)
+    split = zero_split(cfg, par)
 
     def train_step(params, opt_state, batch):
         if micro_batches == 1:
-            (loss, metrics), grads = _value_and_grad(cfg, par, params, batch)
+            (loss, metrics), grads = _value_and_grad(cfg, par, params, batch,
+                                                     reduce=False)
         else:
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                    device=p.device), params)
@@ -134,14 +231,19 @@ def make_train_step(cfg: ModelConfig, par: Parallel,
                 ces.append(m["ce"])
                 auxs.append(m["aux"])
                 del g        # free this slice's grads before the next's
-            grads = _sum_over_data(par, tree_map(
-                lambda g: g / micro_batches, grads))
+            grads = tree_map(lambda g: g / micro_batches, grads)
             loss = torch.stack(ls).mean()
             metrics = {"ce": torch.stack(ces).mean(),
                        "aux": torch.stack(auxs).mean()}
-        params, opt_state, gnorm = adamw_update(
-            opt_cfg, params, grads, opt_state, schedule(opt_state["count"]),
-            groups)
+        grads = _sum_over_data(par, grads, split)
+        lr_scale = schedule(opt_state["count"])
+        if split is None:
+            params, opt_state, gnorm = adamw_update(
+                opt_cfg, params, grads, opt_state, lr_scale, groups)
+        else:
+            params, opt_state, gnorm = _zero_update(
+                opt_cfg, par, params, grads, opt_state, lr_scale, groups,
+                split)
         out_metrics = {"loss": loss, "ce": metrics["ce"],
                        "aux": metrics["aux"], "grad_norm": gnorm}
         return params, opt_state, out_metrics
@@ -194,8 +296,10 @@ def param_structs(cfg: ModelConfig, par: Parallel | None = None) -> dict:
     return init_params(cfg, torch.Generator(), "meta", cast=False, par=par)
 
 
-def opt_structs(params_structs) -> dict:
-    return adamw_init(params_structs)
+def opt_structs(params_structs, split=None) -> dict:
+    """``adamw_init`` of ``params_structs`` (with ``split``, the rank's
+    ZeRO-1 moment slices: ``zero_split``)."""
+    return adamw_init(params_structs, split)
 
 
 def cache_structs(cfg: ModelConfig, batch: int, max_len: int,
@@ -224,7 +328,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec,
     if shape.kind == "train":
         return {
             "params": p,
-            "opt_state": opt_structs(p),
+            "opt_state": opt_structs(p, par and zero_split(cfg, par)),
             "batch": _rows(par, cfg, batch_specs(cfg, shape.global_batch,
                                                  shape.seq_len)),
         }

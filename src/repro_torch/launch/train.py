@@ -2,7 +2,10 @@
 (counterpart of ``repro.launch.train``, the same flags and lines, plus
 ``--device``).
 
-One device runs the whole step (no mesh: sharding is a later slice).
+One device runs the whole step, as the reference's trainer runs without
+a mesh; a sharded step is ``launch.steps.make_train_step`` with a
+``models.Parallel`` (ZeRO-1 with ``zero_opt``), and the checkpoints of
+its blocks go through ``checkpoint.CheckpointManager`` with their specs.
 The model is drawn uncast (f32 master weights, ``init_params(cast=
 False)``) and trained with the reference's AdamW and schedules; on a
 CUDA device the MoE FFN's forward and backward products run through the

@@ -37,6 +37,15 @@ held as the rank's blocks; ``Heads`` says which case holds):
     reads a strided view of the heads the rank's q heads map to;
   * ``w_o`` takes the rank's rows, then the output is summed over the
     axis.
+
+Context parallelism (``par.cp``: a whole batch, the cache's sequence
+split over the data axes, as ``ShardingRules.cache_spec`` splits a
+batch-1 cache): the rank holds rows [s0, s0 + S_loc) of the cache.
+Prefill writes the prompt's rows that fall in its block; decode writes
+the new row only on the rank that owns ``pos``, computes the softmax
+partial of its block (``decode_attention``'s partial mode, or the same
+in plain PyTorch on the einsum path: the normalized output and the
+log-sum-exp, f32) and combines the ranks' partials (``_combine``).
 """
 from __future__ import annotations
 
@@ -44,8 +53,8 @@ import functools
 
 import torch
 
-from ..distributed.collectives import (copy_to, gather_from, reduce_from,
-                                      split_to)
+from ..distributed.collectives import (all_max, all_reduce, copy_to,
+                                      gather_from, reduce_from, split_to)
 from ..kernels import ops
 from ..counting import pad, steps
 from .config import ModelConfig
@@ -365,9 +374,14 @@ def attention_prefill(cfg: ModelConfig, params: dict, x: torch.Tensor,
     q, k, v = _project_qkv(cfg, params, x, positions, compute_dtype, h)
     out = flash_attention(cfg, q, *_attended(h, k, v), positions, positions)
     s = x.shape[1]
+    s0, n = 0, s
+    if par is not None and par.cp:      # the rows of [0, S) in this block
+        s_loc = cache["k"].shape[1]
+        s0 = par.data_rank() * s_loc
+        n = min(max(s - s0, 0), s_loc)
     # In place; the reference's dynamic_update_slice is functional.
-    cache["k"][:, :s] = k.to(cache["k"].dtype)
-    cache["v"][:, :s] = v.to(cache["v"].dtype)
+    cache["k"][:, :n] = k[:, s0:s0 + n].to(cache["k"].dtype)
+    cache["v"][:, :n] = v[:, s0:s0 + n].to(cache["v"].dtype)
     b = x.shape[0]
     y = _out_proj(h, cfg, params, out.reshape(b, s, -1), compute_dtype)
     return y, cache
@@ -386,7 +400,8 @@ def attention_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
     """One-token decode: x (B, 1, d), pos (B,) int32 current position.
 
     Writes k/v at ``pos`` and attends over cache[0..pos].  Under ``par``
-    x, pos and the cache are the rank's rows (module docstring).
+    x, pos and the cache are the rank's rows (module docstring); under
+    context parallelism its block of the sequence.
     """
     b = x.shape[0]
     h = Heads(cfg, par)
@@ -396,8 +411,18 @@ def attention_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
     # caller donates the old cache.
     rows = torch.arange(b, device=x.device)
     ck, cv = cache["k"], cache["v"]
-    ck[rows, pos.long()] = k[:, 0].to(ck.dtype)
-    cv[rows, pos.long()] = v[:, 0].to(cv.dtype)
+    cp = par is not None and par.cp
+    if cp:
+        # Rows [s0, s0 + S_loc): only the rank that owns pos writes (the
+        # others write their row back as it is, with no sync on pos).
+        s0 = par.data_rank() * ck.shape[1]
+        at = (pos.long() - s0).clamp(0, ck.shape[1] - 1)
+        own = ((pos.long() - s0) == at)[:, None, None]
+        ck[rows, at] = torch.where(own, k[:, 0].to(ck.dtype), ck[rows, at])
+        cv[rows, at] = torch.where(own, v[:, 0].to(cv.dtype), cv[rows, at])
+    else:
+        ck[rows, pos.long()] = k[:, 0].to(ck.dtype)
+        cv[rows, pos.long()] = v[:, 0].to(cv.dtype)
 
     s_max = ck.shape[1]
     # The KV heads the rank's q heads read (all of them without a split).
@@ -405,9 +430,19 @@ def attention_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
     hkv, hd = h.n_kv, cfg.head_dim
     g = h.hq // hkv
     qg = q.reshape(b, hkv, g, hd)
-    if (cfg.use_pallas_decode or x.device.type != "cpu") \
-            and cfg.sliding_window == 0 \
-            and cfg.attn_logit_softcap == 0:
+    kernel = (cfg.use_pallas_decode or x.device.type != "cpu") \
+        and cfg.sliding_window == 0 and cfg.attn_logit_softcap == 0
+    if cp:
+        if kernel:
+            part = ops.decode_attention_partial(
+                qg.to(compute_dtype).contiguous(),
+                ck.transpose(1, 2).to(compute_dtype),
+                cv.transpose(1, 2).to(compute_dtype),
+                (pos - s0).clamp(-1, s_max - 1).to(torch.int32))
+        else:
+            part = _partial_einsum(cfg, qg, ck, cv, pos, s0, compute_dtype)
+        out = _combine(*part, par.data_group())
+    elif kernel:
         # The kernel reads the (B, S, Hkv, hd) cache through a transposed
         # view (strides), so no copy into kernel layout is made.
         out = ops.decode_attention(
@@ -434,3 +469,38 @@ def attention_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
     y = _out_proj(h, cfg, params, out.reshape(b, 1, -1).to(compute_dtype),
                   compute_dtype)
     return y, cache
+
+
+def _partial_einsum(cfg: ModelConfig, qg, ck, cv, pos, s0: int, cdt):
+    """The einsum path's softmax partial over the rank's block of the
+    cache (rows s0 + [0, S_loc), masked by the global positions, with
+    the softcap and window): (out (B, Hkv, G, hd), lse (B, Hkv, G)), f32;
+    an empty window gives out = 0 and lse = -inf.  Probabilities are cast
+    to the compute dtype before the PV product, as the whole cache's."""
+    hd = cfg.head_dim
+    sco = torch.einsum("bngd,bsnd->bngs", qg.float(), ck.to(cdt).float()) \
+        * hd ** -0.5
+    sco = _softcap(sco, cfg.attn_logit_softcap)
+    kv_pos = s0 + torch.arange(ck.shape[1], device=qg.device)[None, :]
+    mask = kv_pos <= pos[:, None]
+    if cfg.sliding_window > 0:
+        mask = mask & ((pos[:, None] - kv_pos) < cfg.sliding_window)
+    sco = torch.where(mask[:, None, None, :], sco,
+                      torch.full_like(sco, float("-inf")))
+    lse = torch.logsumexp(sco, dim=-1)
+    p = torch.exp(sco - torch.where(torch.isfinite(lse), lse,
+                                    torch.zeros_like(lse))[..., None])
+    out = torch.einsum("bngs,bsnd->bngd", p.to(cdt).float(),
+                       cv.to(cdt).float())
+    return out, lse
+
+
+def _combine(out: torch.Tensor, lse: torch.Tensor, group) -> torch.Tensor:
+    """The attention output over the whole sequence from the ranks'
+    partials (f32): M = max of the lse over ``group``, w = exp(lse - M),
+    sum(w out) / sum(w) in one all-reduce.  A rank with an empty window
+    (lse = -inf) weighs 0; the rank holding row 0 sees a row whenever
+    pos >= 0, so M is finite."""
+    w = torch.exp(lse - all_max(lse, group))[..., None]
+    both = all_reduce(torch.cat([out * w, w], dim=-1), group)
+    return both[..., :-1] / both[..., -1:]

@@ -42,12 +42,16 @@ MoE mode as the reference's does.  Under a mesh every function here takes
 this rank's blocks, the ones ``jit``'s ``in_shardings`` would hand a
 device in the reference's sharded step: the params by
 ``ShardingRules.param_specs`` (``init_params(par=...)`` draws them leaf
-by leaf), the cache by ``cache_held_specs`` (``init_cache(par=...)``),
-the batch, tokens and embeds by ``batch_spec``; ``pos`` whole.  Each rank
+by leaf), the cache by ``cache_specs`` (``init_cache(par=...)``), the
+batch, tokens and embeds by ``batch_spec``; ``pos`` whole.  Each rank
 computes its part: Megatron tensor parallelism over the model axis
 (``layers``, ``attention``, ``ssm``), its rows of the batch over the data
 axes, the MoE blocks through the EP bodies (``moe.sharded_moe``) or the
-"local" mode over the mesh (``moe.moe_apply_sharded``).  The values are
+"local" mode over the mesh (``moe.moe_apply_sharded``).  A batch that
+does not divide the data axes is whole on every data rank; its KV
+cache's sequence is then split over them where it divides them
+(``Parallel.context``: context parallelism), and attention combines the
+ranks' softmax partials (``attention.attention_decode``).  The values are
 the reference's single-program values: the cross-entropy's log-sum-exp
 is taken over the vocab's blocks and its mean over the global batch,
 and the "local" mode's router statistics, capacity and queues are the
@@ -84,7 +88,11 @@ class Parallel:
     Under a mesh every tensor a step is given is this rank's block
     (module docstring); ``batch_split`` says whether the batch is split
     over the data axes (False where it does not divide them, as the
-    rules then keep it whole: every data rank computes the same rows).
+    rules then keep it whole: every data rank computes the same rows),
+    ``context`` whether the KV cache's sequence is (set it where the
+    batch is whole and the cache length divides the data axes, exactly
+    where ``ShardingRules.cache_spec`` splits it), and ``zero_opt``
+    whether the optimizer state is ZeRO-1's (``rules`` passes it on).
     """
 
     mesh: object | None = None               # a launch.mesh.Mesh
@@ -92,6 +100,17 @@ class Parallel:
     model_axis: str = "model"
     moe_mode: str = "auto"    # "auto" | "ep" | "ep_rep" | "local"
     batch_split: bool = True
+    # The KV cache's sequence split over the data axes (context
+    # parallelism: a whole batch, a cache length that divides them).
+    context: bool = False
+    # ZeRO-1: each AdamW moment further split over the data axes.
+    zero_opt: bool = False
+
+    def __post_init__(self):
+        if self.context and self.batch_split:
+            raise ValueError("context parallelism splits the cache's "
+                             "sequence over the data axes: the batch must "
+                             "be whole there (batch_split=False)")
 
     @property
     def model_size(self) -> int:
@@ -133,8 +152,15 @@ class Parallel:
             idx = idx * self.mesh.shape[a] + coord[a]
         return idx
 
+    @property
+    def cp(self) -> bool:
+        """Whether the cache's sequence is split over more than one data
+        rank (context parallelism)."""
+        return self.context and self.n_data > 1
+
     def rules(self, cfg: ModelConfig):
-        return ShardingRules(cfg, self.mesh, self.model_axis, self.data_axes)
+        return ShardingRules(cfg, self.mesh, self.model_axis, self.data_axes,
+                             zero_opt=self.zero_opt)
 
     def rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's block of rows of ``x`` (whole without ``dp``)."""
@@ -608,25 +634,42 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Decode cache: one entry per layer, a KV cache in the compute dtype
     for attention and the f32 recurrent state for the other mixers.
     ``batch`` is the global batch; under ``par``'s mesh the cache is the
-    rank's blocks (``ShardingRules.cache_held_specs``), made one layer at
-    a time."""
+    rank's blocks (``ShardingRules.cache_specs``), made one layer at a
+    time: its rows, its KV heads where they divide the model axis, and
+    with ``par.context`` its block of the sequence."""
     check_supported(cfg)
     dev = resolve_device(device)
     cdt = dtype_of(cfg.compute_dtype)
     mesh = par.mesh if par is not None else None
     rows = batch // par.n_data if mesh is not None and par.dp else batch
+    seq = max_len
     specs = None
     if mesh is not None:
-        specs = par.rules(cfg).cache_held_specs(
-            init_cache(cfg, batch, max_len, "meta"))
+        rules = par.rules(cfg)
+        specs = rules.cache_specs(init_cache(cfg, batch, max_len, "meta"))
+        kv = torch.empty((batch, max_len, cfg.n_kv_heads, cfg.head_dim),
+                         device="meta")
+        split = rules.cache_spec(("k",), kv)[1] is not None \
+            and par.n_data > 1
+        if split != par.cp and any(s.mixer == "attn" for s in cfg.pattern):
+            raise ValueError(
+                f"the rules {'split' if split else 'keep'} the cache's "
+                f"sequence of {max_len} over {par.n_data} data ranks, "
+                f"Parallel(context={par.context}) says otherwise")
+        if par.cp:
+            seq = max_len // par.n_data
 
     def made(spec_node, layer_spec):
-        block = _block_cache(cfg, layer_spec, rows, max_len, cdt, dev)
+        block = _block_cache(cfg, layer_spec, rows, seq, cdt, dev)
         if spec_node is None:
             return block
-        # Batch already cut: take the blocks along the model axis only.
-        return shard_tree(block, {k: P(None, *v[1:])
-                                  for k, v in spec_node.items()}, mesh)
+        # Rows (and the sequence) already cut: the blocks along the
+        # model axis only.
+        def rest(name, spec):
+            cut = 2 if name in ("k", "v") else 1
+            return P(*([None] * cut), *spec[cut:])
+        return shard_tree(block, {k: rest(k, v) for k, v in spec_node.items()},
+                          mesh)
 
     cache = {"layers": [made(specs and specs["layers"][i], spec)
                         for i, spec in enumerate(layer_specs(cfg))]}

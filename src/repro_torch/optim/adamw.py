@@ -15,6 +15,10 @@ jitted train step donates both buffers, and a functional update would
 hold a second copy of the parameters and moments (33 GB more for
 granite-moe-3b-a800m).  Leaf by leaf, each operation rounds as the
 reference's does; only the storage is reused.
+
+ZeRO-1 (``launch.steps``): a moment may be this rank's slice of its
+param's block (``adamw_init(split=)``), and the update then runs on the
+matching slice of the param and the grad.
 """
 from __future__ import annotations
 
@@ -36,14 +40,24 @@ class AdamWConfig:
     grad_clip: float = 1.0
 
 
-def adamw_init(params) -> dict:
-    """f32 zero moments shaped as ``params`` and a zero int32 count."""
+def adamw_init(params, split=None) -> dict:
+    """f32 zero moments shaped as ``params`` and a zero int32 count.
+
+    ``split`` (a tree of ``params``' structure, or None): for a leaf
+    whose moments are ZeRO-1's slices, (dim, parts): its moments are the
+    param's shape with ``dim`` divided by ``parts``; None for the others.
+    """
     leaves = tree_leaves(params)
     device = leaves[0].device if leaves else None
 
-    def zeros(p):
-        return torch.zeros_like(p, dtype=torch.float32)
-    return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
+    def zeros(p, cut=None):
+        shape = list(p.shape)
+        if cut is not None:
+            shape[cut[0]] //= cut[1]
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    rest = () if split is None else (split,)
+    return {"mu": tree_map(zeros, params, *rest),
+            "nu": tree_map(zeros, params, *rest),
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
@@ -52,22 +66,28 @@ def global_norm(tree, groups=None) -> torch.Tensor:
 
     ``groups`` (a tree of ``tree``'s structure, or None): for a leaf that
     is this rank's block of a tensor split over a process group, that
-    group, and None for a leaf every rank holds whole.  Each split leaf's
-    sum is then summed over its group, so each block counts once and each
-    whole leaf once (the moments mirror the blocks)."""
+    group, or a tuple of groups for a block split over several (a ZeRO-1
+    slice of a block split over the model axis), and None for a leaf
+    every rank holds whole.  Each split leaf's sum is then summed over
+    its groups, so each block counts once and each whole leaf once."""
     leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
     if groups is None:
         return torch.sqrt(torch.sum(torch.stack(leaves)))
     whole, split = [], {}
-    for sq, group in zip(leaves, tree_leaves(groups)):
+    for sq, group in zip(leaves, tree_leaves(groups, tuple_leaves=True)):
+        if group is not None and not isinstance(group, tuple):
+            group = (group,)
         if group is None:
             whole.append(sq)
         else:
-            split.setdefault(id(group), (group, []))[1].append(sq)
+            key = tuple(map(id, group))
+            split.setdefault(key, (group, []))[1].append(sq)
     total = torch.sum(torch.stack(whole)) if whole else leaves[0] * 0
     for group, sqs in split.values():
-        total = total + collectives.all_reduce(torch.sum(torch.stack(sqs)),
-                                               group)
+        part = torch.sum(torch.stack(sqs))
+        for g in group:
+            part = collectives.all_reduce(part, g)
+        total = total + part
     return torch.sqrt(total)
 
 

@@ -9,12 +9,15 @@ and the checkpoint store all flatten in this order.
 from __future__ import annotations
 
 
-def tree_leaves(tree) -> list:
-    """Every leaf of ``tree``, in the order above."""
+def tree_leaves(tree, tuple_leaves: bool = False) -> list:
+    """Every leaf of ``tree``, in the order above; with ``tuple_leaves``
+    a tuple is one leaf (a tree of ZeRO-1 cuts or of process groups)."""
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for node in tree for x in tree_leaves(node)]
+        return [x for k in sorted(tree)
+                for x in tree_leaves(tree[k], tuple_leaves)]
+    if isinstance(tree, list) or (isinstance(tree, tuple)
+                                  and not tuple_leaves):
+        return [x for node in tree for x in tree_leaves(node, tuple_leaves)]
     return [tree]
 
 

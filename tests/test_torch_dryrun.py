@@ -15,8 +15,8 @@
     every arch and shape on both production meshes (fake meshes, no
     process group), and ``held``, the bytes of rank 0's blocks
     (``input_specs`` with ``par``), equals ``planned`` input by input,
-    but for the batch-1 KV cache of ``long_500k``, which the port holds
-    whole where the rules split its sequence over the data axes.
+    ``long_500k``'s sequence-split KV cache included; and so under
+    ZeRO-1 (``zero_opt``) for the ``train_4k`` cells.
 (d) The CLI writes a skip record and ``ok`` records in a subprocess (the
     fake process group is process-wide), and their table.
 (e) ``calibrate_hook`` folds a record into a copy of a committed table.
@@ -194,13 +194,14 @@ def _ref_mesh(shape):
     return mesh
 
 
-def _ref_planned(cfg, shape, mesh_shape) -> dict:
+def _ref_planned(cfg, shape, mesh_shape, zero_opt: bool = False) -> dict:
     """Bytes per rank the reference's specs imply for its structs, by the
     inputs its ``lower_cell`` shards (pos replicated)."""
     import jax
     mesh = _ref_mesh(mesh_shape)
     daxes = tuple(a for a in mesh.axis_names if a in ("pod", "data"))
-    rules = jsharding.ShardingRules(cfg, mesh, data_axes=daxes)
+    rules = jsharding.ShardingRules(cfg, mesh, data_axes=daxes,
+                                    zero_opt=zero_opt)
     specs = jsteps.input_specs(cfg, shape)
     p_specs = rules.param_specs(specs["params"])
     trees = {"params": (specs["params"], p_specs)}
@@ -255,17 +256,35 @@ def test_planned_bytes_are_the_references(arch):
             want = _ref_planned(jcfg, jcfgs.SHAPES[name], mesh_shape)
             assert mem["planned"] == want, (name, mesh_shape)
             held, planned = mem["held"], mem["planned"]
+            # long_500k's batch-1 KV cache too: its sequence split over
+            # the data axes (context parallelism)
             for k in planned:
-                if k in ("cache", "total") and name == "long_500k":
-                    # planned splits the batch-1 KV cache's sequence over
-                    # the data axes (context parallelism); rank 0 holds it
-                    # whole
-                    assert held[k] >= planned[k], (name, mesh_shape, k)
-                    assert (held[k] > planned[k]) == any(
-                        p.mixer == "attn" for p in cfg.pattern)
-                else:
-                    assert held[k] == planned[k], (name, mesh_shape, k)
+                assert held[k] == planned[k], (name, mesh_shape, k)
             assert mem["fits"] == (held["total"] <= 80 * 2**30)
+
+
+@pytest.mark.parametrize("arch", [
+    a for a in list_archs()
+    if jcfgs.shape_applies(jcfgs.get_config(a), jcfgs.SHAPES["train_4k"])[0]])
+def test_zero1_planned_bytes_are_the_references(arch):
+    """Under ZeRO-1 (the dry run's ``zero1`` override) the ``train_4k``
+    cells plan the reference's bytes (each moment further split over the
+    data axes), and rank 0 is given its moment slices: ``held`` equals
+    ``planned``, the optimizer state smaller than without ZeRO."""
+    cfg, jcfg = get_config(arch), jcfgs.get_config(arch)
+    shape = SHAPES["train_4k"]
+    specs = input_specs(cfg, shape)
+    for mesh_shape in MESHES:
+        mesh = _ref_mesh(mesh_shape)
+        par = dryrun.parallel(mesh, shape, zero_opt=True)
+        mem = dryrun.memory_per_rank(par.rules(cfg), specs, mesh_shape,
+                                     input_specs(cfg, shape, par))
+        want = _ref_planned(jcfg, jcfgs.SHAPES["train_4k"], mesh_shape,
+                            zero_opt=True)
+        assert mem["planned"] == want, mesh_shape
+        assert mem["held"] == mem["planned"], mesh_shape
+        plain = _ref_planned(jcfg, jcfgs.SHAPES["train_4k"], mesh_shape)
+        assert want["opt_state"] < plain["opt_state"] / 8, mesh_shape
 
 
 @pytest.mark.parametrize("shape_name", ["train_4k", "decode_32k"])

@@ -312,7 +312,8 @@ def test_train_step_matches_single_shard(gloo):
 def test_collectives_were_counted(gloo):
     _, _, ranks = gloo
     for res in ranks:
-        assert min(res["calls"].values()) > 0, res["calls"]
+        assert min(res["calls"][k] for k in ("all_to_all", "all_reduce",
+                                             "all_gather")) > 0, res["calls"]
 
 
 @pytest.fixture(scope="module")

@@ -36,7 +36,8 @@ def test_port_file_imports_no_jax_and_no_reference(path):
 
 # The process each gloo rank of the sharded tests runs: the port alone.
 WORKERS = [ROOT / "tests" / "torch_ep_worker.py",
-           ROOT / "tests" / "torch_tp_worker.py"]
+           ROOT / "tests" / "torch_tp_worker.py",
+           ROOT / "tests" / "torch_zero_cp_worker.py"]
 
 
 @pytest.mark.parametrize("path", WORKERS, ids=[p.name for p in WORKERS])

@@ -322,6 +322,51 @@ def test_decode_attention_ignores_rows_past_pos_on_the_card(cuda_device):
 
 
 # --------------------------------------------------------------------- #
+# decode_attention's partial mode (context parallelism): f32 out and lse
+# --------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hkv,g,s,hd,layout", [
+    (5, 8, 3, 2048, 128, "bshd"),     # split over S, a view of the cache
+    (1, 1, 4, 96, 64, "bhsd"),        # one split
+])
+def test_decode_attention_partial_matches_plain(cuda_device, b, hkv, g, s,
+                                                hd, layout, dtype):
+    """The partial mode against its plain version: the f32 normalized
+    output and log-sum-exp of the rows up to pos, an empty window
+    (pos = -1) giving out = 0 and lse = -inf; one launch, counted as a
+    partial one; the normal mode unchanged beside it."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s + g)
+    q = torch.randn(b, hkv, g, hd, generator=gen, device=cuda_device).to(dtype)
+    if layout == "bhsd":
+        k, v = (torch.randn(b, hkv, s, hd, generator=gen, device=cuda_device)
+                .to(dtype) for _ in range(2))
+    else:
+        k, v = (torch.randn(b, s, hkv, hd, generator=gen, device=cuda_device)
+                .to(dtype).transpose(1, 2) for _ in range(2))
+    pos = torch.tensor([-1, s - 1, s // 2, 0, 70][:b], dtype=torch.int32,
+                       device=cuda_device)
+    before = decode_attn.mode_launches["partial"]
+    out, lse = decode_attn.decode_attention_partial(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert decode_attn.mode_launches["partial"] == before + 1
+    assert out.dtype == lse.dtype == torch.float32
+    want, want_lse = decode_attn.decode_attention_partial_plain(
+        q, k.contiguous(), v.contiguous(), pos)
+    tol = TOL[torch.float32] if dtype == torch.float32 else \
+        dict(atol=1e-4, rtol=1e-4)       # f32 math on the same bf16 inputs
+    np.testing.assert_allclose(_np(out), _np(want), **tol)
+    np.testing.assert_allclose(_np(lse), _np(want_lse), **tol)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert bool(torch.isneginf(lse[0]).all())
+    full = decode_attn.decode_attention(q, k, v, pos.clamp(min=0))
+    keep = pos >= 0
+    np.testing.assert_allclose(_np(out[keep].to(dtype)), _np(full[keep]),
+                               **TOL[dtype])
+
+
+# --------------------------------------------------------------------- #
 # backlog_scan chunked over T (scan_chunk), bitwise the plain loop
 # --------------------------------------------------------------------- #
 

@@ -139,7 +139,7 @@ def run(case, cfg, par, batch, single=None) -> dict:
         return out
     # ---- errors against the single-shard results ----
     pspec = rules.param_specs(single["grads"])
-    cspec = rules.cache_held_specs(single["cache"])
+    cspec = rules.cache_specs(single["cache"])
 
     def blocks(tree, specs):
         return shard_tree(tree, specs, mesh)

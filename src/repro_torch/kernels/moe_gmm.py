@@ -38,6 +38,7 @@ import math
 import torch
 
 from .. import counting
+from ..obs import spans
 from . import build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -128,9 +129,11 @@ def product_cost(x: torch.Tensor, w: torch.Tensor) -> tuple[int, int]:
         (x.numel() + w.numel() + rows * n) * x.element_size()
 
 
+@spans.traced("gmm")
 def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """One product: ``gmm_plain`` for CPU tensors, an empty result for
-    ``meta`` ones, else one kernel launch; reported to ``counting``."""
+    ``meta`` ones, else one kernel launch; reported to ``counting`` and
+    recorded as a ``gmm`` span (``obs.spans``), the backward's too."""
     cost = product_cost(x, w) if counting.active() else (0, 0)
     with counting.kernel("gmm", *cost):
         if x.device.type == "cpu" and w.device.type == "cpu":

@@ -35,6 +35,7 @@ from ..models import (Parallel, batch_specs, decode_step, init_cache,
                       init_params, loss_fn, prefill)
 from ..models.config import ModelConfig
 from ..models.model import gather_logits
+from ..obs import spans
 from ..optim import AdamWConfig, adamw_init, adamw_update
 from ..tree import tree_leaves, tree_map, tree_unflatten
 
@@ -211,21 +212,28 @@ def make_train_step(cfg: ModelConfig, par: Parallel,
     counts each block once.  With ``par.zero_opt`` the moments are the
     rank's ZeRO-1 slices (module docstring; ``opt_structs`` and
     ``adamw_init(split=zero_split(cfg, par))`` make them).
+
+    A step is a ``train_step`` span (``obs.spans``) holding a
+    ``forward_backward`` span a slice and an ``adamw`` span.
     """
     schedule = schedule or (lambda s: 1.0)
     groups = norm_groups(cfg, par)
     split = zero_split(cfg, par)
 
+    @spans.traced("train_step")
     def train_step(params, opt_state, batch):
         if micro_batches == 1:
-            (loss, metrics), grads = _value_and_grad(cfg, par, params, batch,
-                                                     reduce=False)
+            with spans.span("forward_backward"):
+                (loss, metrics), grads = _value_and_grad(cfg, par, params,
+                                                         batch, reduce=False)
         else:
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                    device=p.device), params)
             ls, ces, auxs = [], [], []
             for sl in micro_slices(par, batch, micro_batches):
-                (l, m), g = _value_and_grad(cfg, par, params, sl, reduce=False)
+                with spans.span("forward_backward"):
+                    (l, m), g = _value_and_grad(cfg, par, params, sl,
+                                                reduce=False)
                 grads = tree_map(torch.add, grads, g)
                 ls.append(l)
                 ces.append(m["ce"])
@@ -237,13 +245,14 @@ def make_train_step(cfg: ModelConfig, par: Parallel,
                        "aux": torch.stack(auxs).mean()}
         grads = _sum_over_data(par, grads, split)
         lr_scale = schedule(opt_state["count"])
-        if split is None:
-            params, opt_state, gnorm = adamw_update(
-                opt_cfg, params, grads, opt_state, lr_scale, groups)
-        else:
-            params, opt_state, gnorm = _zero_update(
-                opt_cfg, par, params, grads, opt_state, lr_scale, groups,
-                split)
+        with spans.span("adamw"):
+            if split is None:
+                params, opt_state, gnorm = adamw_update(
+                    opt_cfg, params, grads, opt_state, lr_scale, groups)
+            else:
+                params, opt_state, gnorm = _zero_update(
+                    opt_cfg, par, params, grads, opt_state, lr_scale, groups,
+                    split)
         out_metrics = {"loss": loss, "ce": metrics["ce"],
                        "aux": metrics["aux"], "grad_norm": gnorm}
         return params, opt_state, out_metrics

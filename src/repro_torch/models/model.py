@@ -58,6 +58,12 @@ and the "local" mode's router statistics, capacity and queues are the
 global batch's; the EP bodies keep their per-shard semantics (the first
 shard's ``aux``).  The logits come back as the rank's block
 (``gather_logits`` puts them together).  Without a mesh nothing changes.
+
+Spans (``obs.spans``, recorded while a ``torch.profiler`` records):
+``prefill`` and ``decode_step`` each open a unit; under them each block
+is a ``block`` span carrying its layer, its mixer a span named after the
+mixer (``attn``, ``mamba``, ...), a dense FFN ``ffn``, an MoE FFN
+``moe``, and the head ``logits``.
 """
 from __future__ import annotations
 
@@ -79,6 +85,7 @@ from ..distributed import collectives
 from ..distributed.sharding import PartitionSpec as P
 from ..distributed.sharding import (FUSED, ShardingRules, rank_block,
                                     shard_tree)
+from ..obs import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -385,25 +392,28 @@ _RECURRENT = {"mamba": (ssm.mamba_forward, ssm.mamba_decode),
 
 def _apply_mixer(cfg, spec, mp, x, positions, par, cdt, cache, mode):
     """Returns (y, cache): the KV cache written in place, or the new
-    recurrent state (prefill and decode run the same step)."""
-    if spec.mixer == "attn":
+    recurrent state (prefill and decode run the same step); inside a span
+    named after the mixer."""
+    with spans.span(spec.mixer):
+        if spec.mixer == "attn":
+            if mode == "forward":
+                return attn.attention_forward(cfg, mp, x, positions, cdt,
+                                              par), None
+            if mode == "prefill":
+                return attn.attention_prefill(cfg, mp, x, positions, cache, cdt,
+                                              par)
+            return attn.attention_decode(cfg, mp, x, positions, cache, cdt, par)
+        if spec.mixer == "slstm":
+            if mode == "forward":
+                return ssm.slstm_forward(cfg, mp, x, cdt), None
+            return ssm.slstm_decode(cfg, mp, x, cache, cdt)
+        fwd, dec = _RECURRENT[spec.mixer]
         if mode == "forward":
-            return attn.attention_forward(cfg, mp, x, positions, cdt,
-                                          par), None
-        if mode == "prefill":
-            return attn.attention_prefill(cfg, mp, x, positions, cache, cdt,
-                                          par)
-        return attn.attention_decode(cfg, mp, x, positions, cache, cdt, par)
-    if spec.mixer == "slstm":
-        if mode == "forward":
-            return ssm.slstm_forward(cfg, mp, x, cdt), None
-        return ssm.slstm_decode(cfg, mp, x, cache, cdt)
-    fwd, dec = _RECURRENT[spec.mixer]
-    if mode == "forward":
-        return fwd(cfg, mp, x, cdt, par), None
-    return dec(cfg, mp, x, cache, cdt, par)
+            return fwd(cfg, mp, x, cdt, par), None
+        return dec(cfg, mp, x, cache, cdt, par)
 
 
+@spans.traced("moe")
 def _apply_moe(cfg, bp_ffn, x, par: Parallel, cdt):
     """The MoE block: local math, the "local" mode over ``par``'s mesh
     (``moe.moe_apply_sharded``), or the EP body ``par`` resolves to."""
@@ -447,27 +457,33 @@ def apply_ep(cfg, bp_ffn, x, par: Parallel, cdt, mode: str):
         out_specs=(x_spec, aux_spec), axis=par.model_axis)
     y, aux = sharded({k: bp_ffn[k] for k in in_params_spec}, x)
     if "shared" in bp_ffn:
-        y = y + ffn_apply(bp_ffn["shared"], x, cdt, par,
-                          cfg.d_ff_expert * cfg.n_shared_experts)
+        with spans.span("moe.shared"):
+            y = y + ffn_apply(bp_ffn["shared"], x, cdt, par,
+                              cfg.d_ff_expert * cfg.n_shared_experts)
     return y, aux
 
 
-def _apply_block(cfg, spec, bp, x, positions, par, cdt, cache, mode):
-    """Returns (x, cache, aux); aux is the MoE router's aux dict or None."""
-    aux = None
-    h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
-    y, cache = _apply_mixer(cfg, spec, bp["mixer"], h, positions, par, cdt,
-                            cache, mode)
-    x = x + y
-    if spec.ffn == "none":
+def _apply_block(cfg, spec, bp, x, positions, par, cdt, cache, mode,
+                 layer=None):
+    """Returns (x, cache, aux); aux is the MoE router's aux dict or None.
+    Runs inside a ``block`` span carrying ``layer`` (the index into
+    ``params["layers"]``, "first" for the dense first block)."""
+    with spans.span("block", layer=layer):
+        aux = None
+        h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
+        y, cache = _apply_mixer(cfg, spec, bp["mixer"], h, positions, par, cdt,
+                                cache, mode)
+        x = x + y
+        if spec.ffn == "none":
+            return x, cache, aux
+        h = rmsnorm(bp["norm2"], x, cfg.norm_eps)
+        if spec.ffn == "dense":
+            with spans.span("ffn"):
+                x = x + ffn_apply(bp["ffn"], h, cdt, par, cfg.d_ff)
+        else:
+            out, aux = _apply_moe(cfg, bp["ffn"], h, par, cdt)
+            x = x + out
         return x, cache, aux
-    h = rmsnorm(bp["norm2"], x, cfg.norm_eps)
-    if spec.ffn == "dense":
-        x = x + ffn_apply(bp["ffn"], h, cdt, par, cfg.d_ff)
-    else:
-        out, aux = _apply_moe(cfg, bp["ffn"], h, par, cdt)
-        x = x + out
-    return x, cache, aux
 
 
 def _embed_inputs(cfg, params, batch, cdt, par=None):
@@ -486,6 +502,7 @@ def _embed_inputs(cfg, params, batch, cdt, par=None):
     return x, positions
 
 
+@spans.traced("logits")
 def _logits(cfg, params, x, par=None):
     """Logits over the padded vocab; under ``par`` the rank's columns."""
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -515,15 +532,16 @@ def gather_logits(cfg, logits: torch.Tensor, par: Parallel) -> torch.Tensor:
 # ===================================================================== #
 
 
-def _apply_unit(cfg, unit_params, x, positions, par, cdt):
+def _apply_unit(cfg, unit_params, x, positions, par, cdt, first=0):
     """One pattern unit of the forward pass: (x, aux, counts (E,)), the aux
-    and counts summed over its MoE blocks in the reference's order."""
+    and counts summed over its MoE blocks in the reference's order;
+    ``first`` is its first block's index into ``params["layers"]``."""
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     counts = torch.zeros((max(cfg.n_experts, 1),), dtype=torch.float32,
                          device=x.device)
-    for spec, bp in zip(cfg.pattern, unit_params):
+    for j, (spec, bp) in enumerate(zip(cfg.pattern, unit_params)):
         x, _, aux = _apply_block(cfg, spec, bp, x, positions, par, cdt, None,
-                                 "forward")
+                                 "forward", first + j)
         if aux is not None:
             aux_sum = aux_sum + aux["load_balance_loss"] \
                 + 1e-3 * aux["router_z_loss"]
@@ -557,18 +575,19 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
     if cfg.first_layer_dense:
         x, _, _ = _apply_block(_first_cfg(cfg), _first_spec(cfg),
                                params["first"], x, positions, par, cdt, None,
-                               "forward")
+                               "forward", "first")
     remat = cfg.remat == "unit" and _takes_grad(params)
     width = len(cfg.pattern)
     for u in range(n_units):
         unit = params["layers"][u * width:(u + 1) * width]
         if remat:
             x, aux, counts_u = checkpoint(_apply_unit, cfg, unit, x,
-                                          positions, par, cdt,
+                                          positions, par, cdt, u * width,
                                           use_reentrant=False,
                                           preserve_rng_state=False)
         else:
-            x, aux, counts_u = _apply_unit(cfg, unit, x, positions, par, cdt)
+            x, aux, counts_u = _apply_unit(cfg, unit, x, positions, par, cdt,
+                                           u * width)
         aux_total = aux_total + aux
         counts[u] = counts_u
     logits = _logits(cfg, params, x, par)
@@ -684,14 +703,15 @@ def _run_stack(cfg, params, cache, x, positions, par, cdt, mode):
     if cfg.first_layer_dense:
         x, cache["first"], _ = _apply_block(
             _first_cfg(cfg), _first_spec(cfg), params["first"], x, positions,
-            par, cdt, cache["first"], mode)
+            par, cdt, cache["first"], mode, "first")
     layers = cache["layers"]
     for i, (spec, bp) in enumerate(zip(layer_specs(cfg), params["layers"])):
         x, layers[i], _ = _apply_block(cfg, spec, bp, x, positions, par, cdt,
-                                       layers[i], mode)
+                                       layers[i], mode, i)
     return x
 
 
+@spans.traced("prefill")
 def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int,
             par: Parallel = Parallel()):
     """Run the prompt through the stack: (last-token logits (B, V), cache).
@@ -709,6 +729,7 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int,
     return logits[:, 0, :], cache
 
 
+@spans.traced("decode_step")
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 tokens: torch.Tensor | None, pos: torch.Tensor,
                 par: Parallel = Parallel(),

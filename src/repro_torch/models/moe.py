@@ -40,6 +40,13 @@ statistics those of the global batch, and each rank computing its part:
 the rank's block of every expert's capacity slots (the slots split over
 the data axes) and its block of ``d_ff`` (split over the model axis, as
 the rules shard the stacks when the bucket count does not divide it).
+
+Spans (``obs.spans``), in every mode: ``moe.route``, ``moe.dispatch``
+(the plan and the gather into buckets, and the EP all-to-all),
+``moe.experts`` (``gmm`` spans under it), ``moe.combine`` and
+``moe.shared``; the counters ``moe.copies_routed`` and
+``moe.copies_dropped`` where the dispatch plan is made
+(``_count_copies``).
 """
 from __future__ import annotations
 
@@ -53,6 +60,7 @@ from ..distributed.collectives import (copy_to, gather_from, reduce_from,
                                       split_to)
 from ..distributed.sharding import assemble
 from ..kernels import ops
+from ..obs import spans
 from .config import ModelConfig
 from .layers import ffn_apply, ffn_init, normal_init, out_proj_init
 
@@ -143,6 +151,7 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
 # --------------------------------------------------------------------- #
 
 
+@spans.traced("moe.route")
 def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor,
           data_group=None, n_data: int = 1):
     """x: (T, d) -> (weights (T,K), idx (T,K) int64, aux dict).  With
@@ -264,6 +273,7 @@ def _gather(src, index, valid, back_index, back_valid, group: int):
     return src[index] * valid[:, None].to(src.dtype)
 
 
+@spans.traced("moe.experts")
 def expert_ffn(params: dict, xs: torch.Tensor, compute_dtype) -> torch.Tensor:
     """Batched SwiGLU over expert buckets through the gmm kernel:
     xs (E, C, d) -> (E, C, d)."""
@@ -286,14 +296,39 @@ def _combine(gathered: torch.Tensor, weights: torch.Tensor, t: int, k: int,
     return torch.einsum("tkd,tk->td", per_copy, weights.to(compute_dtype))
 
 
-def _dispatch(cfg, xt, v_idx, n_buckets: int, cap: int, frag: int):
+def _count_copies(kept: torch.Tensor, mine: torch.Tensor | None = None):
+    """Count the plan's copies (``mine``: those bound to this rank's
+    buckets, where the others fill a trash bucket) as
+    ``moe.copies_routed`` and those beyond capacity as
+    ``moe.copies_dropped`` (``obs.spans``; with slotting each fragment
+    is a copy).  The step's own ``kept`` and ``mine`` are kept and
+    reduced only when the counters are read: nothing is launched here.
+    A routing recomputed in the backward (unit remat) is not counted
+    again."""
+    if not spans.recording() or torch._C._current_graph_task_id() != -1:
+        return
+    if mine is None:
+        spans.count("moe.copies_routed", kept.numel())
+        spans.count("moe.copies_dropped",
+                    lambda: kept.numel() - int(kept.sum()))
+    else:
+        spans.count("moe.copies_routed", lambda: int(mine.sum()))
+        spans.count("moe.copies_dropped",
+                    lambda: int((mine.reshape(-1) & ~kept).sum()))
+
+
+@spans.traced("moe.dispatch")
+def _dispatch(cfg, xt, v_idx, n_buckets: int, cap: int, frag: int,
+              mine: torch.Tensor | None = None):
     """(buckets (n_buckets*cap, d), the combine gather's index arguments).
 
     Copy j of the flattened (T*K*frag,) list is token j // (K*frag): the
-    tokens are gathered directly instead of materializing the copies."""
+    tokens are gathered directly instead of materializing the copies.
+    ``mine`` is passed on to ``_count_copies``."""
     k = cfg.top_k
     slot_token, slot_valid, copy_slot, copy_kept = dispatch_indices(
         v_idx, n_buckets, cap)
+    _count_copies(copy_kept, mine)
     buckets = _gather(xt, slot_token // (k * frag), slot_valid, copy_slot,
                       copy_kept, k * frag)
     return buckets, (copy_slot, copy_kept, slot_token, slot_valid)
@@ -310,10 +345,12 @@ def moe_apply_local(cfg: ModelConfig, params: dict, x: torch.Tensor,
     v_idx, n_b, cap, frag = _plan(cfg, idx, t)
     buckets, back = _dispatch(cfg, xt, v_idx, n_b, cap, frag)
     outs = expert_ffn(params, buckets.reshape(n_b, cap, d), compute_dtype)
-    gathered = _gather(outs.reshape(n_b * cap, d), *back, 1)
-    y = _combine(gathered, weights, t, cfg.top_k, frag, compute_dtype)
+    with spans.span("moe.combine"):
+        gathered = _gather(outs.reshape(n_b * cap, d), *back, 1)
+        y = _combine(gathered, weights, t, cfg.top_k, frag, compute_dtype)
     if cfg.n_shared_experts > 0:
-        y = y + ffn_apply(params["shared"], xt, compute_dtype)
+        with spans.span("moe.shared"):
+            y = y + ffn_apply(params["shared"], xt, compute_dtype)
     return y.reshape(b, s, d), aux
 
 
@@ -338,29 +375,31 @@ def moe_apply_sharded(cfg: ModelConfig, params: dict, x: torch.Tensor,
     weights, idx, aux = route(cfg, params["router"], xt, dg, n_d)
     v_idx, n_b, cap, frag = _plan(cfg, idx, t * n_d)
     kf = k * frag
-    if dg is None:
-        v_all, x_all = v_idx, xt
-    else:       # every rank's choices and tokens, in the batch's row order
-        v_all = torch.cat(collectives.all_gather(v_idx, dg))
-        x_all = copy_to(gather_from(xt, 0, dg), dg)
-    slot_token, slot_valid, copy_slot, copy_kept = dispatch_indices(
-        v_all, n_b, cap)
-    # The (n_b, cap) slots padded to n_d equal blocks of c_loc; this
-    # rank computes block ``me`` of every expert.
-    c_loc = -(-cap // n_d)
-    pad = c_loc * n_d - cap
-    slot_token = torch.cat([slot_token.view(n_b, cap),
-                            slot_token.new_zeros((n_b, pad))], dim=1)
-    slot_valid = torch.cat([slot_valid.view(n_b, cap),
-                            slot_valid.new_zeros((n_b, pad))], dim=1)
-    c0 = me * c_loc
-    my_tok = slot_token[:, c0:c0 + c_loc].reshape(-1)
-    my_valid = slot_valid[:, c0:c0 + c_loc].reshape(-1)
-    e_of, c_of = copy_slot // cap, copy_slot % cap
-    in_block = copy_kept & (c_of >= c0) & (c_of < c0 + c_loc)
-    buckets = _gather(x_all, my_tok // kf, my_valid,
-                      torch.where(in_block, e_of * c_loc + c_of - c0,
-                                  torch.zeros_like(c_of)), in_block, kf)
+    with spans.span("moe.dispatch"):
+        if dg is None:
+            v_all, x_all = v_idx, xt
+        else:       # every rank's choices and tokens, in the batch's row order
+            v_all = torch.cat(collectives.all_gather(v_idx, dg))
+            x_all = copy_to(gather_from(xt, 0, dg), dg)
+        slot_token, slot_valid, copy_slot, copy_kept = dispatch_indices(
+            v_all, n_b, cap)
+        _count_copies(copy_kept)
+        # The (n_b, cap) slots padded to n_d equal blocks of c_loc; this
+        # rank computes block ``me`` of every expert.
+        c_loc = -(-cap // n_d)
+        pad = c_loc * n_d - cap
+        slot_token = torch.cat([slot_token.view(n_b, cap),
+                                slot_token.new_zeros((n_b, pad))], dim=1)
+        slot_valid = torch.cat([slot_valid.view(n_b, cap),
+                                slot_valid.new_zeros((n_b, pad))], dim=1)
+        c0 = me * c_loc
+        my_tok = slot_token[:, c0:c0 + c_loc].reshape(-1)
+        my_valid = slot_valid[:, c0:c0 + c_loc].reshape(-1)
+        e_of, c_of = copy_slot // cap, copy_slot % cap
+        in_block = copy_kept & (c_of >= c0) & (c_of < c0 + c_loc)
+        buckets = _gather(x_all, my_tok // kf, my_valid,
+                          torch.where(in_block, e_of * c_loc + c_of - c0,
+                                      torch.zeros_like(c_of)), in_block, kf)
     tp = par.split(cfg.d_ff_expert // frag)
     xs = buckets.reshape(n_b, c_loc, d)
     if tp:
@@ -368,20 +407,22 @@ def moe_apply_sharded(cfg: ModelConfig, params: dict, x: torch.Tensor,
     outs = expert_ffn(params, xs, compute_dtype)
     if tp:
         outs = reduce_from(outs, par.model_group())
-    if dg is not None:        # each rank combines its copies from all slots
-        outs = copy_to(gather_from(outs, 1, dg), dg)
-    # This rank's copies, and for each padded slot the copy it holds.
-    lo, n_copies = me * t * kf, t * kf
-    mine = copy_slot[lo:lo + n_copies]
-    rel = slot_token.reshape(-1) - lo
-    held = slot_valid.reshape(-1) & (rel >= 0) & (rel < n_copies)
-    gathered = _gather(outs.reshape(-1, d), (mine // cap) * (c_loc * n_d)
-                       + mine % cap, copy_kept[lo:lo + n_copies],
-                       torch.where(held, rel, torch.zeros_like(rel)), held, 1)
-    y = _combine(gathered, weights, t, k, frag, compute_dtype)
+    with spans.span("moe.combine"):
+        if dg is not None:        # each rank combines its copies from all slots
+            outs = copy_to(gather_from(outs, 1, dg), dg)
+        # This rank's copies, and for each padded slot the copy it holds.
+        lo, n_copies = me * t * kf, t * kf
+        mine = copy_slot[lo:lo + n_copies]
+        rel = slot_token.reshape(-1) - lo
+        held = slot_valid.reshape(-1) & (rel >= 0) & (rel < n_copies)
+        gathered = _gather(outs.reshape(-1, d), (mine // cap) * (c_loc * n_d)
+                           + mine % cap, copy_kept[lo:lo + n_copies],
+                           torch.where(held, rel, torch.zeros_like(rel)), held, 1)
+        y = _combine(gathered, weights, t, k, frag, compute_dtype)
     if cfg.n_shared_experts > 0:
-        y = y + ffn_apply(params["shared"], xt, compute_dtype, par,
-                          cfg.d_ff_expert * cfg.n_shared_experts)
+        with spans.span("moe.shared"):
+            y = y + ffn_apply(params["shared"], xt, compute_dtype, par,
+                              cfg.d_ff_expert * cfg.n_shared_experts)
     return y.reshape(b, s, d), aux
 
 
@@ -470,16 +511,20 @@ def moe_apply_ep(cfg: ModelConfig, params: dict, x_local: torch.Tensor,
     if n_b != loc * n_dev:
         raise ValueError(f"bucket count {n_b} != {loc}x{n_dev} local stacks")
     buckets, back = _dispatch(cfg, xt, v_idx, n_b, cap, frag)
-    # dest-rank major; after the exchange dim 0 indexes the source rank.
-    recv = collectives.all_to_all(buckets.reshape(n_dev, loc, cap, d), group)
-    recv = recv.transpose(0, 1).reshape(loc, n_dev * cap, d)
+    with spans.span("moe.dispatch"):
+        # dest-rank major; after the exchange dim 0 indexes the source rank.
+        recv = collectives.all_to_all(buckets.reshape(n_dev, loc, cap, d),
+                                      group)
+        recv = recv.transpose(0, 1).reshape(loc, n_dev * cap, d)
     outs = expert_ffn(params, recv, compute_dtype)            # (loc, n*C, d)
-    back_out = outs.reshape(loc, n_dev, cap, d).transpose(0, 1)
-    home = collectives.all_to_all(back_out, group)
-    gathered = _gather(home.reshape(n_b * cap, d), *back, 1)
-    y = _combine(gathered, weights, t, cfg.top_k, frag, compute_dtype)
+    with spans.span("moe.combine"):
+        back_out = outs.reshape(loc, n_dev, cap, d).transpose(0, 1)
+        home = collectives.all_to_all(back_out, group)
+        gathered = _gather(home.reshape(n_b * cap, d), *back, 1)
+        y = _combine(gathered, weights, t, cfg.top_k, frag, compute_dtype)
     if "shared" in params:
-        y = y + ffn_apply(params["shared"], xt, compute_dtype)
+        with spans.span("moe.shared"):
+            y = y + ffn_apply(params["shared"], xt, compute_dtype)
     return y.reshape(b, s, d), aux
 
 
@@ -505,15 +550,17 @@ def moe_apply_ep_replicated(cfg: ModelConfig, params: dict,
     is_mine = (v_idx // loc) == my
     local_idx = torch.where(is_mine, v_idx - my * loc,
                             torch.full_like(v_idx, loc))
-    buckets, back = _dispatch(cfg, xt, local_idx, loc + 1, cap, frag)
+    buckets, back = _dispatch(cfg, xt, local_idx, loc + 1, cap, frag, is_mine)
     outs = expert_ffn(params, buckets.reshape(loc + 1, cap, d)[:loc],
                       compute_dtype)
-    outs = torch.cat([outs, outs.new_zeros((1, cap, d))])   # zero trash bucket
-    gathered = _gather(outs.reshape((loc + 1) * cap, d), *back, 1)
-    y = _combine(gathered, weights, t, cfg.top_k, frag, compute_dtype)
-    y = reduce_from(y, group)
+    with spans.span("moe.combine"):
+        outs = torch.cat([outs, outs.new_zeros((1, cap, d))])  # zero trash bucket
+        gathered = _gather(outs.reshape((loc + 1) * cap, d), *back, 1)
+        y = _combine(gathered, weights, t, cfg.top_k, frag, compute_dtype)
+        y = reduce_from(y, group)
     if "shared" in params:
-        y = y + ffn_apply(params["shared"], xt, compute_dtype)  # replicated
+        with spans.span("moe.shared"):
+            y = y + ffn_apply(params["shared"], xt, compute_dtype)  # replicated
     return y.reshape(b, s, d), aux
 
 

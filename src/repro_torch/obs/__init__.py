@@ -8,7 +8,10 @@
   events (:func:`build_flight_log`), and :func:`summarize_timeseries`
   rows for :func:`repro_torch.traffic.metrics.format_table`;
 * :mod:`.export` / :mod:`.schema` — the Chrome trace-event / Perfetto
-  JSON exporter and its validator.
+  JSON exporter and its validator;
+* :mod:`.spans` — not of the simulator: spans and counters of the model
+  path (prefill, decode and train steps and the layers under them),
+  recorded on the profiler's clock while a ``torch.profiler`` records.
 
 Typical use::
 
@@ -17,6 +20,7 @@ Typical use::
     log = build_flight_log(sim, res, scenario="smoke")
     write_trace("out.json", log)          # open in ui.perfetto.dev
 """
+from . import spans
 from .export import chrome_trace, write_trace
 from .probes import DecisionTrace, ProbeConfig, ProbeRecord, ring_bins
 from .recorder import (ControlEvent, FlightLog, RequestRecord, aimd_events,

@@ -40,6 +40,32 @@ def reset_launch_counts() -> None:
     decode_attn.mode_launches = dict.fromkeys(decode_attn.mode_launches, 0)
 
 
+# The kernels whose launches are also counted by path or by mode.
+_SPLIT = {"gmm": "path_launches", "decode_attention": "mode_launches"}
+
+
+def launch_snapshot() -> dict[tuple[str, str | None], int]:
+    """Every launch counter: (kernel, None) for ``launch_counts``', and
+    (kernel, path or mode) for ``gmm``'s paths and ``decode_attention``'s
+    modes."""
+    out = {(name, None): mod.launches for name, mod in _COUNTED.items()}
+    for name, attr in _SPLIT.items():
+        out.update({(name, k): n
+                    for k, n in getattr(_COUNTED[name], attr).items()})
+    return out
+
+
+def add_launches(delta: dict[tuple[str, str | None], int]) -> None:
+    """Add ``delta`` (a difference of two ``launch_snapshot``s) to the
+    counters: the launches a replayed CUDA graph makes again."""
+    for (name, sub), n in delta.items():
+        mod = _COUNTED[name]
+        if sub is None:
+            mod.launches += n
+        else:
+            getattr(mod, _SPLIT[name])[sub] += n
+
+
 def _synchronize() -> None:
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
@@ -85,4 +111,5 @@ def expert_ffn(params: dict, xs: torch.Tensor, compute_dtype) -> torch.Tensor:
 
 __all__ = ["gmm", "decode_attention", "decode_attention_partial", "deposit", "deposit_segments",
            "backlog_scan", "admission_window", "admission_ctrl", "expert_ffn", "timed_call",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "reset_launch_counts", "launch_snapshot",
+           "add_launches"]

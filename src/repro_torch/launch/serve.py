@@ -261,10 +261,12 @@ def _serve(cfg, params, args, device) -> tuple[dict, dict]:
     generated = [tok]
     _synchronize(device)
     t0 = time.perf_counter()
-    for _ in range(args.decode_tokens):
-        tok, logits, cache = serve_step(params, cache, tok, pos, emb)
-        pos = pos + 1
-        generated.append(tok)
+    # Grad off, so the serve step replays its CUDA graph on a card.
+    with torch.no_grad():
+        for _ in range(args.decode_tokens):
+            tok, logits, cache = serve_step(params, cache, tok, pos, emb)
+            pos = pos + 1
+            generated.append(tok)
     _synchronize(device)
     dt = time.perf_counter() - t0
     toks = args.batch * args.decode_tokens

@@ -38,6 +38,7 @@ from ..models.model import gather_logits
 from ..obs import spans
 from ..optim import AdamWConfig, adamw_init, adamw_update
 from ..tree import tree_leaves, tree_map, tree_unflatten
+from .step_graph import StepGraphs
 
 
 def zero_split(cfg: ModelConfig, par: Parallel):
@@ -267,6 +268,13 @@ def make_prefill_step(cfg: ModelConfig, par: Parallel, max_len: int):
     return prefill_step
 
 
+# The serve steps' CUDA graph (``step_graph``): one for the process, since
+# a caller makes a serve step per batch and the graph follows the tensors.
+_GRAPHS = StepGraphs()
+# The model's step without its own span: ``serve_step`` opens the unit.
+_decode = decode_step.__wrapped__
+
+
 def make_serve_step(cfg: ModelConfig, par: Parallel):
     """One decode step: greedy next token + logits, cache updated in place.
 
@@ -277,7 +285,19 @@ def make_serve_step(cfg: ModelConfig, par: Parallel):
     Under a mesh the step takes the rank's blocks (``pos`` whole) and
     returns the global next tokens and logits on every rank; given the
     global tokens (or embeds), as it returns them, it takes its rows.
+
+    On CUDA, with grad off and no mesh, the whole step is captured once
+    per key into a CUDA graph and replayed (``step_graph``); elsewhere,
+    and for a recurrent state the step replaces, it runs eagerly.  Each
+    call is a ``decode_step`` span (a unit of ``obs.spans``).
     """
+
+    def step(params, cache, tokens, pos, embeds):
+        logits, cache = _decode(cfg, params, cache, tokens, pos, par=par,
+                                embeds=embeds)
+        logits = gather_logits(cfg, logits, par)
+        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        return next_tok, logits, cache
 
     def serve_step(params, cache, tokens, pos, embeds=None):
         if par.dp:
@@ -285,11 +305,9 @@ def make_serve_step(cfg: ModelConfig, par: Parallel):
                 tokens = par.rows(tokens)
             if embeds is not None and embeds.shape[0] == pos.shape[0]:
                 embeds = par.rows(embeds)
-        logits, cache = decode_step(cfg, params, cache, tokens, pos, par=par,
-                                    embeds=embeds)
-        logits = gather_logits(cfg, logits, par)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-        return next_tok, logits, cache
+        with spans.span("decode_step"):
+            return _GRAPHS(step, cfg, par, params, cache,
+                           (tokens, pos, embeds))
 
     return serve_step
 

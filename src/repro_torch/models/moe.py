@@ -296,6 +296,10 @@ def _combine(gathered: torch.Tensor, weights: torch.Tensor, t: int, k: int,
     return torch.einsum("tkd,tk->td", per_copy, weights.to(compute_dtype))
 
 
+# A list while a CUDA graph captures the serve step (``_count_copies``).
+captured_masks: list | None = None
+
+
 def _count_copies(kept: torch.Tensor, mine: torch.Tensor | None = None):
     """Count the plan's copies (``mine``: those bound to this rank's
     buckets, where the others fill a trash bucket) as
@@ -304,7 +308,13 @@ def _count_copies(kept: torch.Tensor, mine: torch.Tensor | None = None):
     is a copy).  The step's own ``kept`` and ``mine`` are kept and
     reduced only when the counters are read: nothing is launched here.
     A routing recomputed in the backward (unit remat) is not counted
-    again."""
+    again.  While a CUDA graph captures the serve step
+    (``captured_masks`` is a list: ``launch.step_graph``) nothing is
+    counted: ``kept`` goes into that list, and each replay counts a copy
+    of it."""
+    if captured_masks is not None:
+        captured_masks.append(kept)
+        return
     if not spans.recording() or torch._C._current_graph_task_id() != -1:
         return
     if mine is None:

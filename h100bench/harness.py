@@ -3,11 +3,13 @@ that decides ``correct``, and the result line.
 
 A cell ``<config>.<mix>`` is found by name: ``BENCHMARK.json`` names its
 configuration file (``configs/<config>.json``: the model's published
-sizes and the port's arch id) and its traffic mix
-(``traffic/<mix>.json``: the kind of job and its sizes); ``limits/<cell>.json``
-holds the limits of the numbers its check compares, with the readings
-they were set from; each per-layer metric is read by
-``metrics/<metric>.py`` (or ``metrics/<metric's first part>.py``).
+sizes, the port's arch id and the architecture's family) and its traffic
+mix (``traffic/<mix>.json``: the kind of job and its sizes);
+``families/<family>.py`` holds what depends on the architecture (its
+sizes, weights, reference, config check and work counts);
+``limits/<cell>.json`` holds the limits of the numbers its check
+compares, with the readings they were set from; each per-layer metric is
+read by ``metrics/<metric>.py`` (or ``metrics/<metric's first part>.py``).
 
 Kinds of job, each a closed loop of whole units:
 
@@ -29,6 +31,7 @@ divide all the window's work by its whole length.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import importlib.util
 import json
@@ -41,7 +44,6 @@ from pathlib import Path
 import torch
 
 from . import inputs, reference, yardstick
-from .yardstick import Sizes
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -81,10 +83,8 @@ class Cell:
     limits: dict           # number -> limit
     end_to_end: list       # BENCHMARK.json's metrics this cell reports
     per_layer: list
-
-    @property
-    def sizes(self) -> Sizes:
-        return yardstick.sizes_of(self.config["model"])
+    family: object         # the configuration's family module
+    sizes: object          # its ``Sizes`` of the file's ``model`` group
 
 
 def _reports(metric: dict, cell: str, e2e_names=None) -> bool:
@@ -114,9 +114,29 @@ def find_cell(name: str, root: Path = ROOT) -> Cell:
     e2e = [m for m in bench["end_to_end"] if _reports(m, name)]
     names = {m["name"] for m in e2e}
     per = [m for m in bench["per_layer"] if _reports(m, name, names)]
+    fam = family(config["family"], root)
     return Cell(name, w["chips"], config, traffic,
                 {k: v["limit"] for k, v in limits["numbers"].items()},
-                e2e, per)
+                e2e, per, fam, fam.sizes_of(config["model"]))
+
+
+def family(name: str, root: Path = ROOT):
+    """The module of architecture family ``name``, ``families/<name>.py``
+    (loaded once, so that its ``Sizes`` stay one class)."""
+    path = root / "h100bench" / "families" / f"{name}.py"
+    if not path.exists():
+        raise FileNotFoundError(f"no family {name!r}: {path} is missing")
+    return _load_family(path)
+
+
+@functools.cache
+def _load_family(path: Path):
+    spec = importlib.util.spec_from_file_location(
+        f"h100bench_family_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod       # dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def reader(metric: str, root: Path = ROOT):
@@ -136,43 +156,18 @@ def reader(metric: str, root: Path = ROOT):
 # The program's configuration
 # --------------------------------------------------------------------- #
 
-SMOKE = dict(n_layers=2, d_model=64, n_heads=4, head_dim=16, vocab_size=500,
-             padded_vocab=512, d_expert=32, first_dense_d_ff=64)
-
-
-def smoke_sizes(s: Sizes) -> Sizes:
-    """The same structure at a size the CPU runs in seconds."""
-    kv = max(1, round(4 * s.n_kv_heads / s.n_heads))
-    return dataclasses.replace(
-        s, **{**SMOKE, "n_layers": 2 + (1 if s.first_dense_d_ff else 0),
-              "first_dense_d_ff": SMOKE["first_dense_d_ff"] if s.first_dense_d_ff else 0},
-        n_kv_heads=kv, n_experts=min(s.n_experts, 8), top_k=min(s.top_k, 4),
-        n_shared=min(s.n_shared, 1))
-
-
-def program_config(cell: Cell, sizes: Sizes):
+def program_config(cell: Cell, sizes):
     """The port's ``ModelConfig`` for the cell: its registered config,
-    checked against the file's sizes (at smoke size, cut to them)."""
+    checked against the family's ``want`` of the file's sizes (at smoke
+    size, cut to them by the family's ``smoke_config``), computed in bf16
+    and unslotted."""
     from repro_torch.configs import get_config
     cfg = get_config(cell.config["arch"])
-    want = dict(n_layers=sizes.n_layers, d_model=sizes.d_model,
-                n_heads=sizes.n_heads, n_kv_heads=sizes.n_kv_heads,
-                head_dim=sizes.head_dim, vocab_size=sizes.vocab_size,
-                n_experts=sizes.n_experts, top_k=sizes.top_k,
-                d_ff_expert=sizes.d_expert, n_shared_experts=sizes.n_shared,
-                first_dense_d_ff=sizes.first_dense_d_ff,
-                tie_embeddings=sizes.tie_embeddings,
-                rope_theta=sizes.rope_theta, norm_eps=sizes.norm_eps,
-                capacity_factor=sizes.capacity_factor)
     if sizes != cell.sizes:
-        cfg = dataclasses.replace(
-            cfg, **want, d_ff=sizes.d_expert,
-            vocab_pad_multiple=sizes.padded_vocab,
-            attn_q_chunk=16, attn_kv_chunk=16)
+        cfg = dataclasses.replace(cfg, **cell.family.smoke_config(sizes))
+    want = cell.family.want(sizes)
     got = {k: getattr(cfg, k) for k in want}
-    got["first_dense_d_ff"] = cfg.first_dense_d_ff if cfg.first_layer_dense else 0
-    if got != want or cfg.padded_vocab != sizes.padded_vocab \
-            or cfg.compute_dtype != "bfloat16" or cfg.moe_slotting:
+    if got != want or cfg.compute_dtype != "bfloat16" or cfg.moe_slotting:
         raise ValueError(f"{cell.config['arch']}: the port's config "
                          f"{got} differs from the file's {want}")
     return cfg
@@ -186,7 +181,7 @@ def program_config(cell: Cell, sizes: Sizes):
 @dataclasses.dataclass
 class Run:
     cell: Cell
-    sizes: Sizes
+    sizes: object                        # the cell's, or at smoke size
     traffic: dict
     device: torch.device
     trace: bool
@@ -318,7 +313,7 @@ def _serve_setup(run: Run, cfg, seed: int):
     from repro_torch.launch.serve import (calibrate_router_stats,
                                           plan_and_apply_placement)
     s, t, dev = run.sizes, run.traffic, run.device
-    params = inputs.draw_weights(s, seed, dev)
+    params = inputs.draw_weights(run.cell.family.leaf_specs(s), seed, dev)
     log("weights drawn")
     cb, cs = t["calibration"]
     calib = {"tokens": inputs.tokens(seed, inputs.CALIBRATION, 0, (cb, cs),
@@ -441,18 +436,18 @@ def _check_serving(run: Run, seed: int, served: torch.Tensor,
     seed: the gaps of the served tokens (``_gaps``).  With ``control``
     also those of the tokens the reference computed in fp8 puts first at
     the same positions, under "control"."""
-    s, t, dev = run.sizes, run.traffic, run.device
+    fam, s, t, dev = run.cell.family, run.sizes, run.traffic, run.device
     k = sample_unit(seed, run.units)
     prompts = inputs.tokens(seed, inputs.BATCHES, k, (t["batch"], t["prompt_len"]),
                             s.vocab_size, dev)
     got = served[k].to(dev).long()
-    params = inputs.draw_weights(s, seed, dev)
+    params = inputs.draw_weights(fam.leaf_specs(s), seed, dev)
     log(f"reference on unit {k}")
-    logits = reference.serve_logits(s, params, prompts, got[:, :-1])
+    logits = fam.serve_logits(s, params, prompts, got[:, :-1])
     log("reference done")
     out = _gaps(logits, got)
     if control:
-        low = reference.serve_logits(s, params, prompts, got[:, :-1], "fp8")
+        low = fam.serve_logits(s, params, prompts, got[:, :-1], "fp8")
         out["control"] = _gaps(logits, low.argmax(dim=-1))
     del params
     return out
@@ -478,10 +473,10 @@ def _opt(t: dict) -> dict:
                 grad_clip=1.0)
 
 
-def _update_norms(s: Sizes, seed: int, params: dict, dev) -> dict:
-    """Each leaf's norm of its change from the drawn weights."""
+def _update_norms(specs, seed: int, params: dict, dev) -> dict:
+    """Each leaf's norm of its change from the weights drawn by ``specs``."""
     out = {}
-    for i, spec in enumerate(inputs.leaf_specs(s)):
+    for i, spec in enumerate(specs):
         p0 = inputs.draw_leaf(spec, i, seed, dev, train=True)
         now = inputs.leaf_at(params, spec[0])
         out[spec[0]] = float(torch.linalg.vector_norm(now.float() - p0))
@@ -494,8 +489,9 @@ def _train(run: Run, cfg, seed: int, seconds: float, faults, t_start: float,
     from repro_torch.models import Parallel
     from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
     s, t, dev = run.sizes, run.traffic, run.device
+    specs = run.cell.family.leaf_specs(s)
     opt = _opt(t)
-    params = inputs.draw_weights(s, seed, dev, train=True)
+    params = inputs.draw_weights(specs, seed, dev, train=True)
     state = adamw_init(params)
     step_fn = make_train_step(
         cfg, Parallel(mesh=None),
@@ -523,7 +519,7 @@ def _train(run: Run, cfg, seed: int, seconds: float, faults, t_start: float,
             from repro_torch.tree import tree_leaves
             first = [float(torch.linalg.vector_norm(m)) / (1 - opt["b1"])
                      for m in tree_leaves(state["mu"])]
-    updates = _update_norms(s, seed, params, dev)
+    updates = _update_norms(specs, seed, params, dev)
     _sync(dev)
     log(f"checked steps done, losses {losses}")
     tracer = _Tracer(run) if run.trace else None
@@ -571,14 +567,16 @@ def _leaf_gap(prog, ref, skip=()):
 
 def _reference_steps(run: Run, seed: int, prec: str):
     """The reference's checked steps from the drawn weights: its result
-    (``reference.train_steps``) and each leaf's update norm."""
-    s, t, dev = run.sizes, run.traffic, run.device
-    params = inputs.draw_weights(s, seed, dev, train=True)
+    (``reference.train_steps`` on the family's ``loss``) and each leaf's
+    update norm."""
+    fam, s, t, dev = run.cell.family, run.sizes, run.traffic, run.device
+    specs = fam.leaf_specs(s)
+    params = inputs.draw_weights(specs, seed, dev, train=True)
     batches = [_train_batch(run, seed, i) for i in range(CHECKED_STEPS)]
-    ref = reference.train_steps(s, params, batches, _opt(t),
+    ref = reference.train_steps(fam.loss, s, params, batches, _opt(t),
                                 reference.cosine(t["warmup"], t["total_steps"]),
                                 prec)
-    updates = _update_norms(s, seed, params, dev)
+    updates = _update_norms(specs, seed, params, dev)
     log(f"reference ({prec}) done, losses {ref['loss']}")
     del params
     _free(dev)
@@ -640,14 +638,14 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     """One run of cell ``name``; returns the result line's object.
 
     ``device="cpu"`` with ``smoke`` (traffic sizes to override) runs the
-    same path at ``smoke_sizes`` on the CPU, where the kernels are their
-    plain versions: for tests, never for a measurement.  ``faults``
-    plants faults in the timed path (``FAULTS``), for the tests that
-    show the check fails them.  ``control`` also reads the check's numbers
-    of the reference computed in fp8 in the program's place, under
-    "control", and ``readings`` every number the check reads, limited or
-    not, under "readings" (``calibrate.py``); a benchmark run does
-    neither."""
+    same path at the family's ``smoke`` sizes on the CPU, where the
+    kernels are their plain versions: for tests, never for a
+    measurement.  ``faults`` plants faults in the timed path (``FAULTS``),
+    for the tests that show the check fails them.  ``control`` also reads
+    the check's numbers of the reference computed in fp8 in the program's
+    place, under "control", and ``readings`` every number the check reads,
+    limited or not, under "readings" (``calibrate.py``); a benchmark run
+    does neither."""
     t_start = time.perf_counter() if t_start is None else t_start
     cell = find_cell(name, root)
     dev = torch.device(device)
@@ -659,7 +657,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
         torch.backends.cudnn.allow_tf32 = False
     elif smoke is None:
         raise NoChip("a measured run needs the card")
-    sizes = cell.sizes if smoke is None else smoke_sizes(cell.sizes)
+    sizes = cell.sizes if smoke is None else cell.family.smoke(cell.sizes)
     traffic = {**cell.traffic, **(smoke or {})}
     cfg = program_config(cell, sizes)
     run = Run(cell, sizes, traffic, dev, bool(trace) and dev.type == "cuda")

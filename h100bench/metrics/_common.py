@@ -20,10 +20,12 @@ def n_segments(run, label: str) -> int:
 
 
 def unit_flops(run) -> float:
-    s, t = run.sizes, run.traffic
+    """Model flops of one unit of the run's traffic, by the cell's
+    family's counts."""
+    fam, s, t = run.cell.family, run.sizes, run.traffic
     kind = t["kind"]
     if kind == "train":
-        return yardstick.train_flops(s, t["batch"], t["seq_len"])
-    flops = yardstick.prefill_flops(s, t["batch"], t["prompt_len"])
-    return flops + sum(yardstick.decode_flops(s, t["batch"], p)
+        return yardstick.train_flops(fam, s, t["batch"], t["seq_len"])
+    flops = yardstick.prefill_flops(fam, s, t["batch"], t["prompt_len"])
+    return flops + sum(yardstick.decode_flops(fam, s, t["batch"], p)
                        for p in decode_positions(run))

@@ -1,5 +1,6 @@
-"""The yardstick's counts on hand-worked shapes, the traffic's batches,
-and the reductions of a synthetic trace."""
+"""The yardstick's counts, through the ``attn_moe`` family, on
+hand-worked shapes, the traffic's batches, and the reductions of a
+synthetic trace."""
 import json
 import math
 
@@ -9,21 +10,26 @@ import torch
 from h100bench import harness, inputs, yardstick
 
 
+FAM = harness.family("attn_moe")
+
+
 def sizes(name):
-    return harness.find_cell(name).sizes
+    cell = harness.find_cell(name)
+    assert cell.family is FAM
+    return cell.sizes
 
 
 def test_gmm_count_at_deepseek_prefill_256():
     s = sizes("deepseek-moe-16b.prefill-256")
     t = 256 * 256
     assert s.capacity(t) == 7680                     # 1.25 * 65,536 * 6 / 64
-    flops, nbytes = yardstick.gmm_need(s, t)
+    flops, nbytes = FAM.gmm_need(s, t)
     per_layer = 3 * 2 * t * 6 * 2048 * 1408
     assert flops == 27 * per_layer                   # 27 MoE layers
     rows = t * 6 * (2 * (2048 + 1408) + 1408 + 2048)
     assert nbytes == 27 * 2 * (3 * 64 * 2048 * 1408 + rows)
     assert yardstick.least_time_s(flops, nbytes) == flops / 989e12
-    f2, b2 = yardstick.gmm_need(s, t, backward=True)
+    f2, b2 = FAM.gmm_need(s, t, backward=True)
     assert (f2, b2) == (3 * flops, 3 * nbytes)
 
 
@@ -35,28 +41,28 @@ def test_capacity_of_a_decode_group():
 
 def test_decode_attention_bytes_at_ragged_positions():
     s = sizes("granite-moe-3b-a800m.rag-2k")         # 8 KV heads of 64, 24 q
-    got = yardstick.decode_attn_bytes(s, [0, 5, 2047])
+    got = yardstick.decode_attn_bytes(FAM, s, [0, 5, 2047])
     kv_row = 2 * 8 * 64 * 2
     q_io = 2 * 24 * 64 * 2
     assert got == 32 * ((1 + 6 + 2048) * kv_row + 3 * q_io)
 
 
 def test_model_flops_on_a_tiny_config():
-    s = yardstick.Sizes(n_layers=2, d_model=4, n_heads=2, n_kv_heads=1,
-                        head_dim=2, vocab_size=10, padded_vocab=16,
-                        n_experts=4, top_k=2, d_expert=3, n_shared=1,
-                        first_dense_d_ff=5, tie_embeddings=False,
-                        rope_theta=1e4, norm_eps=1e-5, capacity_factor=1.25)
+    s = FAM.Sizes(n_layers=2, d_model=4, n_heads=2, n_kv_heads=1,
+                  head_dim=2, vocab_size=10, padded_vocab=16,
+                  n_experts=4, top_k=2, d_expert=3, n_shared=1,
+                  first_dense_d_ff=5, tie_embeddings=False,
+                  rope_theta=1e4, norm_eps=1e-5, capacity_factor=1.25)
     attn = 4 * (4 + 2 * 2) + 4 * 4                   # q, k, v, o
     moe = 4 * 4 + (2 + 1) * 3 * 4 * 3                # router, 2 + 1 experts
     per_token = 2 * attn + 1 * moe + 3 * 4 * 5       # one dense layer
-    assert yardstick.token_matmul_params(s) == per_token
+    assert FAM.token_matmul_params(s) == per_token
     pairs = 3 * (1 + 2 + 3)                          # 3 prompts of 3
     want = 2 * per_token * 9 + 4 * 4 * 2 * pairs + 2 * 4 * 10 * 3
-    assert yardstick.prefill_flops(s, 3, 3) == want
+    assert yardstick.prefill_flops(FAM, s, 3, 3) == want
     step = 2 * per_token * 3 + 4 * 4 * 2 * (3 * 4) + 2 * 4 * 10 * 3
-    assert yardstick.decode_flops(s, 3, 3) == step
-    assert yardstick.train_flops(s, 3, 3) == 3 * (
+    assert yardstick.decode_flops(FAM, s, 3, 3) == step
+    assert yardstick.train_flops(FAM, s, 3, 3) == 3 * (
         2 * per_token * 9 + 4 * 4 * 2 * pairs + 2 * 4 * 10 * 9)
 
 
@@ -71,9 +77,9 @@ def test_batches_repeat_for_a_seed_and_differ_across_seeds(seed):
 
 
 def test_weights_redraw_leaf_by_leaf():
-    s = harness.smoke_sizes(sizes("deepseek-moe-16b.prefill-256"))
-    params = inputs.draw_weights(s, 2**33 + 5, "cpu")
-    specs = inputs.leaf_specs(s)
+    s = FAM.smoke(sizes("deepseek-moe-16b.prefill-256"))
+    specs = FAM.leaf_specs(s)
+    params = inputs.draw_weights(specs, 2**33 + 5, "cpu")
     assert len(specs) == sum(1 for _ in _leaves(params))
     for i in (0, 7, len(specs) - 1):
         again = inputs.draw_leaf(specs[i], i, 2**33 + 5, "cpu", train=False)

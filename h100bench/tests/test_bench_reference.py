@@ -19,7 +19,7 @@ CELLS = [w["name"] for w in harness.benchmark()["workloads"]]
 
 def _smoke(name):
     cell = harness.find_cell(name)
-    return cell, harness.smoke_sizes(cell.sizes)
+    return cell, cell.family.smoke(cell.sizes)
 
 
 def _f32(cell, s):
@@ -34,7 +34,8 @@ def test_reference_serves_as_the_program_does(name):
     from repro_torch.models import Parallel, prefill
     cell, s = _smoke(name)
     cfg = _f32(cell, s)
-    params = inputs.draw_weights(s, 5, "cpu", train=True)
+    params = inputs.draw_weights(cell.family.leaf_specs(s), 5, "cpu",
+                                 train=True)
     prompts = inputs.tokens(5, inputs.BATCHES, 0, (6, 16), s.vocab_size, "cpu")
     fed = inputs.tokens(5, inputs.BATCHES, 1, (6, 5), s.padded_vocab, "cpu")
     par = Parallel(mesh=None)
@@ -47,7 +48,7 @@ def test_reference_serves_as_the_program_does(name):
             _, logits, cache = step(params, cache, fed[:, j:j + 1], pos + j)
             got.append(logits)
     got = torch.stack(got, dim=1)
-    want = reference.serve_logits(s, params, prompts, fed)
+    want = cell.family.serve_logits(s, params, prompts, fed)
     assert want.shape == got.shape
     torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
 
@@ -64,7 +65,8 @@ def test_reference_trains_as_the_program_does():
                 for i in range(3))]
     opt = dict(lr=3e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
                grad_clip=1.0)
-    params = inputs.draw_weights(s, 3, "cpu", train=True)
+    params = inputs.draw_weights(cell.family.leaf_specs(s), 3, "cpu",
+                                 train=True)
     state = adamw_init(params)
     step = make_train_step(cfg, Parallel(mesh=None), AdamWConfig(**opt),
                            cosine_schedule(2, 100))
@@ -73,8 +75,9 @@ def test_reference_trains_as_the_program_does():
         params, state, m = step(params, state, {"tokens": tokens,
                                                 "labels": labels})
         losses.append(float(m["loss"]))
-    mine = inputs.draw_weights(s, 3, "cpu", train=True)
-    ref = reference.train_steps(s, mine, batches, opt,
+    mine = inputs.draw_weights(cell.family.leaf_specs(s), 3, "cpu",
+                               train=True)
+    ref = reference.train_steps(cell.family.loss, s, mine, batches, opt,
                                 reference.cosine(2, 100))
     assert losses == pytest.approx(ref["loss"], rel=1e-5)
     for a, b in zip(tree_leaves(params), (t for _, t in reference.leaf_paths(mine))):
@@ -116,10 +119,12 @@ def test_nothing_loaded_is_jax_or_the_jax_package():
     code = (
         "import sys; sys.path[:0] = ['.', 'src']\n"
         "import h100bench.reference, h100bench.yardstick, h100bench.inputs\n"
+        "from h100bench import harness\n"
+        "for p in (harness.HERE / 'families').glob('[!_]*.py'):\n"
+        "    harness.family(p.stem)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'repro', 'repro_torch')]\n"
         "assert not bad, bad\n"
-        "from h100bench import harness\n"
         "for m in harness.benchmark()['per_layer']:\n"
         "    harness.reader(m['name'])\n"
         "cell = harness.find_cell('granite-moe-3b-a800m.rag-2k')\n"
